@@ -5,22 +5,43 @@ card (marked ``cuda``, skipped without one; run on a GPU machine with
 ST field: both sides round every matmul operand to bf16 and accumulate in
 f32, but sum in different orders, which can flip an activation's bf16
 rounding (2^-8 relative) and the flip propagates: max |err| ≤ 3e-2 at
-outputs of magnitude ≲ 4, mean |err| ≤ 1e-3.  Composite: float32 on both
+outputs of magnitude ≲ 4, mean |err| ≤ 1e-3.  The feature residual the
+training forward writes reaches ~10, where one bf16 ulp is 2^-7 of the
+value: |err| ≤ 3e-2·max(|ref|, 1) per element, mean |err| ≤ 1e-3.  Composite: float32 on both
 sides, 1e-4 covers the summation order.
+
+Backward kernels.  Field: the kernel's residual feeds both the kernel and
+its twin, so they differ only where a different f32 summation order flips
+a bf16 rounding of an activation or a gradient inside the chain, plus the
+order of the cross-tile atomic sums.  Each flip moves one term by 2^-8
+relative, and with random-sign gradients the sums cancel to ~√M terms, so
+the bound is on the norm: ‖kernel − twin‖ ≤ FIELD_BWD_REL·‖twin‖ for every
+gradient tensor, and no element off by more than FIELD_BWD_MAX of the
+tensor's largest magnitude (a wrong index or image would miss by O(1)).
+Composite: float32 on both sides, only the order of the suffix sums
+differs: 1e-4 of the largest magnitude.
 """
 
 import pytest
 import torch
 
-from texpose_tpu_torch.kernels.composite import (composite_st_fwd,
+from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
+                                                 composite_st_bwd_plain,
+                                                 composite_st_fwd,
                                                  composite_st_plain)
 from texpose_tpu_torch.kernels.st_field import (STFieldWeights, make_xext,
+                                                st_field_bwd,
+                                                st_field_bwd_plain,
                                                 st_field_fwd, st_field_plain)
 from texpose_tpu_torch.nn.init import dense_init
 from texpose_tpu_torch.nn.mlp import Dense
 from texpose_tpu_torch.ops.render import _dists
 
 pytestmark = pytest.mark.cuda
+
+FIELD_BWD_REL = 1e-2
+FIELD_BWD_MAX = 5e-2
+COMPOSITE_BWD_REL = 1e-4
 
 
 @pytest.fixture
@@ -69,6 +90,89 @@ def test_st_field_kernel_matches_plain(cuda, B, rows_per_img):
         assert a.shape == b.shape
         err = (a - b).abs()
         assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
+
+
+def _field_inputs(device, B, rows_per_img, seed):
+    g = torch.Generator().manual_seed(seed)
+    M = B * rows_per_img
+    pts = (torch.randn(M, 3, generator=g) * 0.5).to(device)
+    xext = make_xext(pts, 10, torch.ones(10, device=device))
+    encpts = torch.cat([torch.randn(M, 27, generator=g).to(device), pts], 1)
+    light = torch.randn(B, 48, generator=g).to(device)
+    trans = torch.randn(B, 16, generator=g).to(device)
+    return xext, encpts, light, trans
+
+
+def _rel_err(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _norm_err(a, b):
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+@pytest.mark.parametrize("B,rows_per_img", [(8, 16384), (3, 333)])
+def test_st_field_bwd_kernel_matches_plain(cuda, B, rows_per_img):
+    """The train step's shape (8 images x 16,384 rows = 131,072) and one
+    whose tiles straddle image boundaries."""
+    w = _weights(cuda)
+    xext, encpts, light, trans = _field_inputs(cuda, B, rows_per_img, B)
+    M = xext.shape[0]
+    g = torch.Generator().manual_seed(7)
+    g_rgb = (torch.randn(M, 3, generator=g) * 1e-3).to(cuda)
+    g_trans = (torch.randn(M, 5, generator=g) * 1e-3).to(cuda)
+    with torch.no_grad():
+        n0 = st_field_fwd.launches
+        *out, feat = st_field_fwd(xext, encpts, light, trans, w,
+                                  rows_per_img, want_feat=True)
+        *ref, feat_ref = st_field_plain(xext, encpts, light, trans, w,
+                                        rows_per_img, want_feat=True)
+        assert st_field_fwd.launches == n0 + 1
+        assert feat.dtype == torch.bfloat16 and feat.shape == (M, 256)
+        err = (feat.float() - feat_ref).abs()
+        assert float((err / feat_ref.abs().clamp(min=1.0)).max()) <= 3e-2
+        assert float(err.mean()) <= 1e-3
+        for a, b in zip(out, ref):
+            err = (a - b).abs()
+            assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
+        n0 = st_field_bwd.launches
+        got = st_field_bwd(feat, encpts, light, trans, w, rows_per_img,
+                           g_rgb, g_trans)
+        torch.cuda.synchronize()
+        assert st_field_bwd.launches == n0 + 1
+        want = st_field_bwd_plain(feat, encpts, light, trans, w,
+                                  rows_per_img, g_rgb, g_trans)
+    flat_got = list(got[0]) + [got[1], got[2]]
+    flat_want = list(want[0]) + [want[1], want[2]]
+    for a, b in zip(flat_got, flat_want):
+        assert a.shape == b.shape
+    norm = [_norm_err(a, b) for a, b in zip(flat_got, flat_want)]
+    peak = [_rel_err(a, b) for a, b in zip(flat_got, flat_want)]
+    print("st_field_bwd norm errors:", [f"{e:.1e}" for e in norm])
+    print("st_field_bwd max errors:", [f"{e:.1e}" for e in peak])
+    assert max(norm) <= FIELD_BWD_REL and max(peak) <= FIELD_BWD_MAX
+
+
+@pytest.mark.parametrize("BR,N", [(2048, 64), (37, 16), (5, 100)])
+def test_composite_bwd_kernel_matches_plain(cuda, BR, N):
+    g = torch.Generator().manual_seed(N + 1)
+    M = BR * N
+    rgb_raw = torch.randn(M, 3, generator=g).to(cuda)
+    trans_raw = torch.randn(M, 5, generator=g).to(cuda)
+    dens_raw = (torch.randn(M, 1, generator=g) * 3).to(cuda)
+    depth = torch.sort(torch.rand(BR, N, generator=g) * 4 + 2,
+                       dim=1).values.to(cuda)
+    ray = torch.randn(1, BR, 3, generator=g).to(cuda)
+    dist = _dists(depth.reshape(1, BR, N, 1), ray).reshape(BR, N)
+    cot = torch.randn(BR, 16, generator=g).to(cuda)
+    n0 = composite_st_bwd.launches
+    got = composite_st_bwd(rgb_raw, trans_raw, dens_raw, dist, cot)
+    torch.cuda.synchronize()
+    assert composite_st_bwd.launches == n0 + 1
+    want = composite_st_bwd_plain(rgb_raw, trans_raw, dens_raw, dist, cot)
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    print("composite_st_bwd relative errors:", errs)
+    assert max(errs) <= COMPOSITE_BWD_REL
 
 
 @pytest.mark.parametrize("BR,N", [(2048, 64), (37, 16), (5, 100)])

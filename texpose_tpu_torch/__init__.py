@@ -8,17 +8,22 @@ and ``AsyncWriter``) is shared with the JAX package rather than copied; the
 port reaches it only through ``data/``, ``utils/config.py``,
 ``utils/log.py`` and ``utils/pipeline.py``.
 
-Layer map (bottom → top), the slice ported so far (novel-view evaluation of
-the texture model, ``model=nerf_adapt_st_gan``):
+Layer map (bottom → top), the slices ported so far (novel-view evaluation
+and training of the texture model, ``model=nerf_adapt_st_gan``):
   geometry/   ray generation (pixel grid, unprojection, NDC)
-  ops/        positional encoding, depth sampling + compositing, SSIM, resize
-  nn/         the static/transient/light field, dense layers, LPIPS
-  kernels/    hand-written Hopper kernels (CUDA C++ in csrc/) + their
-              plain-PyTorch twins
+  sampling/   patch coordinates and patch rays for training
+  ops/        positional encoding, depth sampling + compositing, grid
+              sampling, Lab color, SSIM, resize
+  nn/         the static/transient/light field, dense layers, VGG19
+              features, the patch discriminator, LPIPS
+  kernels/    hand-written Hopper kernels (CUDA C++ in csrc/), their
+              plain-PyTorch twins and autograd Functions
   data/       host-side dataset readers and the fixture (shared)
-  models/     chunked rendering and the evaluation half of the engine
-  utils/      checkpoint bridge (JAX npz ↔ state_dict), metrics, prefetch,
-              config and log (shared)
+  models/     rendering, losses, optimizers and the engine (train step,
+              validation, evaluation)
+  utils/      checkpoint bridge (JAX npz ↔ torch, both ways), metrics,
+              prefetch, config and log (shared)
+  train.py    the ``python -m texpose_tpu_torch.train`` entry point
   evaluate.py the ``python -m texpose_tpu_torch.evaluate`` entry point
 """
 

@@ -1,10 +1,13 @@
-// Forward of the NeRF-W dual-density composite, written by hand for Hopper
-// (sm_90a) and bound to PyTorch through ctypes
+// Forward and backward of the NeRF-W dual-density composite, written by hand
+// for Hopper (sm_90a) and bound to PyTorch through ctypes
 // (texpose_tpu_torch/kernels/composite.py).
 //
 // Replaces: texpose_tpu/kernels/fused_composite.py::_run_fwd (the forward
-// pallas_call; _forward_core + _fwd_cols).
+// pallas_call; _forward_core + _fwd_cols) and ::_run_bwd (the backward
+// pallas_call; _bwd_cols), and their flat-input variants _run_fwd_flat /
+// _run_bwd_flat: both kernels here read and write the flat [M,C] layout.
 //
+// FORWARD (composite_st_fwd_kernel).
 // One warp per ray, S = ceil(N/32) consecutive samples per lane (N = 64: two).
 // Each lane reads its samples' raw field outputs straight from the
 // interleaved [M,3] / [M,5] / [M,1] buffers (row = ray*N + n), so the
@@ -24,6 +27,17 @@
 // per ray, about 40 flops and 7 transcendentals per sample.  Design: each
 // warp's loads cover contiguous rows, nothing is staged in shared memory,
 // and no intermediate leaves registers.
+//
+// BACKWARD (composite_st_bwd_kernel): the closed-form VJP of _bwd_cols from
+// the packed [BR,16] cotangent, one warp per ray as above.  It recomputes
+// the forward quantities, then the two strict suffix sums of _bwd_cols
+// (through the joint T and through T_t; both enter d sdt with a minus sign,
+// so they are taken as one sum) as a reverse running sum inside the lane
+// plus a warp shuffle scan of the lane totals.  It writes d rgb_raw [M,3]
+// and d trans_raw [M,5] in the flat layout the field's backward reads; the
+// static density is frozen-trunk output and gets no gradient.  Bound and
+// design as the forward: 40 B read and 32 B written per sample, ~80 flops,
+// everything in registers.
 
 #include <cuda_runtime.h>
 
@@ -141,12 +155,126 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int S>
+__global__ void __launch_bounds__(kThreads)
+    composite_st_bwd_kernel(const float* __restrict__ rgb,
+                            const float* __restrict__ tr,
+                            const float* __restrict__ dens,
+                            const float* __restrict__ dist,
+                            const float* __restrict__ gpk, int BR, int N,
+                            float* __restrict__ d_rgb,
+                            float* __restrict__ d_tr) {
+  const int ray = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (ray >= BR) return;                      // uniform across the warp
+
+  float g[15];                                // column 15 is padding
+#pragma unroll
+  for (int j = 0; j < 15; ++j) g[j] = __ldg(gpk + (size_t)ray * 16 + j);
+
+  float cs[3][S], ct[3][S], u[S], sds[S], sdt[S], dd[S], sg3[S], sg4[S];
+  float tot = 0.f, tot_s = 0.f, tot_t = 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int n = lane * S + s;
+    if (n < N) {
+      const size_t row = (size_t)ray * N + n;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        cs[c][s] = sigmoidf_(__ldg(rgb + row * 3 + c));
+        ct[c][s] = sigmoidf_(__ldg(tr + row * 5 + c));
+      }
+      const float t3 = __ldg(tr + row * 5 + 3);
+      const float t4 = __ldg(tr + row * 5 + 4);
+      u[s] = softplusf_(t4);
+      sg3[s] = sigmoidf_(t3);                 // softplus' = sigmoid
+      sg4[s] = sigmoidf_(t4);
+      dd[s] = __ldg(dist + row);
+      sds[s] = softplusf_(__ldg(dens + row)) * dd[s];
+      sdt[s] = softplusf_(t3) * dd[s];
+    } else {                                  // padding lanes weigh nothing
+#pragma unroll
+      for (int c = 0; c < 3; ++c) cs[c][s] = ct[c][s] = 0.f;
+      u[s] = sds[s] = sdt[s] = dd[s] = sg3[s] = sg4[s] = 0.f;
+    }
+    tot += sds[s] + sdt[s];
+    tot_s += sds[s];
+    tot_t += sdt[s];
+  }
+  float run = warp_exclusive_sum(tot, lane);
+  float run_s = warp_exclusive_sum(tot_s, lane);
+  float run_t = warp_exclusive_sum(tot_t, lane);
+
+  // per sample: the weights, the local part of d sdt, and v = what the
+  // sample's T_n and T_t,n pass to every earlier sample's sdt
+  float ps[S], pt[S], ws[S], wt[S], loc[S], v[S];
+  float vtot = 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float T = expf(-run), Ts = expf(-run_s), Tt = expf(-run_t);
+    const float sd = sds[s] + sdt[s];
+    const float e_s = expf(-sds[s]), e_t = expf(-sdt[s]), e = expf(-sd);
+    ps[s] = T * (1.f - e_s);
+    pt[s] = T * (1.f - e_t);
+    ws[s] = Ts * (1.f - e_s);
+    wt[s] = Tt * (1.f - e_t);
+    const float pj = T * (1.f - e);
+    float F_ps = 0.f, F_pt = u[s] * g[13], F_wt = g[12];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      F_ps += cs[c][s] * g[c];
+      F_pt += ct[c][s] * g[c];
+      F_wt += ct[c][s] * g[6 + c];
+    }
+    loc[s] = F_pt * T * e_t + F_wt * Tt * e_t + g[10] * T * e;
+    v[s] = F_ps * ps[s] + F_pt * pt[s] + g[10] * pj + F_wt * wt[s];
+    vtot += v[s];
+    run += sd;
+    run_s += sds[s];
+    run_t += sdt[s];
+  }
+  // Σ of v over the lanes above this one (suffix scan of the lane totals)
+  float suf = vtot;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_down_sync(kFull, suf, o);
+    if (lane + o < 32) suf += y;
+  }
+  suf -= vtot;
+#pragma unroll
+  for (int s = S - 1; s >= 0; --s) {
+    const float strict = suf;                 // Σ_{n' > n} v_n'
+    suf += v[s];
+    const int n = lane * S + s;
+    if (n >= N) continue;
+    const size_t row = (size_t)ray * N + n;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      d_rgb[row * 3 + c] =
+          (ps[s] * g[c] + ws[s] * g[3 + c]) * cs[c][s] * (1.f - cs[c][s]);
+      d_tr[row * 5 + c] =
+          (pt[s] * g[c] + wt[s] * g[6 + c]) * ct[c][s] * (1.f - ct[c][s]);
+    }
+    d_tr[row * 5 + 3] = ((loc[s] - strict) * dd[s] + g[14]) * sg3[s];
+    d_tr[row * 5 + 4] = pt[s] * g[13] * sg4[s];
+  }
+}
+
+template <int S>
 void launch(const float* rgb, const float* tr, const float* dens,
             const float* depth, const float* dist, int BR, int N,
             float min_uncert, float* out, cudaStream_t stream) {
   const int blocks = (BR * 32 + kThreads - 1) / kThreads;
   composite_st_fwd_kernel<S><<<blocks, kThreads, 0, stream>>>(
       rgb, tr, dens, depth, dist, BR, N, min_uncert, out);
+}
+
+template <int S>
+void launch_bwd(const float* rgb, const float* tr, const float* dens,
+                const float* dist, const float* g, int BR, int N,
+                float* d_rgb, float* d_tr, cudaStream_t stream) {
+  const int blocks = (BR * 32 + kThreads - 1) / kThreads;
+  composite_st_bwd_kernel<S><<<blocks, kThreads, 0, stream>>>(
+      rgb, tr, dens, dist, g, BR, N, d_rgb, d_tr);
 }
 
 }  // namespace
@@ -173,6 +301,35 @@ extern "C" int composite_st_fwd(const void* rgb, const void* tr,
     launch<4>(a, b, c, d, e, BR, N, min_uncert, o, st);
   else if (N <= 256)
     launch<8>(a, b, c, d, e, BR, N, min_uncert, o, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Launches the backward on `stream`: g [BR,16] → d_rgb [M,3], d_tr [M,5];
+// returns cudaGetLastError() (0 = launched).
+extern "C" int composite_st_bwd(const void* rgb, const void* tr,
+                                const void* dens, const void* dist,
+                                const void* g, int BR, int N, void* d_rgb,
+                                void* d_tr, void* stream) {
+  if (BR <= 0) return 0;
+  const float* a = static_cast<const float*>(rgb);
+  const float* b = static_cast<const float*>(tr);
+  const float* c = static_cast<const float*>(dens);
+  const float* e = static_cast<const float*>(dist);
+  const float* gg = static_cast<const float*>(g);
+  float* o1 = static_cast<float*>(d_rgb);
+  float* o2 = static_cast<float*>(d_tr);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  if (N <= 32)
+    launch_bwd<1>(a, b, c, e, gg, BR, N, o1, o2, st);
+  else if (N <= 64)
+    launch_bwd<2>(a, b, c, e, gg, BR, N, o1, o2, st);
+  else if (N <= 128)
+    launch_bwd<4>(a, b, c, e, gg, BR, N, o1, o2, st);
+  else if (N <= 256)
+    launch_bwd<8>(a, b, c, e, gg, BR, N, o1, o2, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

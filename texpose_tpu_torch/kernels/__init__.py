@@ -5,5 +5,9 @@ launches its kernel (built from ``csrc/`` at first use) or raises.  Each
 wrapper counts its kernel launches in a ``launches`` attribute.
 
   st_field.st_field_fwd       ← texpose_tpu/kernels/fused_st_field.py fwd
+  st_field.st_field_bwd       ← texpose_tpu/kernels/fused_st_field.py bwd
   composite.composite_st_fwd  ← texpose_tpu/kernels/fused_composite.py fwd
+  composite.composite_st_bwd  ← texpose_tpu/kernels/fused_composite.py bwd
+``st_field.st_field`` and ``composite.fused_composite_st`` pair each
+forward with its backward in a ``torch.autograd.Function``.
 """

@@ -1,12 +1,13 @@
-"""Static/transient/light field forward: the CUDA kernel's wrapper and its
-plain-PyTorch twin.
+"""Static/transient/light field, forward and backward: the CUDA kernels'
+wrappers, their plain-PyTorch twins, and the autograd Function that pairs
+them (``st_field``).
 
-Replaces texpose_tpu/kernels/fused_st_field.py (``fused_st_field``
-forward, ``_run_fwd``) on the evaluation path.  The kernel is
-``csrc/st_field.cu``; its header says what bounds it on the card and how
-its design answers that.
+Replaces texpose_tpu/kernels/fused_st_field.py (``fused_st_field``:
+``_run_fwd`` and ``_run_bwd`` with ``_finish_split``).  The kernels are in
+``csrc/st_field.cu``; its header says what bounds them on the card and how
+their design answers that.
 
-Contract (as the JAX op in its default "xext" + split-heads mode):
+Forward contract (as the JAX op in its default "xext" + split-heads mode):
   xext   [M, 3+6L] f32  pts ⊕ c2f-weighted sin/cos bands (``make_xext``)
   encpts [M, E+3]  f32  view encoding ⊕ pts (the RGB head's row input)
   light  [B, Dl], trans [B, Dt]  per-image latents; row m belongs to image
@@ -16,6 +17,14 @@ The latent columns of both heads' layer 0 are pre-multiplied once per call
 into [B,256] rows (``latent_rows``), so layer 0 adds a row instead of
 concatenating [M,48]/[M,16] broadcasts.  Both paths round every matmul
 operand to compute_dtype and accumulate in float32.
+
+Backward contract (the trunk is frozen): from the forward's [M,256]
+feature residual, enc⊕pts, the latents and the raw-output gradients
+g_rgb [M,3], g_trans [M,5] → the gradients of every head Dense weight and
+bias, and of the gathered latent rows light [B,Dl] and trans [B,Dt].
+Nothing flows to the trunk, the points or the encodings.  The products
+round both operands to compute_dtype (the JAX kernel's ``.astype(cdtype)``
+before every ``_dot_t1``/``_dot_t2``); bias and latent sums stay f32.
 """
 
 from __future__ import annotations
@@ -81,61 +90,89 @@ def _pad_bias(b, n_pad):
 
 class STFieldWeights:
     """The field's dense layers (objects with ``.w`` [in,out] and ``.b``)
-    plus the kernel's packed copy of them, rebuilt whenever a parameter is
-    modified in place (load_state_dict bumps ``_version``)."""
+    plus the kernels' packed copies of them.  Each pack is rebuilt whenever
+    one of its parameters is modified in place (an optimizer step or
+    load_state_dict bumps ``_version``): the trunk pack only when a trunk
+    tensor changed, the head packs whenever a head tensor did."""
 
     def __init__(self, trunk, rgb, trans, skip):
         self.trunk, self.rgb, self.trans = list(trunk), list(rgb), list(trans)
         self.skip = tuple(sorted(int(s) for s in skip))
         self.feat_dim = self.trunk[-1].w.shape[1] - 1
-        self._packed_key = None
-        self._packed = None
+        self._packs = {}
 
-    def _tensors(self):
-        for layer in self.trunk + self.rgb + self.trans:
-            yield layer.w
-            yield layer.b
+    def _cached(self, name, extra, layers, build):
+        key = tuple(extra) + tuple((id(t), t._version, t.device)
+                                   for layer in layers
+                                   for t in (layer.w, layer.b))
+        hit = self._packs.get(name)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+        with torch.no_grad():
+            value = build()
+        self._packs[name] = (key, value)
+        return value
 
-    def _check_kernel_shapes(self, xw, e3):
-        def bad(msg):
-            raise ValueError(f"st_field CUDA kernel: {msg}")
+    @staticmethod
+    def _bad(msg):
+        raise ValueError(f"st_field CUDA kernel: {msg}")
+
+    def _check_trunk(self, xw):
         if 0 in self.skip or len(self.trunk) > 31:
-            bad(f"unsupported trunk (skip {self.skip}, "
-                f"{len(self.trunk)} layers)")
+            self._bad(f"unsupported trunk (skip {self.skip}, "
+                      f"{len(self.trunk)} layers)")
         n = len(self.trunk)
         for li, layer in enumerate(self.trunk):
             n_in = xw if li == 0 else HIDDEN + (xw if li in self.skip else 0)
             want = (n_in, HIDDEN + (li == n - 1))
             if tuple(layer.w.shape) != want:
-                bad(f"trunk layer {li} is {tuple(layer.w.shape)}, "
-                    f"expected {want}")
+                self._bad(f"trunk layer {li} is {tuple(layer.w.shape)}, "
+                          f"expected {want}")
+
+    def _check_heads(self, e3):
         for name, head, n_out in (("rgb", self.rgb, 3),
                                   ("trans", self.trans, 5)):
             shapes = [tuple(layer.w.shape) for layer in head]
-            if (len(head) < 2 or shapes[0][1] != HIDDEN
+            if (len(head) < 2 or len(head) > 16 or shapes[0][1] != HIDDEN
                     or shapes[-1] != (HIDDEN, n_out)
                     or any(s != (HIDDEN, HIDDEN) for s in shapes[1:-1])):
-                bad(f"{name} head layers {shapes}")
+                self._bad(f"{name} head layers {shapes}")
         if self.rgb[0].w.shape[0] <= self.feat_dim + e3:
-            bad("rgb layer 0 has no latent rows")
+            self._bad("rgb layer 0 has no latent rows")
 
     def kernel_buffers(self, xw, e3):
-        """(wpack bf16 flat, bias f32 flat, kx, ke) in the kernel's walk
-        order: trunk layers (the last split into 256 feature columns and
-        one density tile), then the RGB head, then the transient head."""
+        """Forward: (trunk wpack bf16, trunk bias f32, heads wpack, heads
+        bias, kx, ke) in the kernel's walk order: trunk layers (the last
+        split into 256 feature columns and one density tile); then the RGB
+        head, then the transient head."""
         kx, ke = _ceil16(xw), _ceil16(e3)
-        key = (xw, e3) + tuple((id(t), t._version, t.device)
-                               for t in self._tensors())
-        if key == self._packed_key:
-            return self._packed
-        self._check_kernel_shapes(xw, e3)
-        with torch.no_grad():
-            packed = self._pack(xw, e3, kx, ke)
-        self._packed_key, self._packed = key, packed
-        return packed
+        trunk = self._cached("trunk", (xw,), self.trunk,
+                             lambda: self._pack_trunk(xw, kx))
+        heads = self._cached("heads", (e3,), self.rgb + self.trans,
+                             lambda: self._pack_heads(e3, ke))
+        return trunk + heads + (kx, ke)
 
-    def _pack(self, xw, e3, kx, ke):
-        F = self.feat_dim
+    def kernel_buffers_bwd(self, e3):
+        """Backward: (heads wpack, heads bias, Wᵀ pack, ke); the Wᵀ pack
+        holds each head's layers 1..n-1 transposed ([out, in], out padded
+        to 16 for the output layers), RGB head first."""
+        ke = _ceil16(e3)
+
+        def build_t():
+            self._check_heads(e3)
+            return _cat_packs(
+                [_pack_layer(layer.w.t(), [(0, layer.w.shape[1],
+                                            _ceil16(layer.w.shape[1]))],
+                             HIDDEN, HIDDEN)
+                 for head in (self.rgb, self.trans) for layer in head[1:]])
+
+        heads = self._cached("heads", (e3,), self.rgb + self.trans,
+                             lambda: self._pack_heads(e3, ke))
+        wT = self._cached("heads_t", (e3,), self.rgb + self.trans, build_t)
+        return heads + (wT, ke)
+
+    def _pack_trunk(self, xw, kx):
+        self._check_trunk(xw)
         H = HIDDEN
         ws, bs = [], []
         n = len(self.trunk)
@@ -154,6 +191,12 @@ class STFieldWeights:
                 bs.append(layer.b[1:])
                 ws.append(_pack_layer(layer.w[:, :1], segs, 1, _OUT_TILE))
                 bs.append(_pad_bias(layer.b[:1], _OUT_TILE))
+        return _cat_packs(ws), _cat_packs(bs, torch.float32)
+
+    def _pack_heads(self, e3, ke):
+        self._check_heads(e3)
+        F, H = self.feat_dim, HIDDEN
+        ws, bs = [], []
         for head, first_segs in ((self.rgb, [(0, F, H), (F, F + e3, ke)]),
                                  (self.trans, [(0, F, H)])):
             for li, layer in enumerate(head):
@@ -165,8 +208,18 @@ class STFieldWeights:
                     n_out = layer.w.shape[1]
                     ws.append(_pack_layer(layer.w, segs, n_out, _OUT_TILE))
                     bs.append(_pad_bias(layer.b, _OUT_TILE))
-        return (torch.cat(ws).contiguous(),
-                torch.cat([b.float() for b in bs]).contiguous(), kx, ke)
+        return _cat_packs(ws), _cat_packs(bs, torch.float32)
+
+    def head_params(self):
+        """The heads' tensors in the order the backward returns their
+        gradients: RGB (w, b) per layer, then transient."""
+        return [t for head in (self.rgb, self.trans) for layer in head
+                for t in (layer.w, layer.b)]
+
+
+def _cat_packs(parts, dtype=None):
+    out = torch.cat([p.reshape(-1) for p in parts]).contiguous()
+    return out if dtype is None else out.to(dtype)
 
 
 def _latent_rows(weights, light, trans, e3, compute_dtype):
@@ -176,9 +229,10 @@ def _latent_rows(weights, light, trans, e3, compute_dtype):
 
 
 def st_field_plain(xext, encpts, light, trans, weights, rows_per_img,
-                   compute_dtype=torch.bfloat16):
-    """The kernel's plain-PyTorch twin: same signature, same rounding
-    points."""
+                   compute_dtype=torch.bfloat16, want_feat=False):
+    """The forward kernel's plain-PyTorch twin: same signature, same
+    rounding points.  want_feat adds the residual (the trunk features as
+    the heads read them: rounded to compute_dtype, held in float32)."""
     def c(x):
         return round_to(x, compute_dtype)
 
@@ -207,35 +261,135 @@ def st_field_plain(xext, encpts, light, trans, weights, rows_per_img,
             h = relu(c(h) @ c(layer.w) + layer.b)
         return c(h) @ c(layers[-1].w) + layers[-1].b
 
-    return (head(weights.rgb, encpts, lrow), dens,
-            head(weights.trans, None, trow))
+    out = (head(weights.rgb, encpts, lrow), dens,
+           head(weights.trans, None, trow))
+    return out + (c(feat),) if want_feat else out
 
 
-_ARGTYPES = {"st_field_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-             + [ctypes.c_void_p]}
+def _image_index(M, rows_per_img, n_img, device):
+    return torch.clamp(torch.arange(M, device=device) // rows_per_img,
+                       max=n_img - 1)
+
+
+def st_field_bwd_plain(feat, encpts, light, trans, weights, rows_per_img,
+                       g_rgb, g_trans, compute_dtype=torch.bfloat16):
+    """The backward kernel's plain-PyTorch twin (any layer width): the
+    heads recomputed from the feature residual, then each layer's
+    dW = round(h)ᵀ·round(g), db = Σ g, g ← (round(g)·round(W)ᵀ)⊙[h > 0]
+    down to layer 0, whose row sums per image are the latent rows'
+    gradient.  Returns what ``st_field_bwd`` returns."""
+    def c(x):
+        return round_to(x, compute_dtype)
+
+    e3 = encpts.shape[1]
+    lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
+    M = feat.shape[0]
+    img = _image_index(M, rows_per_img, lrow.shape[0], feat.device)
+    featc = c(feat.float())
+    ep = c(encpts.float())
+    parts, dlat = {}, {}
+    for name, layers, extra, lat, g_out in (
+            ("rgb", weights.rgb, ep, lrow, g_rgb),
+            ("trans", weights.trans, None, trow, g_trans)):
+        x0 = featc if extra is None else torch.cat([featc, extra], dim=-1)
+        hs = [relu(c(x0) @ c(layers[0].w[:x0.shape[1]]) + lat[img]
+                   + layers[0].b)]
+        for layer in layers[1:-1]:
+            hs.append(relu(c(hs[-1]) @ c(layer.w) + layer.b))
+        g = g_out.float()
+        for li in range(len(layers) - 1, 0, -1):
+            parts[(name, li, "w")] = c(hs[li - 1]).t() @ c(g)
+            parts[(name, li, "b")] = g.sum(0)
+            g = (c(g) @ c(layers[li].w).t()) * (hs[li - 1] > 0)
+        parts[(name, 0, "w")] = featc.t() @ c(g)
+        if extra is not None:
+            parts[(name, 0, "w_ep")] = extra.t() @ c(g)
+        parts[(name, 0, "b")] = g.sum(0)
+        dlat[name] = torch.zeros((lat.shape[0], g.shape[1]),
+                                 dtype=torch.float32,
+                                 device=g.device).index_add_(0, img, g)
+    return _finish_bwd(weights, parts, dlat["rgb"], dlat["trans"], light,
+                       trans, e3)
+
+
+def _grad_layout(weights, ke):
+    """[(head, layer, part, rows, cols)] of the backward kernel's flat f32
+    output, in its walk order: per head and layer, dW (output layers padded
+    to one 8-column tile), for RGB layer 0 also the enc⊕pts block [ke,256],
+    then db."""
+    out = []
+    for name, head in (("rgb", weights.rgb), ("trans", weights.trans)):
+        for li, layer in enumerate(head):
+            cols = HIDDEN if li < len(head) - 1 else _OUT_TILE
+            out.append((name, li, "w", HIDDEN, cols))
+            if li == 0 and name == "rgb":
+                out.append((name, li, "w_ep", ke, cols))
+            out.append((name, li, "b", 1, cols))
+    return out
+
+
+def _finish_bwd(weights, parts, d_lrow, d_trow, light, trans, e3):
+    """The JAX op's _finish_split, in f32: the latent blocks' dW rows
+    (latentᵀ·d_row) and the latents' own gradients (d_row·W_latᵀ) from the
+    per-image layer-0 row sums; the head gradients back in the parameter
+    layout.  → (head grads in ``head_params`` order, d_light, d_trans)."""
+    F = weights.feat_dim
+    out = []
+    for name, head, lat, d_row in (("rgb", weights.rgb, light, d_lrow),
+                                   ("trans", weights.trans, trans, d_trow)):
+        for li, layer in enumerate(head):
+            n_out = layer.w.shape[1]
+            dw = parts[(name, li, "w")][:, :n_out]
+            if li == 0:
+                blocks = [dw]
+                if name == "rgb":
+                    blocks.append(parts[(name, 0, "w_ep")][:e3, :n_out])
+                blocks.append(lat.float().t() @ d_row)
+                dw = torch.cat(blocks, dim=0)
+            out += [dw, parts[(name, li, "b")].reshape(-1)[:n_out]]
+    d_light = d_lrow @ weights.rgb[0].w[F + e3:].float().t()
+    d_trans = d_trow @ weights.trans[0].w[F:].float().t()
+    return out, d_light, d_trans
+
+
+_ARGTYPES = {
+    "st_field_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "st_field_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+}
+
+
+def _check_rows(what, M, encpts, light, trans, rows_per_img):
+    if (encpts.shape[0] != M or rows_per_img <= 0
+            or -(-M // rows_per_img) > min(light.shape[0], trans.shape[0])):
+        raise ValueError(f"{what}: row counts disagree")
+
+
+def _check_cuda(what, x, compute_dtype):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("st_field CUDA kernel computes in bfloat16 only, "
+                         f"got compute_dtype={compute_dtype}")
 
 
 def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
-                 compute_dtype=torch.bfloat16):
-    """(rgb_raw [M,3], dens_raw [M,1], trans_raw [M,5]) f32.
+                 compute_dtype=torch.bfloat16, want_feat=False):
+    """(rgb_raw [M,3], dens_raw [M,1], trans_raw [M,5]) f32, plus the
+    [M,256] feature residual with want_feat (bf16 from the kernel).
 
     CPU tensors take ``st_field_plain``; CUDA tensors launch the kernel
     (bf16 compute only) or raise."""
     if xext.device.type == "cpu":
         return st_field_plain(xext, encpts, light, trans, weights,
-                              rows_per_img, compute_dtype)
-    if xext.device.type != "cuda":
-        raise ValueError(f"st_field_fwd: no kernel for {xext.device}")
-    if compute_dtype != torch.bfloat16:
-        raise ValueError("st_field CUDA kernel computes in bfloat16 only, "
-                         f"got compute_dtype={compute_dtype}")
+                              rows_per_img, compute_dtype, want_feat)
+    _check_cuda("st_field_fwd", xext, compute_dtype)
     M, xw = xext.shape
     e3 = encpts.shape[1]
     dev = xext.device
-    if (encpts.shape[0] != M or rows_per_img <= 0
-            or -(-M // rows_per_img) > min(light.shape[0], trans.shape[0])):
-        raise ValueError("st_field_fwd: row counts disagree")
-    wpack, bias, kx, ke = weights.kernel_buffers(xw, e3)
+    _check_rows("st_field_fwd", M, encpts, light, trans, rows_per_img)
+    wpack, bias, wh, bh, kx, ke = weights.kernel_buffers(xw, e3)
     if any(t.device != dev for t in (encpts, light, trans, wpack)):
         raise ValueError("st_field_fwd: inputs, latents and weights must "
                          f"all lie on {dev}")
@@ -248,17 +402,119 @@ def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
     rgb = torch.empty((M, 3), dtype=torch.float32, device=dev)
     dens = torch.empty((M, 1), dtype=torch.float32, device=dev)
     tr = torch.empty((M, 5), dtype=torch.float32, device=dev)
+    feat = (torch.empty((M, HIDDEN), dtype=torch.bfloat16, device=dev)
+            if want_feat else None)
     lib = _build.load("st_field", _ARGTYPES)
     skip_mask = sum(1 << s for s in weights.skip)
     err = lib.st_field_fwd(
-        xe.data_ptr(), wpack.data_ptr(), bias.data_ptr(), lrow.data_ptr(),
-        trow.data_ptr(), rgb.data_ptr(), dens.data_ptr(), tr.data_ptr(),
+        xe.data_ptr(), wpack.data_ptr(), bias.data_ptr(), wh.data_ptr(),
+        bh.data_ptr(), lrow.data_ptr(), trow.data_ptr(), rgb.data_ptr(),
+        dens.data_ptr(), tr.data_ptr(),
+        feat.data_ptr() if feat is not None else None,
         M, kx, ke, int(rows_per_img), lrow.shape[0], len(weights.trunk),
         len(weights.rgb), len(weights.trans), skip_mask,
         _build.stream_ptr(dev))
     _build.check(err, "st_field_fwd")
     st_field_fwd.launches += 1
-    return rgb, dens, tr
+    return (rgb, dens, tr, feat) if want_feat else (rgb, dens, tr)
 
 
 st_field_fwd.launches = 0
+
+
+def st_field_bwd(feat, encpts, light, trans, weights, rows_per_img, g_rgb,
+                 g_trans, compute_dtype=torch.bfloat16):
+    """Gradients of the heads and latents → (head grads in
+    ``weights.head_params()`` order, d_light [B,Dl], d_trans [B,Dt]), f32.
+
+    CPU tensors take ``st_field_bwd_plain``; CUDA tensors launch the
+    kernel (bf16 compute only) or raise."""
+    if feat.device.type == "cpu":
+        return st_field_bwd_plain(feat, encpts, light, trans, weights,
+                                  rows_per_img, g_rgb, g_trans,
+                                  compute_dtype)
+    _check_cuda("st_field_bwd", feat, compute_dtype)
+    M, e3 = feat.shape[0], encpts.shape[1]
+    dev = feat.device
+    _check_rows("st_field_bwd", M, encpts, light, trans, rows_per_img)
+    if (feat.dtype != torch.bfloat16 or tuple(feat.shape) != (M, HIDDEN)
+            or tuple(g_rgb.shape) != (M, 3)
+            or tuple(g_trans.shape) != (M, 5)):
+        raise ValueError("st_field_bwd: expects a bf16 [M,256] residual and "
+                         f"[M,3]/[M,5] gradients, got {feat.dtype} "
+                         f"{tuple(feat.shape)}, {tuple(g_rgb.shape)}, "
+                         f"{tuple(g_trans.shape)}")
+    wh, bh, wT, ke = weights.kernel_buffers_bwd(e3)
+    if any(t.device != dev for t in (encpts, light, trans, g_rgb, g_trans,
+                                     wh)):
+        raise ValueError("st_field_bwd: inputs, gradients, latents and "
+                         f"weights must all lie on {dev}")
+    lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
+    ep = torch.zeros((M, ke), dtype=torch.bfloat16, device=dev)
+    ep[:, :e3] = encpts
+    lrow = lrow.float().contiguous()
+    trow = trow.float().contiguous()
+    layout = _grad_layout(weights, ke)
+    grads = torch.zeros(sum(r * c for *_, r, c in layout),
+                        dtype=torch.float32, device=dev)
+    d_lrow = torch.zeros_like(lrow)
+    d_trow = torch.zeros_like(trow)
+    g_rgb = g_rgb.float().contiguous()
+    g_trans = g_trans.float().contiguous()
+    feat = feat.contiguous()
+    lib = _build.load("st_field", _ARGTYPES)
+    err = lib.st_field_bwd(
+        feat.data_ptr(), ep.data_ptr(), g_rgb.data_ptr(), g_trans.data_ptr(),
+        wh.data_ptr(), bh.data_ptr(), wT.data_ptr(), lrow.data_ptr(),
+        trow.data_ptr(), grads.data_ptr(), d_lrow.data_ptr(),
+        d_trow.data_ptr(), M, ke, int(rows_per_img), lrow.shape[0],
+        len(weights.rgb), len(weights.trans), _build.stream_ptr(dev))
+    _build.check(err, "st_field_bwd")
+    st_field_bwd.launches += 1
+    parts, off = {}, 0
+    for name, li, part, r, c in layout:
+        parts[(name, li, part)] = grads[off:off + r * c].view(r, c)
+        off += r * c
+    return _finish_bwd(weights, parts, d_lrow, d_trow, light, trans, e3)
+
+
+st_field_bwd.launches = 0
+
+
+class _STField(torch.autograd.Function):
+    """fused_st_field's custom_vjp: forward keeps the feature residual,
+    backward runs the heads-only backward (kernel or twin by device)."""
+
+    @staticmethod
+    def forward(ctx, xext, encpts, light, trans, weights, rows_per_img,
+                compute_dtype, *head_params):
+        rgb, dens, tr, feat = st_field_fwd(xext, encpts, light, trans,
+                                           weights, rows_per_img,
+                                           compute_dtype, want_feat=True)
+        ctx.save_for_backward(feat, encpts, light, trans, *head_params)
+        ctx.weights = weights
+        ctx.rows_per_img = rows_per_img
+        ctx.compute_dtype = compute_dtype
+        ctx.mark_non_differentiable(dens)
+        return rgb, dens, tr
+
+    @staticmethod
+    def backward(ctx, g_rgb, _g_dens, g_trans):
+        feat, encpts, light, trans = ctx.saved_tensors[:4]
+        if g_rgb is None:
+            g_rgb = torch.zeros((feat.shape[0], 3), device=feat.device)
+        if g_trans is None:
+            g_trans = torch.zeros((feat.shape[0], 5), device=feat.device)
+        d_heads, d_light, d_trans = st_field_bwd(
+            feat, encpts, light, trans, ctx.weights, ctx.rows_per_img,
+            g_rgb, g_trans, ctx.compute_dtype)
+        return (None, None, d_light, d_trans, None, None, None, *d_heads)
+
+
+def st_field(xext, encpts, light, trans, weights, rows_per_img,
+             compute_dtype=torch.bfloat16):
+    """Differentiable field: (rgb_raw, dens_raw, trans_raw) with gradients
+    to the head parameters and to ``light`` / ``trans`` only (dens_raw is
+    frozen-trunk output)."""
+    return _STField.apply(xext, encpts, light, trans, weights, rows_per_img,
+                          compute_dtype, *weights.head_params())

@@ -1,4 +1,5 @@
-"""Engines (port of texpose_tpu.models: the texture model's evaluation)."""
+"""Engines (port of texpose_tpu.models: the texture model's training and
+evaluation)."""
 
 
 def get_engine(name):

@@ -1,20 +1,30 @@
-"""Engine base, evaluation half (port of texpose_tpu/models/base.py).
+"""Engine base (port of texpose_tpu/models/base.py).
 
 State lives in torch objects on an explicit ``device``: the field as an
 ``nn.Module`` (``self.nerf``) and the per-image latent tables as tensors
 (``self.latents``, optionally ``self.latents_ema``).  Checkpoints are the
-JAX package's npz files, read through utils/checkpoint.py.  Training,
-optimizers and checkpoint writing belong to a later slice of the port.
+JAX package's npz files in both directions (utils/checkpoint.py).
+
+Training: the whole train split is uploaded once (``train_batch``); each
+step's random draws come from one seeded device generator; the loop fires
+the freq.scalar / freq.val / freq.ckpt hooks at the iterations the JAX
+loop does (``scan_steps`` fuses steps there and is read and ignored here:
+one step per iteration).  Losses reach the host only at freq.scalar, where
+a non-finite one stops the run.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import time
 
+import numpy as np
 import torch
 
 from ..utils import checkpoint as ckpt
 from ..utils.log import log
+from ..utils.metrics import MetricsWriter, StepTimer
 from ..utils.pipeline import EvalPrefetcher, to_device
 
 
@@ -36,9 +46,13 @@ class Engine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         os.makedirs(cfg.output_path, exist_ok=True)
+        self.writer = MetricsWriter(cfg.output_path,
+                                    use_tb=cfg.get("tb", False))
+        self.timer = StepTimer()
         self.nerf = None
         self.latents = None
         self.latents_ema = None
+        self.train_batch = None
         self.start_step = 0
 
     # ------------------------------------------------------------------ data
@@ -59,7 +73,8 @@ class Engine:
 
     def load_dataset(self, eval_split="val"):
         """The train split serves its length (latent tables) and camera
-        poses (light-latent anchors); eval frames stream one at a time."""
+        poses (light-latent anchors); eval frames stream one at a time.
+        Training uploads the train split with ``upload_train_split``."""
         cfg = self.cfg
         if cfg.data.get("val_on_test"):
             eval_split = "test"
@@ -70,6 +85,13 @@ class Engine:
         self._eval_cache = (None, None)
         log.info(f"train={len(self.train_data)} frames; {eval_split}="
                  f"{len(self.eval_data)} frames streamed per-frame at eval")
+
+    def upload_train_split(self):
+        """Stack the whole train split on the host and upload it once: the
+        step gathers its batch on the device."""
+        self.train_batch = to_device(self.train_data.prefetch_all(),
+                                     self.device, batch=False)
+        log.info(f"train split uploaded to {self.device}")
 
     def eval_frame(self, i):
         """Eval frame i as a dict of [1, ...] device tensors (size-1
@@ -134,6 +156,96 @@ class Engine:
         log.info(f"resumed from {fname} @ step {self.start_step}")
         return True
 
+    def _load_subtree(self, fname, prefix, what):
+        """Copy the checkpoint's ``prefix`` leaves (e.g. nerf.mlp_feat.)
+        into the field; raises when none matches."""
+        incoming = {k: v for k, v in ckpt.jax_state_to_torch(
+            ckpt.load_checkpoint_flat(fname)).items() if k.startswith(prefix)}
+        n, skipped = self._load_state(incoming)
+        if skipped:
+            raise ValueError(f"{fname}: shape mismatch {skipped}")
+        if n == 0:
+            raise KeyError(f"no leaves under {prefix!r} found in {fname}")
+        log.info(f"restored {what} ({n} leaves) from {fname}")
+        return n
+
+    def restore_pretrained_checkpoint(self):
+        """--resume_pretrain: ONLY the geometry trunk (mlp_feat) from the
+        group-level pretrain checkpoint."""
+        cfg = self.cfg
+        fname = cfg.get("pretrain_ckpt") or os.path.join(
+            str(cfg.output_root), str(cfg.group), "pretrain_model.ckpt")
+        return self._load_subtree(fname, "nerf.mlp_feat.", "geometry trunk")
+
+    def restore_field_checkpoint(self):
+        """--resume_real: the whole field from the pretrain checkpoint."""
+        cfg = self.cfg
+        fname = cfg.get("field_ckpt") or os.path.join(
+            str(cfg.output_root), str(cfg.group), "pretrain_model.ckpt")
+        return self._load_subtree(fname, "nerf.", "nerf field")
+
+    def save_flat_checkpoint(self, flat, it):
+        """<output_path>/model.ckpt (atomically) plus model/<it>.ckpt."""
+        fname = os.path.join(self.cfg.output_path, "model.ckpt")
+        tmp = fname + ".tmp"
+        ckpt.save_checkpoint_flat(tmp, flat)
+        os.replace(tmp, fname)
+        d = os.path.join(self.cfg.output_path, "model")
+        os.makedirs(d, exist_ok=True)
+        shutil.copyfile(fname, os.path.join(d, f"{it}.ckpt"))
+        log.info(f"saved checkpoint {fname} @ step {it}")
+        return fname
+
+    # ------------------------------------------------------------- training
+
+    def train(self):
+        """The JAX loop's schedule, one step per iteration: scalars at
+        done % freq.scalar (and the first step), val at freq.val, ckpt at
+        freq.ckpt, and a final checkpoint."""
+        cfg = self.cfg
+        max_iter = self.max_iter()
+        log.title(f"TRAINING START ({type(self).__name__}, "
+                  f"{max_iter} steps)")
+        if self.start_step == 0:
+            self.validate(0)
+        t_start = time.time()
+        for it in range(self.start_step, max_iter):
+            loss = self.train_step(self.make_draws(it))
+            self.timer.tick()
+            done = it + 1
+            if done % cfg.freq.scalar == 0 or it == self.start_step:
+                self.log_scalars(done, loss)
+            if cfg.freq.get("vis") and done % cfg.freq.vis == 0:
+                self.visualize(done)
+            if cfg.freq.get("val") and done % cfg.freq.val == 0:
+                self.validate(done)
+            if cfg.freq.get("ckpt") and done % cfg.freq.ckpt == 0:
+                self.save_checkpoint(done)
+        self.save_checkpoint(max_iter)
+        wall = time.time() - t_start
+        rate = (max_iter - self.start_step) / max(wall, 1e-9)
+        log.title(f"TRAINING DONE in {wall:.1f}s ({rate:.2f} it/s)")
+
+    def log_scalars(self, it, loss, split="train"):
+        """Pull the step's losses to the host; a non-finite one raises."""
+        host = {k: float(v) for k, v in loss.items()}
+        bad = [k for k, v in host.items() if not np.isfinite(v)]
+        if bad:
+            raise FloatingPointError(
+                f"non-finite loss at step {it}: {bad} ({host})")
+        host["it_per_sec"] = 1.0 / self.timer.it_time \
+            if self.timer.it_time else 0.0
+        host["rays_per_sec"] = self.timer.rays_per_sec(self.rays_per_step())
+        self.writer.scalars(it, host, split=split)
+        log.info(f"[{split} {it}] " + " ".join(f"{k}={v:.4g}"
+                                                for k, v in host.items()))
+        return host
+
+    def visualize(self, it, split="train"):
+        raise NotImplementedError(
+            "visualize is not ported to texpose_tpu_torch yet: pass "
+            "--freq.vis=null")
+
     def load_initial_weights(self):
         """cfg.init_weights=<npz>: overlay every matching field/latent leaf
         onto the freshly built state; shape mismatches are skipped and
@@ -175,5 +287,23 @@ class Engine:
         raise NotImplementedError
 
     def evaluate_full(self):
+        raise NotImplementedError
+
+    def max_iter(self):
+        raise NotImplementedError
+
+    def rays_per_step(self):
+        raise NotImplementedError
+
+    def make_draws(self, it):
+        raise NotImplementedError
+
+    def train_step(self, draws):
+        raise NotImplementedError
+
+    def save_checkpoint(self, it):
+        raise NotImplementedError
+
+    def validate(self, it):
         raise NotImplementedError
 

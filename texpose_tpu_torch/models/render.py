@@ -2,8 +2,10 @@
 texpose_tpu/models/render.py).
 
 JAX's ``lax.map`` over ray chunks becomes a Python loop; every chunk runs
-the field and the composite on ``chunk`` rays × N samples.  Evaluation only:
-depth samples are mid-bin.
+the field and the composite on ``chunk`` rays × N samples, with mid-bin
+depth samples.  ``render_st_core`` is also the training step's render
+(models/texture_gan.py::render_patch), with stratified depth uniforms and
+the optional density noise passed in by the caller.
 """
 
 from __future__ import annotations
@@ -47,12 +49,17 @@ def gather_rays(pose, intr, ray_idx, z_near, z_far, H, W, ndc=False,
 
 
 def render_st_core(nerf, cfg, center, ray, near, far, latent_trans,
-                   latent_light, progress=None, compute_dtype=None):
-    """Mid-bin samples → field → dual composite.  The kernel route
+                   latent_light, progress=None, compute_dtype=None,
+                   depth_rand=None, density_noise=None):
+    """Samples → field → dual composite.  depth_rand [B,R,N,1] uniforms
+    make the samples stratified (training), else mid-bin; density_noise
+    [B,R,N] is the training density noise's standard normal draw (plain
+    route only: the gate sends noisy configs there).  The kernel route
     (use_fused_render) returns the composite dict with the scalar
     'trans_density_mean'; the plain route adds the per-sample leaves."""
     N = int(cfg.nerf.sample_intvs)
-    depth_samples = sample_depth(near, far, N, param=cfg.nerf.depth.param)
+    depth_samples = sample_depth(near, far, N, param=cfg.nerf.depth.param,
+                                 rand=depth_rand)
     min_uncert = cfg.nerf.get("min_uncert", 0.05)
     if use_fused_render(cfg, nerf):
         rgb_raw, dens_raw, trans_raw = forward_samples_nerf_st_raw(
@@ -62,7 +69,7 @@ def render_st_core(nerf, cfg, center, ray, near, far, latent_trans,
                                   depth_samples, ray, min_uncert)
     rgb_s, dens_s, unc_s = forward_samples_nerf_st(
         nerf, cfg, center, ray, depth_samples, latent_trans, latent_light,
-        progress, compute_dtype)
+        progress, compute_dtype, density_noise)
     out = composite_static_transient(rgb_s, dens_s, depth_samples, ray,
                                      unc_s, min_uncert)
     out["trans_density_mean"] = dens_s[..., -1].mean()

@@ -8,8 +8,13 @@ maps the JAX npz leaves onto it one to one.  Two forward routes, as in
 the JAX package:
   * ``apply_nerf_st`` — plain PyTorch, activated outputs;
   * ``apply_nerf_st_raw`` — raw head outputs through the ST-field kernel
-    wrapper (kernels/st_field.py), the input of the composite kernel.
-This slice evaluates only: the training-only density noise is not ported.
+    wrapper (kernels/st_field.py), the input of the composite kernel; with
+    grad enabled it goes through the autograd Function ``st_field``, whose
+    backward is the field's backward kernel.
+The trunk is frozen in the texture stage: neither route lets a gradient
+reach it.  The training-only density noise (``nerf.density_noise_reg``)
+takes the plain route, as in the JAX package; the noise is an explicit
+standard-normal input drawn by the caller.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..kernels.st_field import STFieldWeights, make_xext, st_field_fwd
+from ..kernels.st_field import (STFieldWeights, make_xext, st_field,
+                                st_field_fwd)
 from ..ops.posenc import c2f_band_weights, posenc_with_identity
 from .init import dense_init
 from .mlp import DENSITY_ACTIVATIONS, Dense, dense, relu, softplus
@@ -134,9 +140,12 @@ def init_nerf_st(cfg, generator=None):
     return NerfST(cfg, generator)
 
 
-def apply_trunk(layers, cfg, points_enc, compute_dtype=None):
+def apply_trunk(layers, cfg, points_enc, compute_dtype=None,
+                density_noise=None):
     """Trunk → (feat [..,F], density [..]); ReLU after every layer, the last
-    layer's column 0 is the density."""
+    layer's column 0 is the density.  density_noise (standard normal, the
+    density's shape) adds ``nerf.density_noise_reg`` × noise to the raw
+    density before its activation (training only)."""
     feat = points_enc
     density = None
     n = len(layers)
@@ -145,7 +154,11 @@ def apply_trunk(layers, cfg, points_enc, compute_dtype=None):
             feat = torch.cat([feat, points_enc], dim=-1)
         feat = dense(layer, feat, compute_dtype)
         if li == n - 1:
-            density = DENSITY_ACTIVATIONS[cfg.arch.density_activ](feat[..., 0])
+            density = feat[..., 0]
+            scale = cfg.nerf.get("density_noise_reg")
+            if scale and density_noise is not None:
+                density = density + density_noise * scale
+            density = DENSITY_ACTIVATIONS[cfg.arch.density_activ](density)
             feat = feat[..., 1:]
         feat = relu(feat)
     return feat, density
@@ -161,13 +174,15 @@ def _run_head(layers, x, compute_dtype):
 
 
 def apply_nerf_st(nerf, cfg, points, ray_unit, latent_trans, latent_light,
-                  progress=None, compute_dtype=None):
+                  progress=None, compute_dtype=None, density_noise=None):
     """Plain route: points [B,R,N,3] → (rgb [B,R,N,3,2], density [B,R,N,2],
-    uncert [B,R,N,1])."""
+    uncert [B,R,N,1]).  The trunk's outputs are detached (frozen
+    geometry), as the JAX package's stop_gradient."""
     B, R, N, _ = points.shape
     feat, density = apply_trunk(nerf.mlp_feat, cfg,
                                 _encode_points(cfg, points, progress),
-                                compute_dtype)
+                                compute_dtype, density_noise)
+    feat, density = feat.detach(), density.detach()
     if cfg.nerf.view_dep:
         ray_enc = _encode_view(cfg, ray_unit, progress, c2f=True)
         feat_rgb = torch.cat([feat, ray_enc, points], dim=-1)
@@ -206,24 +221,26 @@ def st_field_inputs(cfg, points, ray_unit, progress=None):
 def apply_nerf_st_raw(nerf, cfg, points, ray_unit, latent_trans,
                       latent_light, progress=None, compute_dtype=None):
     """Kernel route: raw head outputs (rgb_raw [M,3], dens_raw [M,1],
-    trans_raw [M,5]), M = B·R·N — the composite kernel's input."""
+    trans_raw [M,5]), M = B·R·N — the composite kernel's input.  With grad
+    enabled the heads and latents differentiate through ``st_field``."""
     B, R, N, _ = points.shape
     xext, encpts = st_field_inputs(cfg, points, ray_unit, progress)
-    return st_field_fwd(xext, encpts, latent_light, latent_trans,
-                        nerf.kernel_weights(), R * N,
-                        compute_dtype or torch.bfloat16)
+    op = st_field if torch.is_grad_enabled() else st_field_fwd
+    return op(xext, encpts, latent_light, latent_trans, nerf.kernel_weights(),
+              R * N, compute_dtype or torch.bfloat16)
 
 
 def forward_samples_nerf_st(nerf, cfg, center, ray, depth_samples,
                             latent_trans, latent_light, progress=None,
-                            compute_dtype=None):
+                            compute_dtype=None, density_noise=None):
     pts = center[..., None, :] + ray[..., None, :] * depth_samples
     ray_unit = None
     if cfg.nerf.view_dep:
         ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
         ray_unit = ray_unit[..., None, :].expand(pts.shape)
     return apply_nerf_st(nerf, cfg, pts, ray_unit, latent_trans,
-                         latent_light, progress, compute_dtype)
+                         latent_light, progress, compute_dtype,
+                         density_noise)
 
 
 def forward_samples_nerf_st_raw(nerf, cfg, center, ray, depth_samples,
@@ -238,12 +255,15 @@ def forward_samples_nerf_st_raw(nerf, cfg, center, ray, depth_samples,
 def use_fused_render(cfg, nerf):
     """Whether rendering takes the kernel route (ST-field kernel → composite
     kernel on raw outputs): the JAX gate's contract (softplus density,
-    view-dependent posenc, a transient head, ≥2-layer heads, the
-    ``kernels.fused_st`` / ``kernels.fused_composite`` switches).  The
-    compute dtype is not part of the gate: on the card the field kernel
-    computes in bf16 only and its wrapper raises for anything else."""
+    view-dependent posenc, a transient head, ≥2-layer heads, no training
+    density noise, the ``kernels.fused_st`` / ``kernels.fused_composite``
+    switches).  The compute dtype is not part of the gate: on the card the
+    field kernel computes in bf16 only and its wrapper raises for anything
+    else."""
     kcfg = cfg.get("kernels") or {}
     if not (kcfg.get("fused_st", True) and kcfg.get("fused_composite", True)):
+        return False
+    if cfg.nerf.get("density_noise_reg"):
         return False
     if cfg.arch.density_activ != "softplus" or nerf.mlp_trans is None:
         return False

@@ -1,5 +1,5 @@
 """Depth sampling and the dual-density composite (port of
-texpose_tpu/ops/render.py, eval slice).
+texpose_tpu/ops/render.py, the texture model's part).
 
 Transmittances are exp(−exclusive cumsum), in float32 whatever the field's
 compute dtype.
@@ -10,15 +10,17 @@ from __future__ import annotations
 import torch
 
 
-def sample_depth(depth_min, depth_max, num_samples, param="metric"):
-    """Mid-bin depth samples in [depth_min, depth_max] (the eval path; the
-    stratified training draws come with the train step):
-    [B,R] → [B,R,N,1]."""
+def sample_depth(depth_min, depth_max, num_samples, param="metric",
+                 rand=None):
+    """Depth samples in [depth_min, depth_max]: [B,R] → [B,R,N,1].
+    Stratified with rand (uniforms [B,R,N,1], drawn by the caller; the
+    training path), mid-bin without (evaluation)."""
     lo = depth_min[:, :, None, None]
     hi = depth_max[:, :, None, None]
     grid = torch.arange(num_samples, dtype=lo.dtype,
                         device=lo.device)[None, None, :, None]
-    depth = (0.5 + grid) / num_samples * (hi - lo) + lo
+    depth = ((0.5 if rand is None else rand) + grid) / num_samples \
+        * (hi - lo) + lo
     if param == "inverse":
         depth = 1.0 / (depth + 1e-8)
     return depth

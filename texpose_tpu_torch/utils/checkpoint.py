@@ -14,6 +14,20 @@ leaves; evaluation reads only the field and the latent tables:
 Weights keep the JAX [in, out] layout on both sides, so the mapping is a
 rename; ``torch_state_to_jax`` is its inverse, so both packages compute the
 same thing from one parameter set.
+
+A training run's state adds, under the JAX package's keypaths (the texture
+engine maps its torch objects onto them, models/texture_gan.py):
+
+  params/disc/{main,final}/<i>/w     discriminator kernels (HWIO, as JAX)
+  sn_state/{main,final}/<i>          spectral-norm power-iteration vectors
+  opt_nerf/...                       optax adam: ScaleByAdamState count /
+                                     mu / nu over {heads, latents} and the
+                                     schedule's count (``adam_keys``)
+  opt_disc/0/nu/{main,final}/<i>/w   optax rmsprop's nu (+ opt_disc/1/count
+                                     with a D schedule)
+  key, it, step                      PRNG key, iteration, checkpoint step
+The VGG parameters are not checkpointed by either package: both read the
+same torchvision npz (nn/vgg.py).
 """
 
 from __future__ import annotations
@@ -63,3 +77,24 @@ def torch_state_to_jax(state):
             path = "params/" + path
         out[path] = t.detach().cpu().numpy()
     return out
+
+
+def adam_keys(lr_latent):
+    """The optax keypaths of the generator's Adam state → {group: (adam
+    count key, mu prefix, nu prefix, schedule count key)}.  One group
+    ("all", the parameter tree {heads, latents}) for optax.adam; with
+    optim.lr_latent, multi_transform's "heads" and "latents" groups."""
+    if not lr_latent:
+        return {"all": ("opt_nerf/0/count", "opt_nerf/0/mu/",
+                        "opt_nerf/0/nu/", "opt_nerf/1/count")}
+    out = {}
+    for grp in ("heads", "latents"):
+        base = f"opt_nerf/inner_states/{grp}/inner_state/"
+        out[grp] = (base + "0/count", base + "0/mu/", base + "0/nu/",
+                    base + "1/count")
+    return out
+
+
+def jax_key(seed):
+    """jax.random.PRNGKey(seed)'s raw uint32[2] for 0 ≤ seed < 2**32."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)

@@ -5,4 +5,4 @@ The port reaches the shared host layer only through this module,
 ``utils/log.py``, ``utils/pipeline.py`` (``AsyncWriter``) and ``data/``."""
 
 from texpose_tpu.utils.config import (  # noqa: F401
-    load_yaml, process_options, set_options)
+    load_yaml, process_options, save_options_file, set_options)

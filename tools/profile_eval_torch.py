@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch/CUDA port's evaluation goes, on one GPU.
+"""Where the time of the PyTorch/CUDA port's evaluation (or, with --train,
+its texture-GAN train step) goes, on one GPU.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_eval_torch.py [--frames 12] [--trace out.json]
+    python3 tools/profile_eval_torch.py --train [--steps 30] [--trace ...]
 
 Builds the same 480x640 fixture and seeded full-width checkpoint as
 chip_smoke.py (``fixture_argv``), runs the evaluation CLI once cold, then
@@ -22,9 +24,26 @@ prints one line per measurement, each starting with its key:
   load:         the dataset's per-frame load on the host, without and with
                 the compact transform (mean over the frames).
 
+--train builds chip_smoke.py's train fixture (``train_argv``: 16 train
+images at 128x128, the seeded JAX-format pretrain checkpoint, the full
+width of configs/nerf_lm_adapt_gan.yaml), runs the train CLI for 5 steps
+cold, then prints:
+
+  train_sweep:   warm steps/s and rays/s (2048 rays per step), twice, no
+                 profiler;
+  train_profile: --steps warm steps under ``torch.profiler``: wall, device
+                 busy (union of device events), idle share, and kernel
+                 launches per step (the cudaLaunchKernel* calls);
+  train_host:    CPU op self time per step;
+  train_stages:  per step-stage profiler range (``step/...`` in
+                 models/texture_gan.py): host ms/step and device ms/step;
+  train_device_ops / train_cpu_ops: the op tables, as above;
+  train_pack:    ms to repack the field's weights after an update (the
+                 head packs rebuild on every step), host clock.
+
 The profiler's own cost lengthens the profiled wall, so the idle share
 there is an upper bound on the unprofiled one.  --trace writes the
-profiled sweep as a Chrome trace.
+profiled sweep (or the profiled steps) as a Chrome trace.
 """
 
 import argparse
@@ -53,6 +72,17 @@ def _union_ms(intervals):
     return total / 1e3
 
 
+def _device_intervals(prof):
+    """[start, end) of every device event that is a kernel or a copy: the
+    GPU-side spans of user ranges (``record_function``) cover idle gaps
+    and are left out."""
+    from torch.autograd import DeviceType
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("step/")]
+
+
 def _median_ms(fn, reps=5):
     import torch
     fn()
@@ -68,7 +98,6 @@ def _median_ms(fn, reps=5):
 
 def profile(engine, n, trace):
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     for k in range(2):
@@ -85,8 +114,7 @@ def profile(engine, n, trace):
         engine.evaluate_full()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
-           if e.device_type == DeviceType.CUDA]
+    dev = _device_intervals(prof)
     busy = _union_ms(dev)
     print(f"profile: wall {wall:.1f} ms; device busy {busy:.1f} ms over "
           f"{len(dev)} device events; device idle "
@@ -95,9 +123,7 @@ def profile(engine, n, trace):
     cpu_ms = sum(a.self_cpu_time_total for a in avgs) / 1e3
     print(f"host: {cpu_ms:.1f} ms of CPU op self time "
           f"({cpu_ms / n:.1f} ms/frame)", flush=True)
-    dkey = ("self_device_time_total"
-            if hasattr(avgs[0], "self_device_time_total")
-            else "self_cuda_time_total")
+    dkey = _device_key(avgs)
     print("device_ops:\n" + avgs.table(sort_by=dkey, row_limit=15),
           flush=True)
     print("cpu_ops:\n" + avgs.table(sort_by="self_cpu_time_total",
@@ -163,11 +189,104 @@ def frame_times(engine):
           f"compact transform ({n} frames)", flush=True)
 
 
+def _device_key(avgs):
+    return ("self_device_time_total"
+            if hasattr(avgs[0], "self_device_time_total")
+            else "self_cuda_time_total")
+
+
+def profile_train(eng, steps, trace):
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    def run(n):
+        for _ in range(n):
+            eng.train_step(eng.make_draws(eng.it))
+        torch.cuda.synchronize()
+
+    run(3)
+    for k in range(2):
+        t0 = time.perf_counter()
+        run(steps)
+        rate = steps / (time.perf_counter() - t0)
+        print(f"train_sweep: warm unprofiled run {k}: {rate:.3f} steps/s = "
+              f"{rate * eng.rays_per_step():.1f} rays/s ({steps} steps)",
+              flush=True)
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = _device_intervals(prof)
+    busy = _union_ms(dev)
+    avgs = prof.key_averages()
+    launches = sum(a.count for a in avgs
+                   if a.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    print(f"train_profile: wall {wall:.1f} ms ({wall / steps:.2f} ms/step); "
+          f"device busy {busy:.1f} ms ({busy / steps:.2f} ms/step) over "
+          f"{len(dev)} device events; device idle "
+          f"{100 * (1 - busy / wall):.1f} %; {launches / steps:.0f} kernel "
+          f"launches/step", flush=True)
+    cpu_ms = sum(a.self_cpu_time_total for a in avgs) / 1e3
+    print(f"train_host: {cpu_ms / steps:.2f} ms/step of CPU op self time",
+          flush=True)
+    dkey = _device_key(avgs)
+    dtot = dkey.replace("self_", "")
+    for a in avgs:
+        # the host-side range; its device time is that of the kernels it
+        # launched from this thread (autograd's backward kernels are
+        # launched from autograd's own thread and land in no range)
+        if a.key.startswith("step/") and a.cpu_time_total > 0:
+            host = a.cpu_time_total / 1e3 / steps
+            device = getattr(a, dtot, 0) / 1e3 / steps
+            print(f"train_stages: {a.key} host {host:.3f} ms/step, device "
+                  f"{device:.3f} ms/step", flush=True)
+    print("train_device_ops:\n" + avgs.table(sort_by=dkey, row_limit=20),
+          flush=True)
+    print("train_cpu_ops:\n" + avgs.table(sort_by="self_cpu_time_total",
+                                          row_limit=15), flush=True)
+    if trace:
+        prof.export_chrome_trace(trace)
+        print(f"train_profile: trace written to {trace}", flush=True)
+
+    w = eng.nerf.kernel_weights()
+    e3 = w.rgb[0].w.shape[0] - w.feat_dim - int(eng.cfg.nerf.N_latent_light)
+    xw = w.trunk[0].w.shape[0]
+
+    def repack():
+        with torch.no_grad():
+            w.rgb[0].b.add_(0.0)              # bump a head tensor's version
+        w.kernel_buffers(xw, e3)
+        w.kernel_buffers_bwd(e3)
+
+    print(f"train_pack: head repack after an update {_median_ms(repack):.3f}"
+          f" ms (host clock, synchronized)", flush=True)
+
+
+def main_train(args):
+    import torch
+    from chip_smoke import train_argv
+    from texpose_tpu_torch import train
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="texpose_profile_")
+    try:
+        argv, _ = train_argv(HERE, tmp, dev, 5)
+        eng = train.main(argv)
+        torch.cuda.synchronize()
+        eng.cfg.max_iter = 100000
+        profile_train(eng, args.steps, args.trace)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=12)
+    ap.add_argument("--train", action="store_true",
+                    help="profile warm texture-GAN train steps instead")
+    ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace", default=None,
-                    help="write the profiled sweep as a Chrome trace here")
+                    help="write the profiled run as a Chrome trace here")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -175,6 +294,8 @@ def main():
     os.environ.pop("JAX_PLATFORMS", None)
     sys.modules["jax"] = None
     sys.path.insert(0, HERE)
+    if args.train:
+        return main_train(args)
     from chip_smoke import fixture_argv
     from texpose_tpu_torch import evaluate
     dev = torch.device("cuda", 0)

@@ -231,3 +231,145 @@ def test_render_with_f32_compute_raises_on_card(cuda, tmp_path):
         render_st_core(nerf, cfg, center, ray, near, near + 1.0, lt, ll,
                        progress=1.0, compute_dtype=torch.float32)
     assert st_field_fwd.launches == n0
+
+
+# ------------------------------------------------ the pretrain's kernels
+#
+# Coarse field + composite forward: the ST field's bounds for the raw
+# outputs (bf16 re-rounding after a different f32 summation order), 2e-2
+# for the composited rgb/depth/opacity (sigmoid slope ≤ 1/4, weights summing
+# to ≤ 1, depths ≲ 6), and the residual activations relative like the ST
+# feature residual.  Composite-coarse backward: f32 on both sides, 1e-4 of
+# the largest magnitude.  Field backward: from the kernel's own residuals,
+# per tensor on the norm (atomics reorder its sums), as the ST backward.
+
+
+def _coarse_weights(device, view_dep, seed=0):
+    """The shipped pretrain field: 8x256 trunk with skip at 4, L_3D 10, RGB
+    head 256-256-256-3 on feat ⊕ (27-wide view encoding) ⊕ pts."""
+    from texpose_tpu_torch.kernels.coarse_field import CoarseFieldWeights
+    g = torch.Generator().manual_seed(seed)
+
+    def layer(i, o, mode=None):
+        return Dense(*dense_init(g, i, o, mode)).to(device)
+
+    trunk = ([layer(63, 256)] + [layer(256, 256) for _ in range(3)]
+             + [layer(256 + 63, 256)] + [layer(256, 256) for _ in range(2)]
+             + [layer(256, 257, "first")])
+    e3 = 30 if view_dep else 3
+    rgb = [layer(256 + e3, 256), layer(256, 256), layer(256, 256),
+           layer(256, 3, "all")]
+    return CoarseFieldWeights(trunk, rgb, [4])
+
+
+def _coarse_inputs(device, BR, N, view_dep, seed):
+    g = torch.Generator().manual_seed(seed)
+    M = BR * N
+    pts = (torch.randn(M, 3, generator=g) * 0.5).to(device)
+    c2f = torch.linspace(1.0, 0.2, 10).to(device)
+    xext = make_xext(pts, 10, c2f)
+    ep = (torch.cat([torch.randn(M, 27, generator=g).to(device), pts], 1)
+          if view_dep else pts)
+    depth = torch.sort(torch.rand(BR, N, generator=g) * 2 + 3,
+                       dim=1).values.to(device)
+    ray = torch.randn(1, BR, 3, generator=g).to(device)
+    dist = _dists(depth.reshape(1, BR, N, 1), ray).reshape(BR, N)
+    return xext, ep, dist, depth
+
+
+@pytest.mark.parametrize("BR,N,view_dep", [(2048, 64, False), (37, 64, True),
+                                           (301, 32, True), (13, 8, False)])
+def test_coarse_render_kernel_matches_plain(cuda, BR, N, view_dep):
+    from texpose_tpu_torch.kernels.coarse_field import (coarse_render_fwd,
+                                                        coarse_render_plain)
+    w = _coarse_weights(cuda, view_dep)
+    xext, ep, dist, depth = _coarse_inputs(cuda, BR, N, view_dep, BR)
+    with torch.no_grad():
+        n0 = coarse_render_fwd.launches
+        out = coarse_render_fwd(xext, ep, dist, depth, w)
+        got, rgb, dens, (xe, acts) = coarse_render_fwd(
+            xext, ep, dist, depth, w, want_res=True)
+        torch.cuda.synchronize()
+        assert coarse_render_fwd.launches == n0 + 2
+        ref, rgb_ref, dens_ref, acts_ref = coarse_render_plain(
+            xext, ep, dist, depth, w, want_res=True)
+    assert torch.equal(out, got)
+    assert out.shape == (BR, 8) and acts.shape == (11, BR * N, 256)
+    for a, b in ((rgb, rgb_ref), (dens, dens_ref)):
+        err = (a - b).abs()
+        assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
+    assert float((got - ref).abs().max()) <= 2e-2
+    for a, b in zip(acts, acts_ref):
+        err = (a.float() - b).abs()
+        assert float((err / b.abs().clamp(min=1.0)).max()) <= 3e-2
+        assert float(err.mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("BR,N", [(2048, 64), (37, 16), (5, 48)])
+def test_composite_coarse_bwd_kernel_matches_plain(cuda, BR, N):
+    from texpose_tpu_torch.kernels.composite import (
+        composite_coarse_bwd, composite_coarse_bwd_plain)
+    g = torch.Generator().manual_seed(N + 2)
+    M = BR * N
+    rgb_raw = torch.randn(M, 3, generator=g).to(cuda)
+    dens_raw = (torch.randn(M, 1, generator=g) * 3).to(cuda)
+    depth = torch.sort(torch.rand(BR, N, generator=g) * 4 + 2,
+                       dim=1).values.to(cuda)
+    ray = torch.randn(1, BR, 3, generator=g).to(cuda)
+    dist = _dists(depth.reshape(1, BR, N, 1), ray).reshape(BR, N)
+    cot = torch.randn(BR, 8, generator=g).to(cuda)
+    n0 = composite_coarse_bwd.launches
+    got = composite_coarse_bwd(rgb_raw, dens_raw, dist, depth, cot)
+    torch.cuda.synchronize()
+    assert composite_coarse_bwd.launches == n0 + 1
+    want = composite_coarse_bwd_plain(rgb_raw, dens_raw, dist, depth, cot)
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    print("composite_coarse_bwd relative errors:", errs)
+    assert max(errs) <= COMPOSITE_BWD_REL
+
+
+@pytest.mark.parametrize("BR,N,view_dep", [(2048, 64, False),
+                                           (301, 32, True)])
+def test_coarse_field_bwd_kernel_matches_plain(cuda, BR, N, view_dep):
+    from texpose_tpu_torch.kernels.coarse_field import (
+        coarse_field_bwd, coarse_field_bwd_plain, coarse_render_fwd)
+    w = _coarse_weights(cuda, view_dep)
+    xext, ep, dist, depth = _coarse_inputs(cuda, BR, N, view_dep, 3)
+    M = BR * N
+    g = torch.Generator().manual_seed(9)
+    g_rgb = (torch.randn(M, 3, generator=g) / M).to(cuda)
+    g_dens = (torch.randn(M, 1, generator=g) / M).to(cuda)
+    with torch.no_grad():
+        _, _, _, (xe, acts) = coarse_render_fwd(xext, ep, dist, depth, w,
+                                                want_res=True)
+        n0 = coarse_field_bwd.launches
+        got = coarse_field_bwd(xext, ep, xe, acts, w, g_rgb, g_dens)
+        torch.cuda.synchronize()
+        assert coarse_field_bwd.launches == n0 + 1
+        want = coarse_field_bwd_plain(xext, ep, acts, w, g_rgb, g_dens)
+    assert [a.shape for a in got] == [p.shape for p in w.params()]
+    norm = [_norm_err(a, b) for a, b in zip(got, want)]
+    peak = [_rel_err(a, b) for a, b in zip(got, want)]
+    print("coarse_field_bwd norm errors:", [f"{e:.1e}" for e in norm])
+    print("coarse_field_bwd max errors:", [f"{e:.1e}" for e in peak])
+    assert max(norm) <= FIELD_BWD_REL and max(peak) <= FIELD_BWD_MAX
+
+
+def test_coarse_render_autograd_launches_all_three(cuda):
+    from texpose_tpu_torch.kernels.coarse_field import (coarse_field_bwd,
+                                                        coarse_render,
+                                                        coarse_render_fwd)
+    from texpose_tpu_torch.kernels.composite import composite_coarse_bwd
+    w = _coarse_weights(cuda, False)
+    xext, ep, dist, depth = _coarse_inputs(cuda, 64, 64, False, 4)
+    counts = [f.launches for f in (coarse_render_fwd, composite_coarse_bwd,
+                                   coarse_field_bwd)]
+    params = w.params()
+    for p in params:
+        p.requires_grad_(True)
+    coarse_render(xext, ep, dist, depth, w)[:, :5].sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in (coarse_render_fwd, composite_coarse_bwd,
+                                 coarse_field_bwd)] == [c + 1 for c in counts]
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in params)

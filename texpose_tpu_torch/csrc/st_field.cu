@@ -27,6 +27,8 @@
 // 256-byte load, prefetched one k-step ahead; every warp owns all 64 rows and
 // a disjoint 32-column slice, so each weight element is read once per tile.
 // 114,688 B of shared memory per block lets two blocks share an SM.
+// The trunk and the mma/ldmatrix building blocks are in trunk.cuh, shared
+// with the coarse field (coarse_field.cu).
 // Rows past M are zero-filled on load and never stored, so M needs no
 // tiling contract; the latent row of each row is indexed by
 // row / rows_per_img.
@@ -50,34 +52,16 @@
 // varies from run to run; each sum is over M f32 terms.  Per-image sums use
 // one add per column when the tile lies in one image and per-row adds when
 // it straddles an image boundary, so images never mix.
-// What bounds it: ~3.4 MFLOP per row (forward recompute 0.9, dW 1.3, dX 1.2
-// — tensor cores) plus the atomics; 143,360 B of shared memory (feat, three
-// hidden buffers, enc⊕pts and the padded output gradient) allow one block
-// per SM.
+// What bounds it: ~2.1 MFLOP per row (forward recompute 0.8, dW 0.8, dX
+// 0.5; 280 GFLOP per 131,072 rows — tensor cores) plus the atomics;
+// 143,360 B of shared memory (feat, three hidden buffers, enc⊕pts and the
+// padded output gradient) allow one block per SM.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trunk.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kTile = 64;                         // rows per block
-constexpr int kHidden = 256;                      // width of every hidden layer
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kActStride = kHidden + 8;           // bf16 per shared row
-constexpr int kTilesPerWarp = kHidden / 8 / kWarps;   // n8 tiles per warp
-constexpr int kOutPad = 16;                       // output-layer grads, padded K
-constexpr int kOutStride = kOutPad + 8;
 constexpr int kMaxHeadLayers = 16;
-
-struct Seg {                                      // a K-slice of the A operand
-  const bf16* base;                               // shared, [kTile][stride]
-  int stride;
-  int k;                                          // columns, multiple of 16
-};
 
 struct Params {
   const bf16* xe;        // [M, kx+ke] bf16: xext | enc⊕pts, zero padded
@@ -94,152 +78,6 @@ struct Params {
   int M, kx, ke, rows_per_img, n_img, n_trunk, n_rgb, n_trans;
   unsigned skip_mask;
 };
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments of n8 tiles nt0..nt0+NT-1 at k-step kt.  Packed layout: tile
-// (nt, kt) is 32 uint2, lane l holding B[k][n] for n = nt*8 + l/4 and
-// k = kt*16 + {2q, 2q+1, 2q+8, 2q+9}, q = l%4.
-template <int NT>
-__device__ __forceinline__ void load_b(uint32_t (&b)[NT][2], const uint2* w,
-                                       int kt_total, int nt0, int kt,
-                                       int lane) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const uint2 v =
-        __ldg(w + ((size_t)(nt0 + t) * kt_total + kt) * 32 + lane);
-    b[t][0] = v.x;
-    b[t][1] = v.y;
-  }
-}
-
-// acc[i][t] = rows i*16..+15 x cols (nt0+t)*8..+7 of [s1 | s2] @ W.
-template <int NT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[4][NT][4],
-                                          const Seg& s1, const Seg& s2,
-                                          const uint2* w, int nt0, int lane) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
-  const int kt1 = s1.k >> 4;
-  const int kt_total = kt1 + (s2.k >> 4);
-  const int arow = lane & 15;
-  const int acol = (lane >> 4) * 8;
-  uint32_t b[NT][2], bn[NT][2];
-  load_b<NT>(b, w, kt_total, nt0, 0, lane);
-  for (int kt = 0; kt < kt_total; ++kt) {
-    if (kt + 1 < kt_total) load_b<NT>(bn, w, kt_total, nt0, kt + 1, lane);
-    const bool first = kt < kt1;
-    const bf16* a_base = first ? s1.base : s2.base;
-    const int stride = first ? s1.stride : s2.stride;
-    const int k0 = (first ? kt : kt - kt1) * 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t a[4];
-      ldmatrix_x4(a, a_base + (i * 16 + arow) * stride + k0 + acol);
-#pragma unroll
-      for (int t = 0; t < NT; ++t) mma_bf16(acc[i][t], a, b[t][0], b[t][1]);
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      b[t][0] = bn[t][0];
-      b[t][1] = bn[t][1];
-    }
-  }
-}
-
-// Hidden-layer epilogue: + bias (+ the row's latent contribution), ReLU,
-// round to bf16 into the next shared activation buffer.
-template <int NT>
-__device__ __forceinline__ void store_hidden(const float (&acc)[4][NT][4],
-                                             bf16* out, const float* bias,
-                                             const float* lat, int rows_per_img,
-                                             int n_img, int row0, int nt0,
-                                             int lane) {
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = i * 16 + g + h * 8;
-      const float* lat_row = nullptr;
-      if (lat != nullptr) {
-        const int img = min((row0 + r) / rows_per_img, n_img - 1);
-        lat_row = lat + (size_t)img * kHidden;
-      }
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const int col = (nt0 + t) * 8 + 2 * q;
-        float v0 = acc[i][t][2 * h] + __ldg(bias + col);
-        float v1 = acc[i][t][2 * h + 1] + __ldg(bias + col + 1);
-        if (lat_row != nullptr) {
-          v0 += __ldg(lat_row + col);
-          v1 += __ldg(lat_row + col + 1);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + r * kActStride + col) =
-            __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-      }
-    }
-  }
-}
-
-// Output-layer epilogue (one n8 tile): + bias, no activation, f32 to global.
-__device__ __forceinline__ void store_out(const float (&acc)[4][1][4],
-                                          float* out, int ncols,
-                                          const float* bias, int row0, int M,
-                                          int lane) {
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + i * 16 + g + h * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 2 * q + e;
-        if (col < ncols)
-          out[(size_t)row * ncols + col] = acc[i][0][2 * h + e] + __ldg(bias + col);
-      }
-    }
-  }
-}
 
 // One head: layer 0 reads feat (+ `extra`), adds the latent row; the last
 // layer writes `ncols` raw outputs.  Hidden activations alternate between the
@@ -292,61 +130,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int row0 = blockIdx.x * kTile;
   const int nt0 = warp * kTilesPerWarp;
 
-  // stage the tile's xext | enc⊕pts rows (16-byte vectors; rows past M = 0)
-  const int vec_per_row = xw / 8;
-  for (int i = threadIdx.x; i < kTile * vec_per_row; i += kThreads) {
-    const int r = i / vec_per_row, c = i - r * vec_per_row;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < p.M)
-      v = __ldg(reinterpret_cast<const uint4*>(p.xe + (size_t)(row0 + r) * xw) + c);
-    *reinterpret_cast<uint4*>(xe + r * xs + c * 8) = v;
-  }
+  // stage the tile's xext | enc⊕pts rows (rows past M = 0)
+  load_rows(xe, xs, p.xe, xw, row0, p.M);
   __syncthreads();
 
   const Seg none = {xe, xs, 0};
   const Seg xseg = {xe, xs, p.kx};
   const Seg eseg = {xe + p.kx, xs, p.ke};
-  const uint2* w = p.wpack;
-  const float* b = p.bias;
-
   // trunk: layer li reads act[cur] (xext at layer 0; skip layers add xext)
-  int cur = -1;
-  for (int li = 0; li < p.n_trunk; ++li) {
-    const Seg a1 = li == 0 ? xseg : Seg{act[cur], kActStride, kHidden};
-    const Seg a2 = (li > 0 && ((p.skip_mask >> li) & 1u)) ? xseg : none;
-    const int kt_total = (a1.k + a2.k) >> 4;
-    const int nxt = (cur + 1) % 3;
-    {
-      float acc[4][kTilesPerWarp][4];
-      warp_gemm<kTilesPerWarp>(acc, a1, a2, w, nt0, lane);
-      store_hidden<kTilesPerWarp>(acc, act[nxt], b, nullptr, p.rows_per_img,
-                                  p.n_img, row0, nt0, lane);
-    }
-    w += (size_t)kt_total * (kHidden / 8) * 32;
-    b += kHidden;
-    if (li == p.n_trunk - 1) {
-      // density = the last trunk layer's column 0, raw (packed as its own
-      // n8 tile after the 256 feature columns)
-      if (warp == 0) {
-        float acc[4][1][4];
-        warp_gemm<1>(acc, a1, a2, w, 0, lane);
-        store_out(acc, p.dens, 1, b, row0, p.M, lane);
-      }
-    }
-    __syncthreads();
-    cur = nxt;
-  }
-  const int feat = cur;
-  if (p.feat != nullptr) {
-    // the backward's residual: the feature tile as the heads read it
-    constexpr int kVec = kHidden / 8;
-    for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-      const int r = i / kVec, c = i - r * kVec;
-      if (row0 + r < p.M)
-        reinterpret_cast<uint4*>(p.feat + (size_t)(row0 + r) * kHidden)[c] =
-            *reinterpret_cast<const uint4*>(act[feat] + r * kActStride + c * 8);
-    }
-  }
+  const int feat = trunk_forward(xseg, none, act, p.wpack, p.bias, p.n_trunk,
+                                 p.skip_mask, p.dens, nullptr, row0, p.M,
+                                 warp, lane);
+  // the backward's residual: the feature tile as the heads read it
+  if (p.feat != nullptr) store_tile(p.feat, act[feat], row0, p.M);
   const uint2* wh = p.wpack_heads;
   const float* bh = p.bias_heads;
   run_head(p.n_rgb, eseg, p.lrow, p.rgb, 3, act, feat, wh, bh, p, none, row0,
@@ -372,69 +168,6 @@ struct BwdParams {
   float* d_trow;
   int M, ke, rows_per_img, n_img, n_rgb, n_trans;
 };
-
-// dW[i0+.., n0+..] += Hᵀ·G over the 64 tile rows: H [64][sh] shared (the
-// layer input, columns i), G [64][sg] shared (the layer's output gradient,
-// columns n).  MT m16 tiles of i (mt_valid of them in range), NT n8 tiles.
-template <int MT, int NT>
-__device__ __forceinline__ void warp_dw(const bf16* H, int sh, int i0,
-                                        int mt_valid, const bf16* G, int sg,
-                                        int n0, float* dW, int ldw,
-                                        int lane) {
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
-  const int mat = lane >> 3, r8 = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < kTile / 16; ++ks) {
-    const int k0 = ks * 16;
-    uint32_t b[NT][2];
-    if constexpr (NT == 1) {
-      uint32_t r[2];
-      ldmatrix_x2_trans(r, G + (k0 + r8 + ((mat & 1) << 3)) * sg + n0);
-      b[0][0] = r[0];
-      b[0][1] = r[1];
-    } else {
-#pragma unroll
-      for (int t = 0; t + 1 < NT; t += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, G + (k0 + r8 + ((mat & 1) << 3)) * sg + n0 +
-                                 t * 8 + ((mat >> 1) << 3));
-        b[t][0] = r[0];
-        b[t][1] = r[1];
-        b[t + 1][0] = r[2];
-        b[t + 1][1] = r[3];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (i < mt_valid) {
-        uint32_t a[4];
-        ldmatrix_x4_trans(a, H + (k0 + r8 + ((mat >> 1) << 3)) * sh + i0 +
-                                 i * 16 + ((mat & 1) << 3));
-#pragma unroll
-        for (int t = 0; t < NT; ++t) mma_bf16(acc[i][t], a, b[t][0], b[t][1]);
-      }
-    }
-  }
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    if (i >= mt_valid) continue;
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = i0 + i * 16 + g + ((e >> 1) << 3);
-        const int col = n0 + t * 8 + 2 * q + (e & 1);
-        atomicAdd(dW + (size_t)row * ldw + col, acc[i][t][e]);
-      }
-  }
-}
 
 // dX epilogue: g = acc ⊙ [h > 0] written in place over h (bf16), column
 // sums of the f32 g added to db and, for layer 0, to the per-image latent
@@ -623,23 +356,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * kTile;
 
-  // stage the tile's feat and enc⊕pts rows (16-byte vectors; rows past M = 0)
-  constexpr int kVec = kHidden / 8;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec, c = i - r * kVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < p.M)
-      v = __ldg(reinterpret_cast<const uint4*>(p.feat + (size_t)(row0 + r) * kHidden) + c);
-    *reinterpret_cast<uint4*>(feat + r * kActStride + c * 8) = v;
-  }
-  const int evec = p.ke / 8;
-  for (int i = threadIdx.x; i < kTile * evec; i += kThreads) {
-    const int r = i / evec, c = i - r * evec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < p.M)
-      v = __ldg(reinterpret_cast<const uint4*>(p.ep + (size_t)(row0 + r) * p.ke) + c);
-    *reinterpret_cast<uint4*>(ep + r * es + c * 8) = v;
-  }
+  // stage the tile's feat and enc⊕pts rows (rows past M = 0)
+  load_rows(feat, kActStride, p.feat, kHidden, row0, p.M);
+  load_rows(ep, es, p.ep, p.ke, row0, p.M);
   __syncthreads();
 
   const Seg fseg = {feat, kActStride, kHidden};
@@ -654,32 +373,9 @@ __global__ void __launch_bounds__(kThreads, 1)
            p.d_trow, p.g_trans, 5, row0, warp, lane);
 }
 
-// The kernels' dynamic shared-memory limits as already set on each device
-// (0 = not yet).  Function attributes persist, so they are set on the first
-// launch that needs a larger limit and not on every launch.
-constexpr int kMaxDevices = 64;
+// The kernels' dynamic shared-memory limits as already set on each device.
 int g_smem_limit_fwd[kMaxDevices];
 int g_smem_limit_bwd[kMaxDevices];
-
-template <typename Kernel>
-cudaError_t ensure_smem(Kernel kernel, int smem, int* limits) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem > limits[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             100);
-    if (e != cudaSuccess) return e;
-    limits[dev] = smem;
-  }
-  return cudaSuccess;
-}
 
 }  // namespace
 

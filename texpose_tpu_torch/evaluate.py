@@ -4,16 +4,20 @@ JAX package's ``evaluate.py``:
     python -m texpose_tpu_torch.evaluate --model=nerf_adapt_st_gan \\
         --yaml=configs/nerf_lm_adapt_gan.yaml --data.image_size=[480,640] \\
         --syn2real --resume   (or --init_weights=<npz>)
+    python -m texpose_tpu_torch.evaluate --model=nerf_pretrain \\
+        --yaml=configs/nerf_lm_pretrain.yaml --name=pre --resume
 
 Checkpoints are the JAX package's npz files.  ``--device=`` picks the
-device (default: cuda when a card is visible, else cpu).
+device (default: cuda; with no card visible the run raises unless
+``--device=cpu`` asks for the CPU).  ``--video`` (the pretrain engines'
+novel-view orbit) is not ported yet and is refused before anything is
+built.
 """
 
 import sys
 
-import torch
-
 from .models import get_engine
+from .models.base import resolve_device
 from .utils.config import set_options
 from .utils.log import log
 
@@ -23,9 +27,9 @@ def main(argv=None):
     log.title(f"[{' '.join(sys.argv)}]")
     if cfg.get("video"):
         raise NotImplementedError(
-            "--video: the GAN model has no novel-view video synthesis")
-    device = cfg.get("device") or ("cuda" if torch.cuda.is_available()
-                                   else "cpu")
+            "--video: novel-view video synthesis is not ported to "
+            "texpose_tpu_torch yet (ROADMAP.md), and the GAN model has none")
+    device = resolve_device(cfg)
     engine = get_engine(cfg.model)(cfg, device)
     engine.load_dataset(eval_split=cfg.get("eval_split", "test"))
     engine.build_networks()

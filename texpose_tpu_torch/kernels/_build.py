@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/texpose_tpu_torch/<name>-<hash>.so`` at
-the root of the checkout, keyed by a hash of the source and the flags, then
-loaded with ``ctypes``.  Nothing is compiled or loaded at import time; a
+the root of the checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, then loaded with ``ctypes``.  Nothing is compiled or loaded at import time; a
 missing ``nvcc`` raises.
 """
 
@@ -43,8 +43,11 @@ def build(name):
     """Compile csrc/<name>.cu unless a build with the same hash exists;
     returns the shared library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     so = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if so.exists():
         return so

@@ -1,0 +1,403 @@
+"""The pretrain stage's coarse field with the single-density composite fused
+into its forward, and the field's trunk-training backward: the CUDA
+kernels' wrappers, their plain-PyTorch twins, and the autograd Function
+that pairs them (``coarse_render``).
+
+Replaces texpose_tpu/kernels/fused_coarse_render.py (``_run_fwd``, the
+field + composite mega forward, and the hybrid backward ``op_bwd``) and
+texpose_tpu/kernels/fused_coarse_field.py (``_run_bwd``, the trunk-training
+backward).  The kernels are in ``csrc/coarse_field.cu``; its header says
+what bounds them on the card and how their design answers that.
+
+Forward contract:
+  xext  [M, 3+6L] f32  pts ⊕ c2f-weighted sin/cos bands (``make_xext``)
+  ep    [M, E+3]  f32  view encoding ⊕ pts (pts alone without view_dep):
+        the RGB head's row input beside the features
+  dist, depth [BR, N]  quadrature intervals and sample depths, N | 64
+  → packed [BR, 8] f32: rgb | depth | opacity | zeros.
+With ``want_res`` it also returns the backward's residuals: rgb_raw [M,3]
+and dens_raw [M,1] (f32, pre-activation) for the composite backward, and
+every hidden layer's ReLU output rounded to compute_dtype (the trunk's
+layers, then the RGB head's hidden layers) for the field backward.  Both
+paths round every matmul operand to compute_dtype and accumulate in f32.
+
+Backward contract (the trunk trains): from the residuals and the raw-output
+gradients d rgb_raw [M,3], d dens_raw [M,1] → the gradient of every trunk
+and RGB-head weight and bias.  Nothing flows to the points or the
+encodings (poses are fixed in the pretrain).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..nn.mlp import relu, round_to
+from . import _build
+from .composite import composite_coarse_bwd, composite_coarse_plain
+from .st_field import (HIDDEN, PackCache, _cat_packs, _ceil16, _pack_layer,
+                       _OUT_TILE, check_trunk, pack_head, pack_trunk,
+                       stage_rows)
+
+ROW_TILE = 64          # the kernel's row tile: rays must fit whole into it
+
+
+class CoarseFieldWeights(PackCache):
+    """The coarse field's dense layers (``.w`` [in,out], ``.b``) plus the
+    kernels' packed copies.  The trunk trains, so both the trunk pack and
+    the RGB-head pack, and the backward's transposed pack, rebuild after
+    every optimizer step."""
+
+    _kind = "coarse_field"
+
+    def __init__(self, trunk, rgb, skip):
+        self.trunk, self.rgb = list(trunk), list(rgb)
+        self.skip = tuple(sorted(int(s) for s in skip))
+        self.feat_dim = self.trunk[-1].w.shape[1] - 1
+        self._packs = {}
+
+    def params(self):
+        """Every tensor, in the order the backward returns gradients: trunk
+        (w, b) per layer, then the RGB head."""
+        return [t for layers in (self.trunk, self.rgb) for layer in layers
+                for t in (layer.w, layer.b)]
+
+    def _check(self, xw, e3):
+        check_trunk(self.trunk, self.skip, xw, self._bad)
+        if len(self.trunk) - 1 in self.skip or len(self.trunk) < 2:
+            self._bad(f"the last trunk layer may not be a skip layer "
+                      f"(skip {self.skip})")
+        shapes = [tuple(layer.w.shape) for layer in self.rgb]
+        if (len(self.rgb) < 2 or shapes[0] != (HIDDEN + e3, HIDDEN)
+                or shapes[-1] != (HIDDEN, 3)
+                or any(s != (HIDDEN, HIDDEN) for s in shapes[1:-1])):
+            self._bad(f"rgb head layers {shapes} (row input {e3} wide)")
+
+    def kernel_buffers(self, xw, e3):
+        """Forward: (trunk wpack, trunk bias, rgb wpack, rgb bias, kx, ke)."""
+        kx, ke = _ceil16(xw), _ceil16(e3)
+
+        def build_rgb():
+            w, b = pack_head(self.rgb, [(0, HIDDEN, HIDDEN),
+                                        (HIDDEN, HIDDEN + e3, ke)])
+            return _cat_packs(w), _cat_packs(b, torch.float32)
+
+        def build_trunk():
+            self._check(xw, e3)
+            return pack_trunk(self.trunk, self.skip, xw, kx)
+
+        trunk = self._cached("trunk", (xw, e3), self.trunk, build_trunk)
+        rgb = self._cached("rgb", (e3,), self.rgb, build_rgb)
+        return trunk + rgb + (kx, ke)
+
+    def kernel_buffer_bwd(self, xw, e3):
+        """Backward: the Wᵀ packs in the kernel's walk order — RGB output
+        layer (K padded to 16), RGB hidden layers down to 1, RGB layer 0's
+        feature rows, the trunk's last layer (its 256 feature columns then
+        the density column, K = 272), trunk layers nf-2 .. 1 (their
+        activation rows only)."""
+        H = HIDDEN
+
+        def pack_t(w, segs):
+            return _pack_layer(w, segs, H, H)
+
+        def build():
+            self._check(xw, e3)
+            parts = [pack_t(self.rgb[-1].w.t(), [(0, 3, 16)])]
+            parts += [pack_t(layer.w.t(), [(0, H, H)])
+                      for layer in self.rgb[-2:0:-1]]
+            parts.append(pack_t(self.rgb[0].w[:H].t(), [(0, H, H)]))
+            last = self.trunk[-1].w[:H]
+            parts.append(pack_t(torch.cat([last[:, 1:].t(), last[:, :1].t()]),
+                                [(0, H, H), (H, H + 1, 16)]))
+            parts += [pack_t(layer.w[:H].t(), [(0, H, H)])
+                      for layer in self.trunk[-2:0:-1]]
+            return _cat_packs(parts)
+
+        return self._cached("wT", (xw, e3), self.trunk + self.rgb, build)
+
+    def grad_layout(self, kx, ke):
+        """The backward kernel's flat f32 output: [(key, rows, cols)] and
+        the per-layer offsets {dW, dW2, db, db2} (-1 = none) it writes to:
+        trunk layers (layer 0's dW has kx rows; a skip layer adds its xext
+        block, the last layer its density tile and bias), then the RGB head
+        (layer 0 adds its enc⊕pts block; the output layer is one n8 tile)."""
+        H = HIDDEN
+        layout, offs, at = [], [], 0
+
+        def add(key, rows, cols):
+            nonlocal at
+            layout.append((key, rows, cols))
+            at += rows * cols
+            return at - rows * cols
+
+        nf, nr = len(self.trunk), len(self.rgb)
+        for li in range(nf):
+            o = [add(("t", li, "w"), kx if li == 0 else H, H), -1, -1, -1]
+            if li == nf - 1:
+                o[1] = add(("t", li, "w_dens"), H, _OUT_TILE)
+            elif li in self.skip:
+                o[1] = add(("t", li, "w_x"), kx, H)
+            o[2] = add(("t", li, "b"), 1, H)
+            if li == nf - 1:
+                o[3] = add(("t", li, "b_dens"), 1, _OUT_TILE)
+            offs += o
+        for li in range(nr):
+            cols = _OUT_TILE if li == nr - 1 else H
+            o = [add(("r", li, "w"), H, cols), -1, -1, -1]
+            if li == 0:
+                o[1] = add(("r", 0, "w_ep"), ke, H)
+            o[2] = add(("r", li, "b"), 1, cols)
+            offs += o
+        return layout, offs, at
+
+    def finish_grads(self, parts, xw, e3):
+        """The kernel's blocks → gradients in ``params()`` order."""
+        out = []
+        nf, nr = len(self.trunk), len(self.rgb)
+        for li in range(nf):
+            w, b = parts[("t", li, "w")], parts[("t", li, "b")].reshape(-1)
+            if li == 0:
+                w = w[:xw]
+            elif li == nf - 1:
+                w = torch.cat([parts[("t", li, "w_dens")][:, :1], w], 1)
+                b = torch.cat([parts[("t", li, "b_dens")].reshape(-1)[:1], b])
+            elif li in self.skip:
+                w = torch.cat([w, parts[("t", li, "w_x")][:xw]])
+            out += [w, b]
+        for li in range(nr):
+            w, b = parts[("r", li, "w")], parts[("r", li, "b")].reshape(-1)
+            if li == 0:
+                w = torch.cat([w, parts[("r", 0, "w_ep")][:e3]])
+            if li == nr - 1:
+                w, b = w[:, :3], b[:3]
+            out += [w, b]
+        return out
+
+
+def coarse_render_plain(xext, ep, dist, depth, weights,
+                        compute_dtype=torch.bfloat16, want_res=False):
+    """The forward kernel's plain-PyTorch twin: same signature, same
+    rounding points.  With want_res: (packed, rgb_raw, dens_raw, acts),
+    acts the list of hidden ReLU outputs (trunk, then RGB head) rounded to
+    compute_dtype and held in f32."""
+    def c(x):
+        return round_to(x, compute_dtype)
+
+    xc = c(xext)
+    h, acts = None, []
+    nf = len(weights.trunk)
+    for li, layer in enumerate(weights.trunk):
+        x = xc if li == 0 else (torch.cat([h, xc], -1) if li in weights.skip
+                                else h)
+        z = x @ c(layer.w) + layer.b
+        if li == nf - 1:
+            dens = z[:, :1]
+            z = z[:, 1:]
+        h = c(relu(z))
+        acts.append(h)
+    x = torch.cat([h, c(ep)], -1)
+    nr = len(weights.rgb)
+    for li, layer in enumerate(weights.rgb):
+        z = x @ c(layer.w) + layer.b
+        if li < nr - 1:
+            x = c(relu(z))
+            acts.append(x)
+    packed = composite_coarse_plain(z, dens, depth, dist)
+    return (packed, z, dens, acts) if want_res else packed
+
+
+def coarse_field_bwd_plain(xext, ep, acts, weights, g_rgb, g_dens,
+                           compute_dtype=torch.bfloat16):
+    """The field backward kernel's twin (any layer width): from the
+    residual activations (a list, or the kernel's stacked bf16 buffer), each
+    layer's dW = round(h)ᵀ·round(g), db = Σ g, g ← (round(g)·round(W)ᵀ)⊙
+    [h > 0], from the RGB output layer down to trunk layer 0.  The RGB
+    head's layer 0 passes back only its feature rows, joined by the
+    density's gradient as the trunk's last layer's column 0; a skip layer
+    passes back only its activation block.  → gradients in
+    ``weights.params()`` order."""
+    def c(x):
+        return round_to(x, compute_dtype)
+
+    nf, nr = len(weights.trunk), len(weights.rgb)
+    h = [acts[i].float() for i in range(nf)]
+    r = [acts[nf + i].float() for i in range(nr - 1)]
+    xc, F = c(xext.float()), weights.feat_dim
+    grads = {}
+    g = g_rgb.float()
+    for li in range(nr - 1, -1, -1):
+        x = r[li - 1] if li > 0 else torch.cat([h[-1], c(ep.float())], -1)
+        w = weights.rgb[li].w
+        grads[("r", li)] = (c(x).t() @ c(g), g.sum(0))
+        if li > 0:
+            g = (c(g) @ c(w).t()) * (r[li - 1] > 0)
+        else:
+            g = (c(g) @ c(w[:F]).t()) * (h[-1] > 0)
+    g = torch.cat([g_dens.float(), g], -1)
+    for li in range(nf - 1, -1, -1):
+        x = xc if li == 0 else (torch.cat([h[li - 1], xc], -1)
+                                if li in weights.skip else h[li - 1])
+        grads[("t", li)] = (c(x).t() @ c(g), g.sum(0))
+        if li > 0:
+            w = weights.trunk[li].w[:h[li - 1].shape[1]]
+            g = (c(g) @ c(w).t()) * (h[li - 1] > 0)
+    return [t for key in [("t", i) for i in range(nf)]
+            + [("r", i) for i in range(nr)] for t in grads[key]]
+
+
+_ARGTYPES = {
+    "coarse_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "coarse_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+}
+
+
+def _check_cuda(what, x, compute_dtype):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("coarse_field CUDA kernel computes in bfloat16 "
+                         f"only, got compute_dtype={compute_dtype}")
+
+
+def coarse_render_fwd(xext, ep, dist, depth, weights,
+                      compute_dtype=torch.bfloat16, want_res=False):
+    """Packed [BR,8] f32; with want_res also (rgb_raw [M,3], dens_raw [M,1],
+    res) where res is the kernel's (staged input, [n_res, M, 256] bf16
+    activations) or the twin's (None, list of activations).
+
+    CPU tensors take ``coarse_render_plain``; CUDA tensors launch the
+    kernel (bf16 compute only, rays of N | 64 samples) or raise."""
+    if xext.device.type == "cpu":
+        out = coarse_render_plain(xext, ep, dist, depth, weights,
+                                  compute_dtype, want_res)
+        return out[:3] + ((None, out[3]),) if want_res else out
+    _check_cuda("coarse_render_fwd", xext, compute_dtype)
+    M, xw = xext.shape
+    BR, N = dist.shape
+    e3 = ep.shape[1]
+    dev = xext.device
+    if (M != BR * N or ROW_TILE % N or tuple(depth.shape) != (BR, N)
+            or ep.shape[0] != M):
+        raise ValueError(f"coarse_render_fwd: {M} rows for {BR} rays x {N} "
+                         f"samples (N must divide {ROW_TILE})")
+    wpack, bias, wr, br, kx, ke = weights.kernel_buffers(xw, e3)
+    if any(t.device != dev for t in (ep, dist, depth, wpack)):
+        raise ValueError("coarse_render_fwd: inputs and weights must all "
+                         f"lie on {dev}")
+    xe = stage_rows(xext, ep, kx, ke)
+    dist = dist.float().contiguous()
+    depth = depth.float().contiguous()
+    out = torch.empty((BR, 8), dtype=torch.float32, device=dev)
+    rgb_raw = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    dens_raw = torch.empty((M, 1), dtype=torch.float32, device=dev)
+    n_res = len(weights.trunk) + len(weights.rgb) - 1
+    acts = (torch.empty((n_res, M, HIDDEN), dtype=torch.bfloat16, device=dev)
+            if want_res else None)
+    lib = _build.load("coarse_field", _ARGTYPES)
+    skip_mask = sum(1 << s for s in weights.skip)
+    err = lib.coarse_fwd(
+        xe.data_ptr(), wpack.data_ptr(), bias.data_ptr(), wr.data_ptr(),
+        br.data_ptr(), dist.data_ptr(), depth.data_ptr(), out.data_ptr(),
+        rgb_raw.data_ptr(), dens_raw.data_ptr(),
+        acts.data_ptr() if acts is not None else None, M, kx, ke, N,
+        len(weights.trunk), len(weights.rgb), skip_mask,
+        _build.stream_ptr(dev))
+    _build.check(err, "coarse_render_fwd")
+    coarse_render_fwd.launches += 1
+    return (out, rgb_raw, dens_raw, (xe, acts)) if want_res else out
+
+
+coarse_render_fwd.launches = 0
+
+
+def coarse_field_bwd(xext, ep, xe, acts, weights, g_rgb, g_dens,
+                     compute_dtype=torch.bfloat16):
+    """Gradients of every trunk and RGB-head tensor, in ``weights.params()``
+    order, f32, from the forward's residuals (``xe`` and ``acts`` as
+    ``coarse_render_fwd`` returns them).
+
+    CPU tensors take ``coarse_field_bwd_plain``; CUDA tensors launch the
+    kernel (bf16 compute only) or raise."""
+    if xext.device.type == "cpu":
+        return coarse_field_bwd_plain(xext, ep, acts, weights, g_rgb, g_dens,
+                                      compute_dtype)
+    _check_cuda("coarse_field_bwd", xext, compute_dtype)
+    M, xw = xext.shape
+    e3 = ep.shape[1]
+    dev = xext.device
+    kx, ke = _ceil16(xw), _ceil16(e3)
+    n_res = len(weights.trunk) + len(weights.rgb) - 1
+    if (xe is None or tuple(xe.shape) != (M, kx + ke)
+            or tuple(acts.shape) != (n_res, M, HIDDEN)
+            or acts.dtype != torch.bfloat16
+            or tuple(g_rgb.shape) != (M, 3)
+            or tuple(g_dens.shape) != (M, 1)):
+        raise ValueError("coarse_field_bwd: expects the kernel's staged "
+                         f"[M,{kx + ke}] input and [{n_res},M,256] bf16 "
+                         f"residuals and [M,3]/[M,1] gradients, got "
+                         f"{tuple(acts.shape)}, {tuple(g_rgb.shape)}, "
+                         f"{tuple(g_dens.shape)}")
+    wT = weights.kernel_buffer_bwd(xw, e3)
+    if any(t.device != dev for t in (xe, acts, g_rgb, g_dens, wT)):
+        raise ValueError("coarse_field_bwd: inputs, gradients and weights "
+                         f"must all lie on {dev}")
+    layout, offs, total = weights.grad_layout(kx, ke)
+    grads = torch.zeros(total, dtype=torch.float32, device=dev)
+    offs = torch.tensor(offs, dtype=torch.int32, device=dev)
+    g_rgb = g_rgb.float().contiguous()
+    g_dens = g_dens.float().contiguous()
+    lib = _build.load("coarse_field", _ARGTYPES)
+    err = lib.coarse_bwd(
+        xe.data_ptr(), acts.data_ptr(), g_rgb.data_ptr(), g_dens.data_ptr(),
+        wT.data_ptr(), grads.data_ptr(), offs.data_ptr(), M, kx, ke,
+        len(weights.trunk), len(weights.rgb),
+        sum(1 << s for s in weights.skip), _build.stream_ptr(dev))
+    _build.check(err, "coarse_field_bwd")
+    coarse_field_bwd.launches += 1
+    parts, at = {}, 0
+    for key, rows, cols in layout:
+        parts[key] = grads[at:at + rows * cols].view(rows, cols)
+        at += rows * cols
+    return weights.finish_grads(parts, xw, e3)
+
+
+coarse_field_bwd.launches = 0
+
+
+class _CoarseRender(torch.autograd.Function):
+    """fused_coarse_render's custom_vjp: the forward keeps the residuals;
+    the backward runs the composite backward, then the field backward
+    (kernels or twins by device).  No gradient reaches the inputs."""
+
+    @staticmethod
+    def forward(ctx, xext, ep, dist, depth, weights, compute_dtype, *params):
+        packed, rgb_raw, dens_raw, res = coarse_render_fwd(
+            xext, ep, dist, depth, weights, compute_dtype, want_res=True)
+        ctx.save_for_backward(xext, ep, dist, depth, rgb_raw, dens_raw)
+        ctx.res = res
+        ctx.weights = weights
+        ctx.compute_dtype = compute_dtype
+        return packed
+
+    @staticmethod
+    def backward(ctx, g):
+        xext, ep, dist, depth, rgb_raw, dens_raw = ctx.saved_tensors
+        d_rgb, d_dens = composite_coarse_bwd(rgb_raw, dens_raw, dist, depth,
+                                             g.contiguous())
+        xe, acts = ctx.res
+        ctx.res = None
+        grads = coarse_field_bwd(xext, ep, xe, acts, ctx.weights, d_rgb,
+                                 d_dens, ctx.compute_dtype)
+        return (None,) * 6 + tuple(grads)
+
+
+def coarse_render(xext, ep, dist, depth, weights,
+                  compute_dtype=torch.bfloat16):
+    """Differentiable coarse render: packed [BR,8] with gradients to every
+    trunk and RGB-head tensor."""
+    return _CoarseRender.apply(xext, ep, dist, depth, weights, compute_dtype,
+                               *weights.params())

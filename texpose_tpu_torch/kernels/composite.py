@@ -1,6 +1,7 @@
-"""Dual-density (NeRF-W) composite, forward and backward: the CUDA kernels'
-wrappers, their plain-PyTorch twins, and the autograd Function that pairs
-them.
+"""The composites: the dual-density (NeRF-W) composite of the texture model,
+forward and backward, and the single-density (vanilla NeRF) composite of
+the pretrain — the CUDA kernels' wrappers, their plain-PyTorch twins, and
+the autograd Function that pairs the dual composite's two kernels.
 
 Replaces texpose_tpu/kernels/fused_composite.py (``fused_composite_st``:
 ``_run_fwd``/``_run_bwd`` and the flat-input ``_run_fwd_flat``/
@@ -15,6 +16,14 @@ Packed output columns [BR,16]:
   0-2 rgb | 3-5 rgb_static | 6-8 rgb_transient | 9 depth | 10 opacity
   11 opacity_static | 12 opacity_transient | 13 uncert
   14 sum_n softplus(transient density raw) | 15 zero
+
+The single-density composite replaces texpose_tpu/kernels/
+fused_composite_coarse.py: its forward runs as the epilogue of the coarse
+field kernel (``csrc/composite_coarse.cuh``, called by
+``csrc/coarse_field.cu``; twin ``composite_coarse_plain``), its backward
+(``_run_bwd``, the closed-form VJP to rgb AND density) is
+``composite_coarse_bwd``.  Packed columns [BR,8]: 0-2 rgb | 3 depth |
+4 opacity | 5-7 zero.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from ..ops.render import _dists, _transmittance
 from . import _build
 
 N_OUT = 16
+N_OUT_COARSE = 8
 
 
 def composite_st_plain(rgb_raw, trans_raw, dens_raw, depth, dist,
@@ -97,11 +107,47 @@ def composite_st_bwd_plain(rgb_raw, trans_raw, dens_raw, dist, g):
     return d_rgb.reshape(BR * N, 3), d_tr.reshape(BR * N, 5)
 
 
+def composite_coarse_plain(rgb_raw, dens_raw, depth, dist):
+    """rgb_raw [BR·N,3], dens_raw [BR·N,1] (no activations), depth and dist
+    [BR,N] → packed [BR,8]: sigmoid colors, softplus density, w = T·α."""
+    BR, N = depth.shape
+    cs = torch.sigmoid(rgb_raw).reshape(BR, N, 3)
+    sd = softplus(dens_raw[:, 0]).reshape(BR, N) * dist
+    w = _transmittance(sd) * (1.0 - torch.exp(-sd))
+    return torch.cat([(w[..., None] * cs).sum(1),
+                      (w * depth).sum(1, keepdim=True),
+                      w.sum(1, keepdim=True),
+                      torch.zeros_like(dist[:, :3])], dim=1)
+
+
+def composite_coarse_bwd_plain(rgb_raw, dens_raw, dist, depth, g):
+    """The coarse backward kernel's twin: fused_composite_coarse's
+    _bwd_kernel in closed form.  g [BR,8] is the packed output's cotangent
+    → (d rgb_raw [BR·N,3], d dens_raw [BR·N,1])."""
+    BR, N = dist.shape
+    cs = torch.sigmoid(rgb_raw).reshape(BR, N, 3)
+    x = dens_raw[:, 0].reshape(BR, N)
+    sd = softplus(x) * dist
+    T, e = _transmittance(sd), torch.exp(-sd)
+    w = T * (1.0 - e)
+    g_rgb = g[:, None, 0:3]
+    d_rgb = w[..., None] * g_rgb * cs * (1.0 - cs)
+    G = (cs * g_rgb).sum(-1) + depth * g[:, 3:4] + g[:, 4:5]
+    v = G * w
+    suffix = torch.flip(torch.cumsum(torch.flip(v, [1]), 1), [1])
+    d_sd = G * T * e - torch.cat([suffix[:, 1:], torch.zeros_like(v[:, :1])],
+                                 1)
+    d_dens = d_sd * dist * torch.sigmoid(x)
+    return d_rgb.reshape(BR * N, 3), d_dens.reshape(BR * N, 1)
+
+
 _ARGTYPES = {
     "composite_st_fwd": [ctypes.c_void_p] * 5
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
        ctypes.c_void_p],
     "composite_st_bwd": [ctypes.c_void_p] * 5
+    + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
+    "composite_coarse_bwd": [ctypes.c_void_p] * 5
     + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
 }
 
@@ -169,6 +215,37 @@ def composite_st_bwd(rgb_raw, trans_raw, dens_raw, dist, g):
 
 
 composite_st_bwd.launches = 0
+
+
+def composite_coarse_bwd(rgb_raw, dens_raw, dist, depth, g):
+    """(d rgb_raw [M,3], d dens_raw [M,1]) from the packed cotangent g
+    [BR,8].  CPU tensors take ``composite_coarse_bwd_plain``; CUDA tensors
+    launch the kernel or raise."""
+    if rgb_raw.device.type == "cpu":
+        return composite_coarse_bwd_plain(rgb_raw, dens_raw, dist, depth, g)
+    if rgb_raw.device.type != "cuda":
+        raise ValueError(
+            f"composite_coarse_bwd: no kernel for {rgb_raw.device}")
+    BR, N = dist.shape
+    if N > 64:
+        raise ValueError(f"composite_coarse_bwd: {N} samples per ray; the "
+                         "kernel takes up to 64, as the coarse render does")
+    M = BR * N
+    args = _check_planes("composite_coarse_bwd", rgb_raw.device,
+                         (rgb_raw, dens_raw, dist, depth, g),
+                         (3 * M, M, M, M, BR * N_OUT_COARSE))
+    d_rgb = torch.empty((M, 3), dtype=torch.float32, device=rgb_raw.device)
+    d_dens = torch.empty((M, 1), dtype=torch.float32, device=rgb_raw.device)
+    lib = _build.load("composite", _ARGTYPES)
+    err = lib.composite_coarse_bwd(*(x.data_ptr() for x in args), BR, N,
+                                   d_rgb.data_ptr(), d_dens.data_ptr(),
+                                   _build.stream_ptr(rgb_raw.device))
+    _build.check(err, "composite_coarse_bwd")
+    composite_coarse_bwd.launches += 1
+    return d_rgb, d_dens
+
+
+composite_coarse_bwd.launches = 0
 
 
 class _CompositeST(torch.autograd.Function):

@@ -82,24 +82,29 @@ def _pack_layer(w, segs, n_out, n_pad):
             .permute(4, 0, 5, 2, 1, 3).reshape(-1))
 
 
+def stage_rows(xext, encpts, kx, ke):
+    """The field kernels' row input: [M, kx+ke] bf16, xext | enc⊕pts, each
+    zero padded to its 16-multiple width."""
+    M, xw = xext.shape
+    xe = torch.zeros((M, kx + ke), dtype=torch.bfloat16, device=xext.device)
+    xe[:, :xw] = xext
+    xe[:, kx:kx + encpts.shape[1]] = encpts
+    return xe
+
+
 def _pad_bias(b, n_pad):
     out = torch.zeros((n_pad,), dtype=torch.float32, device=b.device)
     out[:b.shape[0]] = b
     return out
 
 
-class STFieldWeights:
-    """The field's dense layers (objects with ``.w`` [in,out] and ``.b``)
-    plus the kernels' packed copies of them.  Each pack is rebuilt whenever
-    one of its parameters is modified in place (an optimizer step or
-    load_state_dict bumps ``_version``): the trunk pack only when a trunk
-    tensor changed, the head packs whenever a head tensor did."""
+class PackCache:
+    """Packed copies of dense layers (objects with ``.w`` [in,out] and
+    ``.b``) for a kernel.  Each pack is rebuilt whenever one of its
+    parameters is modified in place (an optimizer step or load_state_dict
+    bumps ``_version``)."""
 
-    def __init__(self, trunk, rgb, trans, skip):
-        self.trunk, self.rgb, self.trans = list(trunk), list(rgb), list(trans)
-        self.skip = tuple(sorted(int(s) for s in skip))
-        self.feat_dim = self.trunk[-1].w.shape[1] - 1
-        self._packs = {}
+    _kind = "field"
 
     def _cached(self, name, extra, layers, build):
         key = tuple(extra) + tuple((id(t), t._version, t.device)
@@ -113,21 +118,77 @@ class STFieldWeights:
         self._packs[name] = (key, value)
         return value
 
-    @staticmethod
-    def _bad(msg):
-        raise ValueError(f"st_field CUDA kernel: {msg}")
+    def _bad(self, msg):
+        raise ValueError(f"{self._kind} CUDA kernel: {msg}")
 
-    def _check_trunk(self, xw):
-        if 0 in self.skip or len(self.trunk) > 31:
-            self._bad(f"unsupported trunk (skip {self.skip}, "
-                      f"{len(self.trunk)} layers)")
-        n = len(self.trunk)
-        for li, layer in enumerate(self.trunk):
-            n_in = xw if li == 0 else HIDDEN + (xw if li in self.skip else 0)
-            want = (n_in, HIDDEN + (li == n - 1))
-            if tuple(layer.w.shape) != want:
-                self._bad(f"trunk layer {li} is {tuple(layer.w.shape)}, "
-                          f"expected {want}")
+
+def check_trunk(trunk, skip, xw, bad):
+    """The trunk layers the kernels take: 256 wide, layer 0 not a skip."""
+    if 0 in skip or len(trunk) > 31:
+        bad(f"unsupported trunk (skip {skip}, {len(trunk)} layers)")
+    n = len(trunk)
+    for li, layer in enumerate(trunk):
+        n_in = xw if li == 0 else HIDDEN + (xw if li in skip else 0)
+        want = (n_in, HIDDEN + (li == n - 1))
+        if tuple(layer.w.shape) != want:
+            bad(f"trunk layer {li} is {tuple(layer.w.shape)}, "
+                f"expected {want}")
+
+
+def pack_trunk(trunk, skip, xw, kx):
+    """(wpack bf16, bias f32) of the trunk in the kernels' walk order: each
+    layer, the last split into its 256 feature columns and one density
+    n8 tile."""
+    H = HIDDEN
+    ws, bs = [], []
+    n = len(trunk)
+    for li, layer in enumerate(trunk):
+        if li == 0:
+            segs = [(0, xw, kx)]
+        elif li in skip:
+            segs = [(0, H, H), (H, H + xw, kx)]
+        else:
+            segs = [(0, H, H)]
+        if li < n - 1:
+            ws.append(_pack_layer(layer.w, segs, H, H))
+            bs.append(layer.b)
+        else:
+            ws.append(_pack_layer(layer.w[:, 1:], segs, H, H))
+            bs.append(layer.b[1:])
+            ws.append(_pack_layer(layer.w[:, :1], segs, 1, _OUT_TILE))
+            bs.append(_pad_bias(layer.b[:1], _OUT_TILE))
+    return _cat_packs(ws), _cat_packs(bs, torch.float32)
+
+
+def pack_head(layers, first_segs):
+    """(wpack bf16, bias f32) of a head: layer 0 with ``first_segs``, the
+    hidden layers 256 → 256, the output layer padded to one n8 tile."""
+    ws, bs = [], []
+    for li, layer in enumerate(layers):
+        segs = first_segs if li == 0 else [(0, HIDDEN, HIDDEN)]
+        if li < len(layers) - 1:
+            ws.append(_pack_layer(layer.w, segs, HIDDEN, HIDDEN))
+            bs.append(layer.b)
+        else:
+            ws.append(_pack_layer(layer.w, segs, layer.w.shape[1],
+                                  _OUT_TILE))
+            bs.append(_pad_bias(layer.b, _OUT_TILE))
+    return ws, bs
+
+
+class STFieldWeights(PackCache):
+    """The field's dense layers (objects with ``.w`` [in,out] and ``.b``)
+    plus the kernels' packed copies of them: the trunk pack is rebuilt only
+    when a trunk tensor changed, the head packs whenever a head tensor
+    did."""
+
+    _kind = "st_field"
+
+    def __init__(self, trunk, rgb, trans, skip):
+        self.trunk, self.rgb, self.trans = list(trunk), list(rgb), list(trans)
+        self.skip = tuple(sorted(int(s) for s in skip))
+        self.feat_dim = self.trunk[-1].w.shape[1] - 1
+        self._packs = {}
 
     def _check_heads(self, e3):
         for name, head, n_out in (("rgb", self.rgb, 3),
@@ -172,26 +233,8 @@ class STFieldWeights:
         return heads + (wT, ke)
 
     def _pack_trunk(self, xw, kx):
-        self._check_trunk(xw)
-        H = HIDDEN
-        ws, bs = [], []
-        n = len(self.trunk)
-        for li, layer in enumerate(self.trunk):
-            if li == 0:
-                segs = [(0, xw, kx)]
-            elif li in self.skip:
-                segs = [(0, H, H), (H, H + xw, kx)]
-            else:
-                segs = [(0, H, H)]
-            if li < n - 1:
-                ws.append(_pack_layer(layer.w, segs, H, H))
-                bs.append(layer.b)
-            else:
-                ws.append(_pack_layer(layer.w[:, 1:], segs, H, H))
-                bs.append(layer.b[1:])
-                ws.append(_pack_layer(layer.w[:, :1], segs, 1, _OUT_TILE))
-                bs.append(_pad_bias(layer.b[:1], _OUT_TILE))
-        return _cat_packs(ws), _cat_packs(bs, torch.float32)
+        check_trunk(self.trunk, self.skip, xw, self._bad)
+        return pack_trunk(self.trunk, self.skip, xw, kx)
 
     def _pack_heads(self, e3, ke):
         self._check_heads(e3)
@@ -199,15 +242,9 @@ class STFieldWeights:
         ws, bs = [], []
         for head, first_segs in ((self.rgb, [(0, F, H), (F, F + e3, ke)]),
                                  (self.trans, [(0, F, H)])):
-            for li, layer in enumerate(head):
-                segs = first_segs if li == 0 else [(0, H, H)]
-                if li < len(head) - 1:
-                    ws.append(_pack_layer(layer.w, segs, H, H))
-                    bs.append(layer.b)
-                else:
-                    n_out = layer.w.shape[1]
-                    ws.append(_pack_layer(layer.w, segs, n_out, _OUT_TILE))
-                    bs.append(_pad_bias(layer.b, _OUT_TILE))
+            w, b = pack_head(head, first_segs)
+            ws += w
+            bs += b
         return _cat_packs(ws), _cat_packs(bs, torch.float32)
 
     def head_params(self):
@@ -394,9 +431,7 @@ def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
         raise ValueError("st_field_fwd: inputs, latents and weights must "
                          f"all lie on {dev}")
     lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
-    xe = torch.zeros((M, kx + ke), dtype=torch.bfloat16, device=dev)
-    xe[:, :xw] = xext
-    xe[:, kx:kx + e3] = encpts
+    xe = stage_rows(xext, encpts, kx, ke)
     lrow = lrow.float().contiguous()
     trow = trow.float().contiguous()
     rgb = torch.empty((M, 3), dtype=torch.float32, device=dev)

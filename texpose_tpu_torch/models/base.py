@@ -28,6 +28,18 @@ from ..utils.metrics import MetricsWriter, StepTimer
 from ..utils.pipeline import EvalPrefetcher, to_device
 
 
+def resolve_device(cfg):
+    """The entry points' device: ``--device=`` (default ``cuda``).  A CUDA
+    device with no card visible raises: the port runs on the CPU only when
+    the caller asks for it."""
+    device = torch.device(cfg.get("device") or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device={device} but no CUDA device is visible; pass "
+            "--device=cpu to run on the CPU")
+    return device
+
+
 def compute_dtype(cfg):
     return {"bfloat16": torch.bfloat16,
             "float32": torch.float32}[str(cfg.get("compute_dtype",

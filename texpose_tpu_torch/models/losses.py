@@ -1,6 +1,7 @@
-"""The texture stage's losses (port of texpose_tpu/models/losses.py): MSE,
-the uncertainty regularizer, the Lab chromaticity loss, the GAN losses with
-the R1 and WGAN-GP penalties, and the 10**w log-scale weighting."""
+"""The training losses (port of texpose_tpu/models/losses.py): MSE, the
+pretrain's masked MSE and scale-invariant depth loss, the uncertainty
+regularizer, the Lab chromaticity loss, the GAN losses with the R1 and
+WGAN-GP penalties, and the 10**w log-scale weighting."""
 
 from __future__ import annotations
 
@@ -11,6 +12,23 @@ from ..ops.color import normalize_lab, rgb_to_lab
 
 def mse_loss(pred, label=0.0):
     return ((pred - label) ** 2).mean()
+
+
+def masked_mse_loss(pred, label, mask, eps=1e-5):
+    """Σ mask·(pred−label)² / (Σ mask + ε)."""
+    return (mask * (pred - label) ** 2).sum() / (mask.sum() + eps)
+
+
+def scale_invariant_depth_loss(depth_pred, depth_target, mask=None):
+    """1 − min/max ratio.  Where prediction and target tie, min and max each
+    pass half of the gradient to both, as jnp.minimum/maximum do."""
+    mn = torch.minimum(depth_pred, depth_target)
+    mx = torch.maximum(depth_pred, depth_target)
+    loss = 1 - mn / (mx + 1e-5)
+    if mask is not None:
+        mask = mask.to(loss.dtype)
+        return (loss * mask).sum() / (mask.sum() + 1e-5)
+    return loss.mean()
 
 
 def uncertainty_reg_loss(uncert):

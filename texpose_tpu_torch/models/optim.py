@@ -1,4 +1,4 @@
-"""Optimizers and learning-rate schedules of the texture stage (port of
+"""Optimizers and learning-rate schedules (port of
 texpose_tpu/models/optim.py; tests/test_optim_parity.py pins the
 semantics the JAX package reproduces).
 
@@ -10,6 +10,10 @@ semantics the JAX package reproduces).
   * discriminator: torch ``RMSprop(alpha=0.99, eps=1e-8)`` (ε outside the
     root, optax's eps_in_sqrt=False), constant lr unless
     ``optim_disc.lr_end`` sets a staircase.
+  * pretrain (trunk + RGB head): torch ``Adam`` with a per-iteration
+    schedule — lr·γ^count with the yaml's literal ``optim.sched.gamma``
+    (nerf_lm_pretrain.yaml), else the continuous decay
+    lr·(lr_end/lr)^(count/max_iter) (nerf_lm_env.yaml), else constant.
 ``set_lrs(opt, count)`` writes each group's rate for the update about to
 run; count is the number of updates already applied (optax's schedule
 count).
@@ -81,6 +85,23 @@ def make_disc_optimizer(cfg, params, max_iter, steps_per_epoch):
     return torch.optim.RMSprop([{"params": list(params), "schedule": sched,
                                  "lr": sched(0)}],
                                alpha=0.99, eps=1e-8)
+
+
+def pretrain_schedule(cfg, max_iter):
+    lr, lr_end = cfg.optim.lr, cfg.optim.get("lr_end")
+    gamma = (cfg.optim.get("sched") or {}).get("gamma")
+    if gamma:
+        return lambda count: lr * float(gamma) ** count
+    if lr_end:
+        return lambda count: lr * (lr_end / lr) ** (count / max_iter)
+    return lambda count: lr
+
+
+def make_pretrain_optimizer(cfg, params, max_iter):
+    """Adam over the field's parameters on ``pretrain_schedule``."""
+    sched = pretrain_schedule(cfg, max_iter)
+    return torch.optim.Adam([{"params": list(params), "schedule": sched,
+                              "lr": sched(0)}], betas=(0.9, 0.999), eps=1e-8)
 
 
 def set_lrs(opt, count):

@@ -1,11 +1,11 @@
-"""Chunked rendering for the texture model (port of the ST half of
-texpose_tpu/models/render.py).
+"""Ray rendering for the engines (port of texpose_tpu/models/render.py).
 
 JAX's ``lax.map`` over ray chunks becomes a Python loop; every chunk runs
 the field and the composite on ``chunk`` rays × N samples, with mid-bin
-depth samples.  ``render_st_core`` is also the training step's render
-(models/texture_gan.py::render_patch), with stratified depth uniforms and
-the optional density noise passed in by the caller.
+depth samples.  ``render_rays_nerf`` (the pretrain's coarse field) and
+``render_st_core`` (the texture model's field, also the training step's
+render through models/texture_gan.py::render_patch) take stratified depth
+uniforms and the optional density noise from the caller.
 """
 
 from __future__ import annotations
@@ -17,9 +17,11 @@ import torch
 
 from ..geometry.rays import cam2world, convert_NDC, img2cam, pixel_grid, to_hom
 from ..kernels.composite import fused_composite_st
-from ..nn.fields import (forward_samples_nerf_st,
-                         forward_samples_nerf_st_raw, use_fused_render)
-from ..ops.render import composite_static_transient, sample_depth
+from ..nn.fields import (forward_coarse_render, forward_samples_nerf,
+                         forward_samples_nerf_st,
+                         forward_samples_nerf_st_raw,
+                         use_fused_coarse_render, use_fused_render)
+from ..ops.render import composite, composite_static_transient, sample_depth
 
 
 def ray_batch_sample(values, ray_idx):
@@ -46,6 +48,48 @@ def gather_rays(pose, intr, ray_idx, z_near, z_far, H, W, ndc=False,
     if ndc:
         center, ray = convert_NDC(center, ray, intr)
     return center, ray, near, far
+
+
+def render_rays_nerf(nerf, cfg, pose, intr, ray_idx, z_near, z_far,
+                     progress=None, compute_dtype=None, depth_rand=None,
+                     density_noise=None, training=False):
+    """Coarse-NeRF render of the selected rays → dict(rgb [B,R,3], depth
+    [B,R,1], opacity [B,R,1]).  depth_rand [B,R,N,1] uniforms make the
+    samples stratified, else mid-bin; density_noise [B,R,N] (standard
+    normal) is added in training on the plain route, which the gate picks
+    for a noisy training config."""
+    center, ray, near, far = gather_rays(
+        pose, intr, ray_idx, z_near, z_far, cfg.H, cfg.W,
+        ndc=cfg.camera.get("ndc", False))
+    N = int(cfg.nerf.sample_intvs)
+    depth_samples = sample_depth(near, far, N, param=cfg.nerf.depth.param,
+                                 rand=depth_rand)
+    if use_fused_coarse_render(cfg, N, training):
+        out = forward_coarse_render(nerf, cfg, center, ray, depth_samples,
+                                    progress, compute_dtype)
+        if cfg.nerf.get("setbg_opaque", False):
+            out["rgb"] = out["rgb"] + 1.0 * (1.0 - out["opacity"])
+        return out
+    rgb_s, dens_s = forward_samples_nerf(
+        nerf, cfg, center, ray, depth_samples, progress, compute_dtype,
+        density_noise if training else None)
+    out = composite(rgb_s, dens_s, depth_samples, ray,
+                    setbg_opaque=cfg.nerf.get("setbg_opaque", False))
+    return dict(rgb=out["rgb"], depth=out["depth"], opacity=out["opacity"])
+
+
+def render_full_nerf(nerf, cfg, pose, intr, z_near, z_far, progress=None,
+                     compute_dtype=None, chunk=None):
+    """Whole-frame coarse render in chunks of ``rand_rays`` rays with mid-bin
+    samples → dict of [B,HW,C]."""
+    B = pose.shape[0]
+    HW = cfg.H * cfg.W
+    chunks = _chunk_indices(HW, chunk or cfg.nerf.rand_rays, pose.device)
+    outs = [render_rays_nerf(nerf, cfg, pose, intr, idx[None].expand(B, -1),
+                             z_near, z_far, progress, compute_dtype)
+            for idx in chunks]
+    return {k: torch.cat([o[k] for o in outs], dim=1)[:, :HW]
+            for k in outs[0]}
 
 
 def render_st_core(nerf, cfg, center, ray, near, far, latent_trans,

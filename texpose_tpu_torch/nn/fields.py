@@ -1,5 +1,13 @@
-"""The texture stage's static/transient/light field (port of the ST path of
-texpose_tpu/nn/fields.py).
+"""The NeRF fields (port of texpose_tpu/nn/fields.py): the pretrain's coarse
+field and the texture stage's static/transient/light field.
+
+``NerfCoarse`` holds the 8×256 trunk (``mlp_feat``) and the RGB head
+(``mlp_rgb``); the pretrain trains both.  Two routes, as in the JAX
+package: ``apply_nerf`` / ``forward_samples_nerf`` (plain PyTorch, with the
+training density noise of ``apply_trunk``) and ``forward_coarse_render``
+(the coarse field kernel with the composite in its epilogue,
+kernels/coarse_field.py; with grad enabled its autograd Function runs the
+composite and field backward kernels).  ``use_fused_coarse_render`` picks.
 
 ``NerfST`` holds the frozen 8×256 trunk (``mlp_feat``), the light-latent
 RGB head (``mlp_rgb``) and the transient head (``mlp_trans``) as
@@ -11,7 +19,7 @@ the JAX package:
     wrapper (kernels/st_field.py), the input of the composite kernel; with
     grad enabled it goes through the autograd Function ``st_field``, whose
     backward is the field's backward kernel.
-The trunk is frozen in the texture stage: neither route lets a gradient
+In the texture stage the trunk is frozen: neither route lets a gradient
 reach it.  The training-only density noise (``nerf.density_noise_reg``)
 takes the plain route, as in the JAX package; the noise is an explicit
 standard-normal input drawn by the caller.
@@ -22,9 +30,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..kernels.coarse_field import (ROW_TILE, CoarseFieldWeights,
+                                    coarse_render, coarse_render_fwd)
 from ..kernels.st_field import (STFieldWeights, make_xext, st_field,
                                 st_field_fwd)
 from ..ops.posenc import c2f_band_weights, posenc_with_identity
+from ..ops.render import _dists
 from .init import dense_init
 from .mlp import DENSITY_ACTIVATIONS, Dense, dense, relu, softplus
 
@@ -91,30 +102,66 @@ def _layers(generator, dims, first_in, last_mode):
     return nn.ModuleList(out)
 
 
+def _trunk(cfg, generator):
+    """The trunk's Dense layers: layers_feat with skip connections, the last
+    layer emitting [density, feat...]."""
+    in3d = input_3d_dim(cfg)
+    tf_init = bool(cfg.arch.tf_init)
+    trunk = []
+    dims = get_layer_dims(cfg.arch.layers_feat)
+    for li, (k_in, k_out) in enumerate(dims):
+        if li == 0:
+            k_in = in3d
+        if li in cfg.arch.skip:
+            k_in += in3d
+        last = li == len(dims) - 1
+        if last:
+            k_out += 1
+        mode = "first" if (tf_init and last) else None
+        trunk.append(Dense(*dense_init(generator, k_in, k_out,
+                                       out_mode=mode)))
+    return nn.ModuleList(trunk)
+
+
+class NerfCoarse(nn.Module):
+    """The pretrain's coarse field: trunk + RGB head on feat ⊕ (view
+    encoding) ⊕ pts.  Weights are drawn from ``generator`` (a seeded
+    ``torch.Generator``)."""
+
+    def __init__(self, cfg, generator):
+        super().__init__()
+        self.mlp_feat = _trunk(cfg, generator)
+        self.mlp_rgb = _layers(
+            generator, get_layer_dims(cfg.arch.layers_rgb),
+            cfg.arch.layers_feat[-1]
+            + (input_view_dim(cfg) if cfg.nerf.view_dep else 0) + 3,
+            "all" if cfg.arch.tf_init else None)
+        self.skip = tuple(cfg.arch.skip)
+        self._kernel_weights = None
+
+    def kernel_weights(self):
+        """The layers as the coarse field kernel wrapper takes them."""
+        if self._kernel_weights is None:
+            self._kernel_weights = CoarseFieldWeights(
+                self.mlp_feat, self.mlp_rgb, self.skip)
+        return self._kernel_weights
+
+
+def init_nerf(cfg, generator=None):
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    return NerfCoarse(cfg, generator)
+
+
 class NerfST(nn.Module):
     """Frozen trunk + light-conditioned RGB head + transient head.  Weights
     are drawn from ``generator`` (a seeded ``torch.Generator``)."""
 
     def __init__(self, cfg, generator):
         super().__init__()
-        in3d = input_3d_dim(cfg)
-        tf_init = bool(cfg.arch.tf_init)
-        trunk = []
-        dims = get_layer_dims(cfg.arch.layers_feat)
-        for li, (k_in, k_out) in enumerate(dims):
-            if li == 0:
-                k_in = in3d
-            if li in cfg.arch.skip:
-                k_in += in3d
-            last = li == len(dims) - 1
-            if last:
-                k_out += 1
-            mode = "first" if (tf_init and last) else None
-            trunk.append(Dense(*dense_init(generator, k_in, k_out,
-                                           out_mode=mode)))
-        self.mlp_feat = nn.ModuleList(trunk)
+        self.mlp_feat = _trunk(cfg, generator)
         feat_dim = cfg.arch.layers_feat[-1]
-        last_mode = "all" if tf_init else None
+        last_mode = "all" if cfg.arch.tf_init else None
         self.mlp_rgb = _layers(
             generator, get_layer_dims(cfg.arch.layers_rgb),
             feat_dim + (input_view_dim(cfg) if cfg.nerf.view_dep else 0)
@@ -171,6 +218,102 @@ def _run_head(layers, x, compute_dtype):
         if li != n - 1:
             x = relu(x)
     return x
+
+
+def apply_nerf(nerf, cfg, points, ray_unit=None, progress=None,
+               compute_dtype=None, density_noise=None):
+    """Plain route: points [...,3] (+ ray_unit [...,3] with view_dep) →
+    (rgb [...,3], density [...]); the trunk trains.  The view encoding takes
+    no c2f window (as the JAX package's coarse field)."""
+    feat, density = apply_trunk(nerf.mlp_feat, cfg,
+                                _encode_points(cfg, points, progress),
+                                compute_dtype, density_noise)
+    if cfg.nerf.view_dep:
+        feat = torch.cat([feat, _encode_view(cfg, ray_unit, progress),
+                          points], dim=-1)
+    else:
+        feat = torch.cat([feat, points], dim=-1)
+    return torch.sigmoid(_run_head(nerf.mlp_rgb, feat, compute_dtype)), \
+        density
+
+
+def forward_samples_nerf(nerf, cfg, center, ray, depth_samples, progress=None,
+                         compute_dtype=None, density_noise=None):
+    """center/ray [B,R,3], depth_samples [B,R,N,1] → rgb [B,R,N,3],
+    density [B,R,N]."""
+    pts = center[..., None, :] + ray[..., None, :] * depth_samples
+    ray_unit = None
+    if cfg.nerf.view_dep:
+        ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+        ray_unit = ray_unit[..., None, :].expand(pts.shape)
+    return apply_nerf(nerf, cfg, pts, ray_unit, progress, compute_dtype,
+                      density_noise)
+
+
+def coarse_field_inputs(cfg, points, ray_unit=None, progress=None):
+    """The coarse field kernel's row inputs for points [B,R,N,3]: (xext
+    [M,3+6L], enc⊕pts [M,E+3] — pts alone without view_dep) in float32.
+    ray_unit is per ray [B,R,3]; its encoding (no c2f) is broadcast over
+    the samples."""
+    B, R, N, _ = points.shape
+    L3 = cfg.arch.posenc.L_3D
+    pts = points.reshape(-1, 3)
+    xext = make_xext(pts, L3, _c2f_band_weights(cfg, L3, progress,
+                                                device=pts.device))
+    if not cfg.nerf.view_dep:
+        return xext, pts.float()
+    enc = _encode_view(cfg, ray_unit, progress)
+    enc = enc[..., None, :].expand(B, R, N, enc.shape[-1])
+    return xext, torch.cat([enc.reshape(pts.shape[0], -1), pts], dim=1)
+
+
+def forward_coarse_render(nerf, cfg, center, ray, depth_samples,
+                          progress=None, compute_dtype=None):
+    """Kernel route: field + composite → dict(rgb [B,R,3], depth [B,R,1],
+    opacity [B,R,1]).  With grad enabled the trunk and the RGB head
+    differentiate through ``coarse_render``; depths and rays take none."""
+    pts = center[..., None, :] + ray[..., None, :] * depth_samples
+    B, R, N, _ = pts.shape
+    ray_unit = (ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+                if cfg.nerf.view_dep else None)
+    xext, ep = coarse_field_inputs(cfg, pts, ray_unit, progress)
+    depth = depth_samples.reshape(B * R, N).detach()
+    dist = _dists(depth_samples, ray).reshape(B * R, N).detach()
+    op = coarse_render if torch.is_grad_enabled() else coarse_render_fwd
+    packed = op(xext, ep, dist, depth, nerf.kernel_weights(),
+                compute_dtype or torch.bfloat16)
+
+    def out(lo, hi):
+        return packed[:, lo:hi].reshape(B, R, hi - lo)
+
+    return dict(rgb=out(0, 3), depth=out(3, 4), opacity=out(4, 5))
+
+
+def use_fused_coarse_render(cfg, N, training=False):
+    """Whether the coarse render takes the kernel route: the JAX gates'
+    contract (``kernels.fused_coarse`` and ``kernels.fused_composite``,
+    posenc, softplus density, no density noise in training).  The JAX
+    package's other fused route — the two-kernel field → composite path,
+    taken with ``kernels.coarse_mega`` off or rays that do not fit whole
+    into the kernel's row tile — needs kernels not ported yet, so those
+    configurations raise instead of running plain.  The compute dtype is
+    not part of the gate: on the card the kernel computes in bf16 only and
+    its wrapper raises for anything else."""
+    kcfg = cfg.get("kernels") or {}
+    if not (kcfg.get("fused_coarse", True)
+            and kcfg.get("fused_composite", True)):
+        return False
+    if not cfg.arch.get("posenc") or cfg.arch.density_activ != "softplus":
+        return False
+    if training and cfg.nerf.get("density_noise_reg"):
+        return False
+    if kcfg.get("coarse_mega") is False or ROW_TILE % int(N):
+        raise NotImplementedError(
+            f"the two-kernel coarse route (kernels.coarse_mega="
+            f"{kcfg.get('coarse_mega')}, {N} samples per ray, row tile "
+            f"{ROW_TILE}) needs the coarse field and composite forward "
+            "kernels, not ported yet (ROADMAP.md, Queue 2 rows 7a/9a)")
+    return True
 
 
 def apply_nerf_st(nerf, cfg, points, ray_unit, latent_trans, latent_light,

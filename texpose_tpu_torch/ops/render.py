@@ -1,5 +1,5 @@
-"""Depth sampling and the dual-density composite (port of
-texpose_tpu/ops/render.py, the texture model's part).
+"""Depth sampling, the vanilla NeRF composite and the dual-density
+composite (port of texpose_tpu/ops/render.py).
 
 Transmittances are exp(−exclusive cumsum), in float32 whatever the field's
 compute dtype.
@@ -41,6 +41,22 @@ def _transmittance(sigma_delta):
     shifted = torch.cat([torch.zeros_like(sigma_delta[..., :1]),
                          sigma_delta[..., :-1]], dim=-1)
     return torch.exp(-torch.cumsum(shifted, dim=-1))
+
+
+def composite(rgb_samples, density_samples, depth_samples, ray,
+              setbg_opaque=False, bgcolor=1.0):
+    """Vanilla NeRF compositing: rgb_samples [B,R,N,3], density_samples
+    [B,R,N], depth_samples [B,R,N,1] → dict(rgb [B,R,3], depth [B,R,1],
+    opacity [B,R,1], prob [B,R,N,1])."""
+    sigma_delta = density_samples * _dists(depth_samples, ray)
+    alpha = 1 - torch.exp(-sigma_delta)
+    prob = (_transmittance(sigma_delta) * alpha)[..., None]
+    rgb = (rgb_samples * prob).sum(dim=-2)
+    opacity = prob.sum(dim=-2)
+    if setbg_opaque:
+        rgb = rgb + bgcolor * (1 - opacity)
+    return dict(rgb=rgb, depth=(depth_samples * prob).sum(dim=-2),
+                opacity=opacity, prob=prob)
 
 
 def composite_static_transient(rgb_samples, density_samples, depth_samples,

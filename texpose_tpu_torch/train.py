@@ -1,6 +1,9 @@
 """Training entry point of the PyTorch/CUDA port, with the flags of the JAX
 package's ``train.py``:
 
+    python -m texpose_tpu_torch.train --model=nerf_pretrain \\
+        --yaml=configs/nerf_lm_pretrain.yaml --group=Duck --name=pre \\
+        --freq.vis=null
     python -m texpose_tpu_torch.train --model=nerf_adapt_st_gan \\
         --yaml=configs/nerf_lm_adapt_gan.yaml --group=Duck --name=run0 \\
         --resume_pretrain --freq.vis=null
@@ -8,21 +11,22 @@ package's ``train.py``:
 Bootstraps: options → engine → load_dataset (train split uploaded once) →
 build_networks → setup_optimizer → init_weights / resume_pretrain /
 resume_real → resume → train.  Checkpoints are the JAX package's npz
-files, both ways.  ``--device=`` picks the device (default: cuda when a
-card is visible, else cpu).  ``visualize`` is not ported: a run whose
-freq.vis would fire within max_iter is refused before anything is built.
+files, both ways.  ``--device=`` picks the device (default: cuda; with no
+card visible the run raises unless ``--device=cpu`` asks for the CPU).
+Not ported yet, and refused before anything is built: ``visualize`` (a run
+whose freq.vis would fire within max_iter) here, and the pretrain's
+``nerf.fine_sampling`` by its engine's ``build_networks``.
 """
 
 import sys
 
-import torch
-
 from .models import get_engine
+from .models.base import resolve_device
 from .utils.config import save_options_file, set_options
 from .utils.log import log
 
 
-def _check_vis(cfg, engine):
+def _check_unported(cfg, engine):
     vis = (cfg.get("freq") or {}).get("vis")
     if vis and int(vis) <= engine.max_iter():
         raise NotImplementedError(
@@ -34,11 +38,10 @@ def _check_vis(cfg, engine):
 def main(argv=None):
     cfg = set_options(argv)
     log.title(f"[{' '.join(sys.argv)}]")
-    device = cfg.get("device") or ("cuda" if torch.cuda.is_available()
-                                   else "cpu")
+    device = resolve_device(cfg)
     engine = get_engine(cfg.model)(cfg, device)
     engine.load_dataset()
-    _check_vis(cfg, engine)
+    _check_unported(cfg, engine)
     engine.upload_train_split()
     engine.build_networks()
     engine.setup_optimizer()

@@ -28,6 +28,17 @@ engine maps its torch objects onto them, models/texture_gan.py):
   key, it, step                      PRNG key, iteration, checkpoint step
 The VGG parameters are not checkpointed by either package: both read the
 same torchvision npz (nn/vgg.py).
+
+A pretrain run's state (models/pretrain.py maps its field and torch Adam
+onto it; ``pretrain_opt_keys``):
+
+  params/nerf/{mlp_feat,mlp_rgb}/<i>/{w,b}   the coarse field
+  opt_state/0/{count,mu/nerf/...,nu/nerf/...} optax adam's ScaleByAdamState
+  opt_state/1/count                  the schedule's count (only with a
+                                     schedule: optim.sched.gamma or lr_end)
+  key, it, step
+Its trunk leaves are what ``--resume_pretrain`` reads from the group's
+pretrain_model.ckpt.
 """
 
 from __future__ import annotations
@@ -93,6 +104,14 @@ def adam_keys(lr_latent):
         out[grp] = (base + "0/count", base + "0/mu/", base + "0/nu/",
                     base + "1/count")
     return out
+
+
+def pretrain_opt_keys(has_schedule):
+    """The optax keypaths of the pretrain's Adam state → (count key, mu
+    prefix, nu prefix, schedule count key or None)."""
+    return ("opt_state/0/count", "opt_state/0/mu/nerf/",
+            "opt_state/0/nu/nerf/",
+            "opt_state/1/count" if has_schedule else None)
 
 
 def jax_key(seed):

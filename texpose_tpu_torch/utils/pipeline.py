@@ -4,8 +4,9 @@ texpose_tpu/utils/pipeline.py).
 ``EvalPrefetcher`` loads dataset[i] on a background thread and uploads
 frame i+1..i+depth while frame i renders: the host sample becomes pinned
 tensors copied with ``.to(device, non_blocking=True)`` (the JAX version's
-``jax.device_put``).  The PNG writer thread is the JAX package's
-``AsyncWriter``, which is jax-free and re-exported here.
+``jax.device_put``).  ``AsyncWriter`` runs the per-frame PNG encodes on a
+writer thread, off the critical path; both re-raise a worker's exception
+at the consuming call.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import threading
 
 import numpy as np
 import torch
-from texpose_tpu.utils.pipeline import AsyncWriter  # noqa: F401
 
 
 class _Stop:
@@ -108,4 +108,57 @@ class EvalPrefetcher:
 
     def __exit__(self, *exc):
         self.close()
+        return False
+
+
+class AsyncWriter:
+    """Run (fn, *args) jobs on a writer thread; close() drains and
+    re-raises the first failure."""
+
+    def __init__(self, depth=8):
+        self._q = queue.Queue(maxsize=max(int(depth), 1))
+        self._err = None
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def _work(self):
+        while True:
+            item = self._q.get()
+            if isinstance(item, _Stop):
+                return
+            fn, args = item
+            try:
+                fn(*args)
+            except BaseException as e:  # noqa: BLE001
+                if self._err is None:
+                    self._err = e
+
+    def submit(self, fn, *args):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+        self._q.put((fn, args))
+
+    def close(self):
+        self._q.put(_Stop())
+        self._thread.join(timeout=60.0)
+        if self._thread.is_alive():
+            # a silent return here would report success while queued
+            # writes are killed with the daemon thread at process exit
+            raise RuntimeError(
+                "AsyncWriter: writer thread still running after 60 s "
+                "drain timeout — queued writes may be incomplete")
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            self.close()
+        else:  # don't mask the primary exception; best-effort drain
+            self._q.put(_Stop())
+            self._thread.join(timeout=10.0)
         return False

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's evaluation (or, with --train,
-its texture-GAN train step) goes, on one GPU.
+its texture-GAN train step; with --pretrain, its geometry-pretrain step)
+goes, on one GPU.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_eval_torch.py [--frames 12] [--trace out.json]
     python3 tools/profile_eval_torch.py --train [--steps 30] [--trace ...]
+    python3 tools/profile_eval_torch.py --pretrain [--steps 30] [--trace ...]
 
 Builds the same 480x640 fixture and seeded full-width checkpoint as
 chip_smoke.py (``fixture_argv``), runs the evaluation CLI once cold, then
@@ -40,6 +42,13 @@ cold, then prints:
   train_device_ops / train_cpu_ops: the op tables, as above;
   train_pack:    ms to repack the field's weights after an update (the
                  head packs rebuild on every step), host clock.
+
+--pretrain builds chip_smoke.py's pretrain fixture (``pretrain_argv``: 16
+train images at 128x128, the full width of configs/nerf_lm_pretrain.yaml,
+2048 rays x 64 samples per step) and prints the same lines with the prefix
+``pretrain_`` (its stages are ``step/forward``, ``step/backward`` and
+``step/update`` of models/pretrain.py; every pack — trunk, head and the
+backward's transposed one — rebuilds after each update).
 
 The profiler's own cost lengthens the profiled wall, so the idle share
 there is an upper bound on the unprofiled one.  --trace writes the
@@ -195,7 +204,7 @@ def _device_key(avgs):
             else "self_cuda_time_total")
 
 
-def profile_train(eng, steps, trace):
+def profile_train(eng, steps, trace, key="train"):
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -209,7 +218,7 @@ def profile_train(eng, steps, trace):
         t0 = time.perf_counter()
         run(steps)
         rate = steps / (time.perf_counter() - t0)
-        print(f"train_sweep: warm unprofiled run {k}: {rate:.3f} steps/s = "
+        print(f"{key}_sweep: warm unprofiled run {k}: {rate:.3f} steps/s = "
               f"{rate * eng.rays_per_step():.1f} rays/s ({steps} steps)",
               flush=True)
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -222,13 +231,13 @@ def profile_train(eng, steps, trace):
     avgs = prof.key_averages()
     launches = sum(a.count for a in avgs
                    if a.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    print(f"train_profile: wall {wall:.1f} ms ({wall / steps:.2f} ms/step); "
+    print(f"{key}_profile: wall {wall:.1f} ms ({wall / steps:.2f} ms/step); "
           f"device busy {busy:.1f} ms ({busy / steps:.2f} ms/step) over "
           f"{len(dev)} device events; device idle "
           f"{100 * (1 - busy / wall):.1f} %; {launches / steps:.0f} kernel "
           f"launches/step", flush=True)
     cpu_ms = sum(a.self_cpu_time_total for a in avgs) / 1e3
-    print(f"train_host: {cpu_ms / steps:.2f} ms/step of CPU op self time",
+    print(f"{key}_host: {cpu_ms / steps:.2f} ms/step of CPU op self time",
           flush=True)
     dkey = _device_key(avgs)
     dtot = dkey.replace("self_", "")
@@ -239,42 +248,57 @@ def profile_train(eng, steps, trace):
         if a.key.startswith("step/") and a.cpu_time_total > 0:
             host = a.cpu_time_total / 1e3 / steps
             device = getattr(a, dtot, 0) / 1e3 / steps
-            print(f"train_stages: {a.key} host {host:.3f} ms/step, device "
+            print(f"{key}_stages: {a.key} host {host:.3f} ms/step, device "
                   f"{device:.3f} ms/step", flush=True)
-    print("train_device_ops:\n" + avgs.table(sort_by=dkey, row_limit=20),
+    print(f"{key}_device_ops:\n" + avgs.table(sort_by=dkey, row_limit=20),
           flush=True)
-    print("train_cpu_ops:\n" + avgs.table(sort_by="self_cpu_time_total",
+    print(f"{key}_cpu_ops:\n" + avgs.table(sort_by="self_cpu_time_total",
                                           row_limit=15), flush=True)
     if trace:
         prof.export_chrome_trace(trace)
-        print(f"train_profile: trace written to {trace}", flush=True)
+        print(f"{key}_profile: trace written to {trace}", flush=True)
 
     w = eng.nerf.kernel_weights()
-    e3 = w.rgb[0].w.shape[0] - w.feat_dim - int(eng.cfg.nerf.N_latent_light)
     xw = w.trunk[0].w.shape[0]
+    if key == "pretrain":
+        e3 = w.rgb[0].w.shape[0] - w.feat_dim
 
-    def repack():
-        with torch.no_grad():
-            w.rgb[0].b.add_(0.0)              # bump a head tensor's version
-        w.kernel_buffers(xw, e3)
-        w.kernel_buffers_bwd(e3)
+        def repack():
+            with torch.no_grad():
+                for layer in w.trunk + w.rgb:   # bump every version
+                    layer.b.add_(0.0)
+            w.kernel_buffers(xw, e3)
+            w.kernel_buffer_bwd(xw, e3)
+        what = "trunk + head + transposed repack"
+    else:
+        e3 = w.rgb[0].w.shape[0] - w.feat_dim \
+            - int(eng.cfg.nerf.N_latent_light)
 
-    print(f"train_pack: head repack after an update {_median_ms(repack):.3f}"
+        def repack():
+            with torch.no_grad():
+                w.rgb[0].b.add_(0.0)          # bump a head tensor's version
+            w.kernel_buffers(xw, e3)
+            w.kernel_buffers_bwd(e3)
+        what = "head repack"
+
+    print(f"{key}_pack: {what} after an update {_median_ms(repack):.3f}"
           f" ms (host clock, synchronized)", flush=True)
 
 
 def main_train(args):
     import torch
-    from chip_smoke import train_argv
+    from chip_smoke import pretrain_argv, train_argv
     from texpose_tpu_torch import train
     dev = torch.device("cuda", 0)
     tmp = tempfile.mkdtemp(prefix="texpose_profile_")
     try:
-        argv, _ = train_argv(HERE, tmp, dev, 5)
+        make_argv = pretrain_argv if args.pretrain else train_argv
+        argv, _ = make_argv(HERE, tmp, dev, 5)
         eng = train.main(argv)
         torch.cuda.synchronize()
         eng.cfg.max_iter = 100000
-        profile_train(eng, args.steps, args.trace)
+        profile_train(eng, args.steps, args.trace,
+                      "pretrain" if args.pretrain else "train")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -284,6 +308,8 @@ def main():
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--train", action="store_true",
                     help="profile warm texture-GAN train steps instead")
+    ap.add_argument("--pretrain", action="store_true",
+                    help="profile warm geometry-pretrain steps instead")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace", default=None,
                     help="write the profiled run as a Chrome trace here")
@@ -291,10 +317,10 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("profile_eval_torch: needs a CUDA device")
-    os.environ.pop("JAX_PLATFORMS", None)
     sys.modules["jax"] = None
+    sys.modules["texpose_tpu"] = None
     sys.path.insert(0, HERE)
-    if args.train:
+    if args.train or args.pretrain:
         return main_train(args)
     from chip_smoke import fixture_argv
     from texpose_tpu_torch import evaluate

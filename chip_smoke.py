@@ -6,18 +6,23 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero and no result line is printed:
-  1. build: the three kernel sources compiled from csrc/ by nvcc (sm_90a),
+  1. build: the four kernel sources compiled from csrc/ by nvcc (sm_90a),
      in parallel;
-  2. kernels: each of the seven kernels against its plain-PyTorch twin on
+  2. kernels: each of the ten kernels against its plain-PyTorch twin on
      the card at the main paths' shapes — ST field forward on one
      2048-ray × 64-sample chunk (131,072 rows, full width, bf16), its
      backward on the train step's 8 images × 16,384 rows, the dual
-     composite forward and backward on 2048 rays × 64 samples; the coarse
-     field + composite forward (with and without the training residuals),
-     the composite-coarse backward and the trunk-training field backward
-     on the pretrain step's 2048 rays × 64 samples — checked against the
-     bounds below, timed with CUDA events (median of repeats) and set
-     beside the least time the card could take (``bound``);
+     composite forward and backward on 2048 rays × 64 samples, the trunk
+     forward on the same chunk; the coarse field + composite forward (with
+     and without the training residuals), the composite-coarse backward and
+     the trunk-training field backward on the pretrain step's 2048 rays ×
+     64 samples; the coarse field forward with raw outputs at 131,072 and
+     at the fine field's 393,216 rows (2048 rays × (64 + 128) samples),
+     with and without residuals; the composite-coarse forward at 64 and 192
+     samples per ray, its backward at 192 and the field backward at
+     393,216 rows — checked against the bounds
+     below, timed with CUDA events (median of repeats) and set beside the
+     least time the card could take (``bound``);
   3. eval: ``texpose_tpu_torch.evaluate`` (the CLI entry) on a generated
      480×640 fixture at the full width of configs/nerf_lm_adapt_gan.yaml,
      weights from the port's seeded init saved as a JAX-format npz and
@@ -37,7 +42,12 @@ Phases; any failure exits non-zero and no result line is printed:
      reload it.  Then, from one state and one set of draws, the kernel
      route's losses and gradients must agree with the plain route's, and
      warm steps/s and rays/s (2048 rays per step) are timed;
-  5. pretrain: ``texpose_tpu_torch.train --model=nerf_pretrain`` for
+  5. trunk: the evaluate CLI on 2 generated 480×640 frames with the model
+     trained in phase 4 and --nerf.density_noise_reg=1, where the ST
+     kernels' gate is off and the trunk kernel runs under plain heads: its
+     counter > 0 (the ST field kernel's 0), finite metrics, and frame 0
+     within the render bound of the ST kernel route;
+  6. pretrain: ``texpose_tpu_torch.train --model=nerf_pretrain`` for
      PRETRAIN_STEPS steps at the full width of configs/nerf_lm_pretrain.yaml
      (8×256 trunk, skip at 4, RGB head 256-256-256-3, bf16, 64 samples,
      2048 rays) on a 128×128 fixture of 16 train images.  The three coarse
@@ -48,7 +58,17 @@ Phases; any failure exits non-zero and no result line is printed:
      plain route from one state and one set of draws; warm steps/s × 2048
      is printed as pretrain_rays_per_sec.  Then ENV_STEPS steps of
      --model=nerf_pretrain_env (counters > 0 again), and the texture-GAN
-     engine's --resume_pretrain loads the pretrain checkpoint's trunk.
+     engine's --resume_pretrain loads the pretrain checkpoint's trunk;
+  7. hierarchical: the same CLI with --nerf.fine_sampling=true
+     --nerf.sample_intvs_fine=128 --loss_weight.render_fine=0 for
+     HIER_STEPS steps (both fields through the field forward and backward
+     kernels: each counter exactly 2 per step), finite losses with
+     render_fine, both fields' leaves moved, the route check against the
+     plain route, warm steps/s, rays/s and the step's peak device memory;
+  8. two-kernel: the pretrain CLI with --kernels.coarse_mega=false for
+     TWO_KERNEL_STEPS steps (field forward → composite forward, composite
+     backward → field backward, every counter > 0) and its route check
+     against the mega route.
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers, and last {"ok": true, "device": {...}}.
 """
@@ -107,12 +127,18 @@ ROUTE_GRAD_NORM = 5e-2
 # relative to max(|ref|, 1).  Its two backwards: the composite's as the
 # dual composite's (COMPOSITE_BWD_REL), the field's as the ST field
 # backward's (FIELD_BWD_NORM / FIELD_BWD_MAX per tensor: atomics reorder
-# its sums).
+# its sums).  The field forward with raw outputs as the mega forward's raw
+# outputs and residuals; the trunk forward's features as the ST feature
+# residual (FEAT_REL), its raw density as a raw output; the coarse
+# composite forward as the dual one (COMPOSITE_MAX_ERR, f32 both sides).
 N_TEST = 6
 TRAIN_STEPS = 30
 WARM_STEPS = 20
 PRETRAIN_STEPS = 30
 ENV_STEPS = 10
+HIER_STEPS = 20
+TWO_KERNEL_STEPS = 10
+N_FINE = 128               # NeRF's N_f (Mildenhall et al. 2020)
 # the least time the card could take (H100 SXM data sheet): bf16
 # tensor-core and f32 peak rates, device-memory rate
 PEAK_BF16 = 989e12
@@ -143,6 +169,10 @@ def time_ms(fn, reps=10, warmup=2):
 
 
 def nbytes(*tensors):
+    """Bytes of the tensors.  A field function's bound counts its points,
+    not the posenc rows xext that the port stages from them (the TPU kernels
+    read the points and encode in the kernel): enc⊕pts rows end with the
+    points, and the trunk alone takes xext[:, :3]."""
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
@@ -168,6 +198,7 @@ def entry(err, ms, plain_ms, bnd, **extra):
 # arithmetic (a transcendental counted as one): far below their bytes
 COMPOSITE_ST_FWD_OPS = 60
 COMPOSITE_ST_BWD_OPS = 110
+COMPOSITE_COARSE_FWD_OPS = 30
 COMPOSITE_COARSE_BWD_OPS = 40
 
 
@@ -190,6 +221,7 @@ def kernel_phase(cfg, dev):
                                                     st_field_bwd_plain,
                                                     st_field_fwd,
                                                     st_field_plain)
+    from texpose_tpu_torch.kernels.trunk import trunk_forward_plain, trunk_fwd
     from texpose_tpu_torch.models.render import gather_rays
     from texpose_tpu_torch.nn.fields import init_nerf_st, st_field_inputs
     from texpose_tpu_torch.ops.render import _dists, sample_depth
@@ -237,7 +269,7 @@ def kernel_phase(cfg, dev):
         if not (max_err <= FIELD_MAX_ERR and mean_err <= FIELD_MEAN_ERR):
             fail("st_field kernel disagrees with its plain twin")
         out["st_field_fwd"] = entry(max_err, ms, plain_ms, bound(
-            nbytes(xext, encpts, light, trans, *got,
+            nbytes(encpts, light, trans, *got,
                    *[t for layer in weights.trunk for t in (layer.w, layer.b)],
                    *weights.head_params()),
             2 * weights_macs(weights, encpts.shape[1]) * R * N, PEAK_BF16))
@@ -327,6 +359,36 @@ def kernel_phase(cfg, dev):
             nbytes(feat, et, lt, tt, g_rgb, g_tr, *weights.head_params(),
                    *flat_got),
             2 * st_bwd_macs(weights, et.shape[1]) * M, PEAK_BF16))
+
+        # the trunk forward on the eval chunk: the trunk of an evaluation
+        # whose heads run plain (nerf.density_noise_reg)
+        tgot = trunk_fwd(xext, weights)
+        tref = trunk_forward_plain(xext, weights.trunk, weights.skip)
+        torch.cuda.synchronize()
+        terr = (tgot[0].float() - tref[0]).abs()
+        trel = float((terr / tref[0].abs().clamp(min=1.0)).max())
+        derr = (tgot[1] - tref[1][:, 0]).abs()
+        tmax = max(float(terr.max()), float(derr.max()))
+        tms = time_ms(lambda: trunk_fwd(xext, weights))
+        tplain = time_ms(lambda: trunk_forward_plain(xext, weights.trunk,
+                                                     weights.skip))
+        trunk_params = [t for layer in weights.trunk
+                        for t in (layer.w, layer.b)]
+        t_ops = 2 * sum(layer.w.numel() for layer in weights.trunk) * R * N
+        tb = bound(nbytes(xext[:, :3], *tgot, *trunk_params), t_ops,
+                   PEAK_BF16)
+        print(f"kernel trunk_fwd: M={R * N} feat max|err|/max(|ref|,1)="
+              f"{trel:.3g} (bound {FEAT_REL}) mean={float(terr.mean()):.3g}"
+              f"; dens max|err|={float(derr.max()):.3g} (bound "
+              f"{FIELD_MAX_ERR}) mean={float(derr.mean()):.3g} (bound "
+              f"{FIELD_MEAN_ERR}); {tms:.4f} ms vs plain {tplain:.4f} ms "
+              f"(bound {tb[0]:.4f} ms, {tb[1]}); "
+              f"{t_ops / (tms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
+        if not (trel <= FEAT_REL and float(terr.mean()) <= FIELD_MEAN_ERR
+                and float(derr.max()) <= FIELD_MAX_ERR
+                and float(derr.mean()) <= FIELD_MEAN_ERR):
+            fail("trunk_fwd kernel disagrees with its plain twin")
+        out["trunk_fwd"] = entry(tmax, tms, tplain, tb, feat_rel_err=trel)
     return out
 
 
@@ -387,6 +449,7 @@ def coarse_kernel_phase(here, dev):
         coarse_render_plain)
     from texpose_tpu_torch.kernels.composite import (
         composite_coarse_bwd, composite_coarse_bwd_plain)
+    from texpose_tpu_torch.ops.render import union_sorted_depths
     from texpose_tpu_torch.models.render import gather_rays
     from texpose_tpu_torch.nn.fields import coarse_field_inputs, init_nerf
     from texpose_tpu_torch.ops.render import _dists, sample_depth
@@ -443,9 +506,9 @@ def coarse_kernel_phase(here, dev):
         ms_res = time_ms(lambda: coarse_render_fwd(*args, want_res=True))
         plain_res = time_ms(lambda: coarse_render_plain(*args,
                                                         want_res=True))
-        b_eval = bound(nbytes(xext, ep, dist, d, got, *w.params()),
+        b_eval = bound(nbytes(ep, dist, d, got, *w.params()),
                        2 * fwd_macs * M, PEAK_BF16)
-        b_res = bound(nbytes(xext, ep, dist, d, got, rgb, dens, acts,
+        b_res = bound(nbytes(ep, dist, d, got, rgb, dens, acts,
                              *w.params()), 2 * fwd_macs * M, PEAK_BF16)
         print(f"kernel coarse_render_fwd: {BR} rays x {N} samples packed "
               f"max|err|={pabs:.3g}, max|err|/max(|ref|,1)={perr:.3g} "
@@ -501,7 +564,7 @@ def coarse_kernel_phase(here, dev):
         fms = time_ms(lambda: coarse_field_bwd(*fargs))
         fplain = time_ms(lambda: coarse_field_bwd_plain(
             xext, ep, acts, w, *cgot))
-        fb = bound(nbytes(xe, acts, *cgot, *w.params(), *fgot),
+        fb = bound(nbytes(ep, acts, *cgot, *w.params(), *fgot),
                    2 * bwd_macs * M, PEAK_BF16)
         print(f"kernel coarse_field_bwd: M={M} worst tensor ‖err‖/‖ref‖="
               f"{norm:.3g} (bound {FIELD_BWD_NORM}), max|err|/max|ref|="
@@ -512,12 +575,169 @@ def coarse_kernel_phase(here, dev):
         if not (norm <= FIELD_BWD_NORM and peak <= FIELD_BWD_MAX):
             fail("coarse_field_bwd kernel disagrees with its plain twin")
         out["coarse_field_bwd"] = entry(fmax, fms, fplain, fb)
+
+        # the field forward with raw outputs (row 7a) on the coarse field's
+        # rows and on the fine field's: the coarse samples plus 128 more
+        # per ray (stratified, sorted in), 2048 × 192 = 393,216 rows
+        fine_depth = union_sorted_depths(depth, sample_depth(
+            near, far, N_FINE, rand=torch.rand(1, BR, N_FINE, 1,
+                                               generator=g).to(dev)))
+        fine_pts = center[..., None, :] + ray[..., None, :] * fine_depth
+        fx, fe = coarse_field_inputs(cfg, fine_pts, None, None)
+        variants = {}
+        for rows, (x_, e_) in ((M, (xext, ep)), (fx.shape[0], (fx, fe))):
+            variants[rows] = field_fwd_check(x_, e_, w, fwd_macs, rows)
+        f_out, f_raw, f_res = variants[fx.shape[0]]
+        out["coarse_field_fwd"] = dict(f_out, variants={
+            str(rows): v[0] for rows, v in variants.items()})
+
+        # the composite forward (rows 9a/9c: one kernel, flat layout) on
+        # both fields' raw outputs, and the backward at 192 samples
+        depths = {N: (d, dist), fine_depth.shape[2]: (
+            fine_depth.reshape(BR, -1),
+            _dists(fine_depth, ray).reshape(BR, -1))}
+        comp = {}
+        for n, (rgb_, dens_) in ((N, variants[M][1]),
+                                 (fine_depth.shape[2], f_raw)):
+            dd, di = depths[n]
+            comp[n] = composite_fwd_check(rgb_, dens_, dd, di, n)
+        out["composite_coarse_fwd"] = dict(comp[N], variants={
+            str(n): v for n, v in comp.items()})
+        nf = fine_depth.shape[2]
+        dd, di = depths[nf]
+        cot = (torch.randn(BR, 8, generator=g) / BR).to(dev)
+        cargs = (*f_raw, di, dd, cot)
+        cgot = composite_coarse_bwd(*cargs)
+        cref = composite_coarse_bwd_plain(*cargs)
+        torch.cuda.synchronize()
+        crel = max(rel_max(a, b) for a, b in zip(cgot, cref))
+        cmax = max(float((a - b).abs().max()) for a, b in zip(cgot, cref))
+        cms = time_ms(lambda: composite_coarse_bwd(*cargs), reps=20)
+        cplain = time_ms(lambda: composite_coarse_bwd_plain(*cargs), reps=20)
+        cb = bound(nbytes(*cargs, *cgot), COMPOSITE_COARSE_BWD_OPS * BR * nf,
+                   PEAK_F32)
+        print(f"kernel composite_coarse_bwd: {BR} rays x {nf} samples "
+              f"max|err|={cmax:.3g} ({crel:.3g} of max, bound "
+              f"{COMPOSITE_BWD_REL}); {cms:.4f} ms vs plain {cplain:.4f} ms "
+              f"(bound {cb[0]:.4f} ms, {cb[1]})", flush=True)
+        if not crel <= COMPOSITE_BWD_REL:
+            fail("composite_coarse_bwd kernel disagrees with its plain twin "
+                 f"at {nf} samples")
+        out["composite_coarse_bwd"]["variants"] = {str(nf): entry(
+            cmax, cms, cplain, cb)}
+
+        # the field backward on the fine field's rows, from the kernel's
+        # residuals and that composite backward's gradients
+        MF = fx.shape[0]
+        fargs = (fx, fe, *f_res, w, *cgot)
+        fgot = coarse_field_bwd(*fargs)
+        fref = coarse_field_bwd_plain(fx, fe, f_res[1], w, *cgot)
+        torch.cuda.synchronize()
+        norm = max(rel_norm(a, b) for a, b in zip(fgot, fref))
+        peak = max(rel_max(a, b) for a, b in zip(fgot, fref))
+        fmax = max(float((a - b).abs().max()) for a, b in zip(fgot, fref))
+        fms = time_ms(lambda: coarse_field_bwd(*fargs), reps=5)
+        fplain = time_ms(lambda: coarse_field_bwd_plain(
+            fx, fe, f_res[1], w, *cgot), reps=5)
+        fb = bound(nbytes(fe, f_res[1], *cgot, *w.params(), *fgot),
+                   2 * bwd_macs * MF, PEAK_BF16)
+        print(f"kernel coarse_field_bwd: M={MF} worst tensor ‖err‖/‖ref‖="
+              f"{norm:.3g} (bound {FIELD_BWD_NORM}), max|err|/max|ref|="
+              f"{peak:.3g} (bound {FIELD_BWD_MAX}); {fms:.4f} ms vs plain "
+              f"{fplain:.4f} ms (bound {fb[0]:.4f} ms, {fb[1]}); "
+              f"{2 * bwd_macs * MF / (fms * 1e-3) / 1e12:.1f} TFLOP/s",
+              flush=True)
+        if not (norm <= FIELD_BWD_NORM and peak <= FIELD_BWD_MAX):
+            fail(f"coarse_field_bwd kernel disagrees with its plain twin at "
+                 f"{MF} rows")
+        out["coarse_field_bwd"]["variants"] = {str(MF): entry(
+            fmax, fms, fplain, fb)}
     return out
 
 
-def fixture_argv(here, tmp, dev, n_test):
-    """A 480x640 fixture of n_test test frames and a seeded full-width
-    checkpoint under tmp → the evaluation CLI's argv for them."""
+def field_fwd_check(xext, ep, w, fwd_macs, rows):
+    """coarse_field_fwd against coarse_field_plain, without and with the
+    training residuals → (the training launch's numbers with the eval
+    launch's under ``eval_*`` keys, its raw outputs, its residuals)."""
+    import torch
+    from texpose_tpu_torch.kernels.coarse_field import (coarse_field_fwd,
+                                                        coarse_field_plain)
+    got = coarse_field_fwd(xext, ep, w)
+    rgb, dens, (xe, acts) = coarse_field_fwd(xext, ep, w, want_res=True)
+    rgb_ref, dens_ref, acts_ref = coarse_field_plain(xext, ep, w,
+                                                     want_res=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], rgb) and torch.equal(got[1], dens)):
+        fail("coarse_field_fwd: the training launch differs from the "
+             "evaluation launch")
+    raw = [(a - b).abs() for a, b in ((rgb, rgb_ref), (dens, dens_ref))]
+    raw_max = max(float(e.max()) for e in raw)
+    raw_mean = max(float(e.mean()) for e in raw)
+    act_abs = act_rel = act_mean = 0.0
+    for a, b in zip(acts, acts_ref):
+        e = (a.float() - b).abs()
+        act_abs = max(act_abs, float(e.max()))
+        act_rel = max(act_rel, float((e / b.abs().clamp(min=1.0)).max()))
+        act_mean = max(act_mean, float(e.mean()))
+    del acts_ref
+    reps = 10 if rows <= 131072 else 5
+    ms = time_ms(lambda: coarse_field_fwd(xext, ep, w), reps=reps)
+    plain_ms = time_ms(lambda: coarse_field_plain(xext, ep, w), reps=reps)
+    ms_res = time_ms(lambda: coarse_field_fwd(xext, ep, w, want_res=True),
+                     reps=reps)
+    plain_res = time_ms(lambda: coarse_field_plain(xext, ep, w,
+                                                   want_res=True), reps=reps)
+    ops = 2 * fwd_macs * rows
+    b_eval = bound(nbytes(ep, rgb, dens, *w.params()), ops, PEAK_BF16)
+    b_res = bound(nbytes(ep, rgb, dens, acts, *w.params()), ops, PEAK_BF16)
+    print(f"kernel coarse_field_fwd: M={rows} raw max|err|={raw_max:.3g} "
+          f"(bound {FIELD_MAX_ERR}) mean={raw_mean:.3g} (bound "
+          f"{FIELD_MEAN_ERR}); residual activations max|err|/max(|ref|,1)="
+          f"{act_rel:.3g} (bound {FEAT_REL}) mean={act_mean:.3g}; eval "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (bound {b_eval[0]:.4f} "
+          f"ms, {b_eval[1]}); with residuals {ms_res:.4f} ms vs plain "
+          f"{plain_res:.4f} ms (bound {b_res[0]:.4f} ms, {b_res[1]}); "
+          f"{ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
+    if not (raw_max <= FIELD_MAX_ERR and raw_mean <= FIELD_MEAN_ERR
+            and act_rel <= FEAT_REL and act_mean <= FIELD_MEAN_ERR):
+        fail(f"coarse_field_fwd kernel disagrees with its plain twin at "
+             f"{rows} rows")
+    numbers = entry(max(raw_max, act_abs), ms_res, plain_res, b_res,
+                    act_rel_err=act_rel, eval_ms=ms, eval_plain_ms=plain_ms,
+                    eval_bound_ms=b_eval[0], eval_bound_by=b_eval[1])
+    return numbers, (rgb, dens), (xe, acts)
+
+
+def composite_fwd_check(rgb, dens, depth, dist, n):
+    """composite_coarse_fwd against composite_coarse_plain → numbers."""
+    import torch
+    from texpose_tpu_torch.kernels.composite import (composite_coarse_fwd,
+                                                     composite_coarse_plain)
+    BR = depth.shape[0]
+    got = composite_coarse_fwd(rgb, dens, depth, dist)
+    ref = composite_coarse_plain(rgb, dens, depth, dist)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    ms = time_ms(lambda: composite_coarse_fwd(rgb, dens, depth, dist),
+                 reps=20)
+    plain_ms = time_ms(lambda: composite_coarse_plain(rgb, dens, depth,
+                                                      dist), reps=20)
+    b = bound(nbytes(rgb, dens, depth, dist, got),
+              COMPOSITE_COARSE_FWD_OPS * BR * n, PEAK_F32)
+    print(f"kernel composite_coarse_fwd: {BR} rays x {n} samples "
+          f"max|err|={err:.3g} (bound {COMPOSITE_MAX_ERR}); {ms:.4f} ms vs "
+          f"plain {plain_ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]})",
+          flush=True)
+    if not err <= COMPOSITE_MAX_ERR:
+        fail(f"composite_coarse_fwd kernel disagrees with its plain twin at "
+             f"{n} samples")
+    return entry(err, ms, plain_ms, b)
+
+
+def fixture_argv(here, tmp, dev, n_test, sub="", init=None):
+    """A 480x640 fixture of n_test test frames under tmp/<sub> and a seeded
+    full-width checkpoint (or the weights ``init``) → the evaluation CLI's
+    argv for them."""
     import torch
     from texpose_tpu_torch.data import generate_fixture
     from texpose_tpu_torch.nn.fields import init_nerf_st
@@ -526,13 +746,13 @@ def fixture_argv(here, tmp, dev, n_test):
     from texpose_tpu_torch.utils.config import set_options
 
     t0 = time.perf_counter()
-    root = generate_fixture(os.path.join(tmp, "data"), n_train=8,
+    root = generate_fixture(os.path.join(tmp, sub, "data"), n_train=8,
                             n_test=n_test, scene="scene_all",
                             image_scale=1.0, crop_res=128)
     print(f"fixture: {n_test} test frames at 480x640 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    out_root = os.path.join(tmp, "out")
-    ckpt = os.path.join(tmp, "init.npz")
+    out_root = os.path.join(tmp, sub, "out")
+    ckpt = init or os.path.join(tmp, "init.npz")
     argv = ["--model=nerf_adapt_st_gan",
             f"--yaml={os.path.join(here, 'configs', 'nerf_lm_adapt_gan.yaml')}",
             f"--data.root={root}",
@@ -542,6 +762,8 @@ def fixture_argv(here, tmp, dev, n_test):
             "--syn2real", "--data.image_size=[480,640]",
             f"--output_root={out_root}", f"--init_weights={ckpt}",
             f"--device={dev}"]
+    if init:
+        return argv
     # the weights: the port's seeded init, saved in the JAX npz format
     cfg = set_options(list(argv))
     gen = torch.Generator().manual_seed(0)
@@ -627,16 +849,25 @@ PRETRAIN_KERNELS = ("coarse_render_fwd", "composite_coarse_bwd",
                     "coarse_field_bwd")
 
 
+FIELD_KERNELS = ("coarse_field_fwd", "coarse_field_bwd")
+TWO_KERNELS = ("coarse_field_fwd", "composite_coarse_fwd",
+               "composite_coarse_bwd", "coarse_field_bwd")
+
+
 def _launch_wrappers():
     from texpose_tpu_torch.kernels.coarse_field import (coarse_field_bwd,
+                                                        coarse_field_fwd,
                                                         coarse_render_fwd)
     from texpose_tpu_torch.kernels.composite import (composite_coarse_bwd,
+                                                     composite_coarse_fwd,
                                                      composite_st_bwd,
                                                      composite_st_fwd)
     from texpose_tpu_torch.kernels.st_field import st_field_bwd, st_field_fwd
+    from texpose_tpu_torch.kernels.trunk import trunk_fwd
     return {f.__name__: f for f in (
         st_field_fwd, st_field_bwd, composite_st_fwd, composite_st_bwd,
-        coarse_render_fwd, composite_coarse_bwd, coarse_field_bwd)}
+        coarse_render_fwd, composite_coarse_bwd, coarse_field_bwd,
+        coarse_field_fwd, composite_coarse_fwd, trunk_fwd)}
 
 
 def zero_launches():
@@ -687,8 +918,8 @@ def train_argv(here, tmp, dev, steps):
 
 
 def train_phase(here, tmp, dev):
-    """The train CLI at full width; returns (launch counts of that run,
-    warm steps/s)."""
+    """The train CLI at full width; returns (launch counts of that run, its
+    model.ckpt)."""
     import numpy as np
     import torch
     from texpose_tpu_torch import evaluate, train
@@ -777,7 +1008,7 @@ def train_phase(here, tmp, dev):
     print(f"train: warm {steps_s:.3f} steps/s = {steps_s * 2048:.1f} rays/s "
           f"(texture_train_rays_per_sec, batch 8 x 16x16 patches, "
           f"{WARM_STEPS} steps)", flush=True)
-    return launches, steps_s
+    return launches, os.path.join(cfg.output_path, "model.ckpt")
 
 
 def gan_grads(eng):
@@ -789,49 +1020,58 @@ def gan_grads(eng):
     return out
 
 
-def route_check(eng, switch, grads, what):
-    """One step from one state and one set of draws through the kernel
-    route and, with cfg.kernels.<switch> off, through the plain route:
-    losses and gradients (``grads()`` after a step) agree."""
+def route_check(eng, switch, grads, what, ref=False, ref_name="plain"):
+    """One step from one state and one set of draws through the run's
+    route and, with cfg.kernels.<switch> set to ``ref``, through the
+    reference route (the plain route by default): losses and gradients
+    (``grads()`` after a step) agree."""
     cfg = eng.cfg
     state = eng.train_state_flat(0)
     draws = eng.make_draws(eng.it)
     k_loss = eng.train_step(draws)
     k_grad = grads()
     eng.load_train_state_flat(state)
-    setattr(cfg.kernels, switch, False)
+    was = cfg.kernels.get(switch)
+    setattr(cfg.kernels, switch, ref)
     try:
         p_loss = eng.train_step(draws)
     finally:
-        setattr(cfg.kernels, switch, True)
+        setattr(cfg.kernels, switch, was)
     p_grad = grads()
     eng.load_train_state_flat(state)
     loss_err = max(abs(float(k_loss[k]) - float(p_loss[k]))
                    / max(abs(float(p_loss[k])), 1e-12) for k in p_loss)
     grad_err = {k: rel_norm(k_grad[k], p_grad[k]) for k in p_grad}
     worst = max(grad_err, key=grad_err.get)
-    print(f"{what}: kernel vs plain route, one step: worst loss rel "
+    print(f"{what}: kernel vs {ref_name} route, one step: worst loss rel "
           f"{loss_err:.3g} (bound {ROUTE_LOSS_RTOL}); worst gradient "
           f"‖err‖/‖ref‖ {grad_err[worst]:.3g} at {worst} (bound "
           f"{ROUTE_GRAD_NORM})", flush=True)
     if not (loss_err <= ROUTE_LOSS_RTOL
             and grad_err[worst] <= ROUTE_GRAD_NORM):
-        fail(f"{what}: the kernel route disagrees with the plain route")
+        fail(f"{what}: the kernel route disagrees with the {ref_name} "
+             "route")
 
 
-def pretrain_argv(here, tmp, dev, steps, env=False):
+_FIXTURES = {}
+
+
+def pretrain_argv(here, tmp, dev, steps, env=False, name=None, extra=()):
     """A 128x128 fixture of 16 train images (scene_naive for the pretrain,
-    with depth maps; scene_all for the env variant, as the yamls) → the
-    train CLI's argv for configs/nerf_lm_pretrain.yaml or nerf_lm_env.yaml
-    at their full width.  Returns (argv, fixture root)."""
+    with depth maps; scene_all for the env variant, as the yamls; made once
+    per scratch directory and scene) → the train CLI's argv for configs/nerf_lm_pretrain.yaml or
+    nerf_lm_env.yaml at their full width, run ``name``, plus ``extra``
+    flags.  Returns (argv, fixture root)."""
     from texpose_tpu_torch.data import generate_fixture
     scene = "scene_all" if env else "scene_naive"
-    t0 = time.perf_counter()
-    root = generate_fixture(os.path.join(tmp, f"{scene}_data"), n_train=16,
-                            n_test=2, scene=scene, image_scale=1.0,
-                            crop_res=128)
-    print(f"fixture: 16 train frames ({scene}) at 128x128 in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if (tmp, scene) not in _FIXTURES:
+        t0 = time.perf_counter()
+        _FIXTURES[tmp, scene] = generate_fixture(
+            os.path.join(tmp, f"{scene}_data"), n_train=16, n_test=2,
+            scene=scene, image_scale=1.0, crop_res=128)
+        print(f"fixture: 16 train frames ({scene}) at 128x128 in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    root = _FIXTURES[tmp, scene]
     yml = "nerf_lm_env.yaml" if env else "nerf_lm_pretrain.yaml"
     return ["--model=" + ("nerf_pretrain_env" if env else "nerf_pretrain"),
             f"--yaml={os.path.join(here, 'configs', yml)}",
@@ -839,9 +1079,10 @@ def pretrain_argv(here, tmp, dev, steps, env=False):
             f"--data.splits_root={os.path.join(root, 'splits')}",
             "--data.object=ball",
             f"--output_root={os.path.join(tmp, 'pretrain_out')}",
-            "--name=" + ("env" if env else "pre"), "--freq.vis=null",
-            f"--max_iter={steps}", "--freq.scalar=10", "--freq.val=1000",
-            "--freq.ckpt=1000", f"--device={dev}"], root
+            "--name=" + (name or ("env" if env else "pre")),
+            "--freq.vis=null", f"--max_iter={steps}", "--freq.scalar=10",
+            "--freq.val=1000", "--freq.ckpt=1000", f"--device={dev}",
+            *extra], root
 
 
 def _train_losses(cfg, steps):
@@ -891,8 +1132,7 @@ def pretrain_phase(here, tmp, dev):
     flat = load_checkpoint_flat(ckpt)
     init = init_nerf(cfg, torch.Generator().manual_seed(
         int(cfg.get("seed", 0)))).state_dict()
-    still = [k for k, v in init.items() if np.array_equal(
-        flat["params/nerf/" + k.replace(".", "/")], v.numpy())]
+    still = _moved(flat, "nerf", init)
     if still:
         fail(f"pretrain: leaves that did not move: {still}")
     paths = [k for k, _ in eng._named_params()]
@@ -923,19 +1163,7 @@ def pretrain_phase(here, tmp, dev):
     route_check(eng, "fused_coarse",
                 lambda: {k: p.grad.clone() for k, p in eng._named_params()},
                 "pretrain")
-
-    for _ in range(3):
-        eng.train_step(eng.make_draws(eng.it))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(WARM_STEPS):
-        eng.train_step(eng.make_draws(eng.it))
-    torch.cuda.synchronize()
-    steps_s = WARM_STEPS / (time.perf_counter() - t0)
-    print(f"pretrain: warm {steps_s:.3f} steps/s = pretrain_rays_per_sec "
-          f"{steps_s * eng.rays_per_step():.1f} ({len(eng.train_data)} "
-          f"images x {eng.rays_per_image()} rays x {cfg.nerf.sample_intvs} "
-          f"samples, {WARM_STEPS} steps)", flush=True)
+    steps_s = warm_rate(eng, "pretrain")
 
     # the env variant: view-dependent head, its own schedule and losses
     argv_e, root_e = pretrain_argv(here, tmp, dev, ENV_STEPS, env=True)
@@ -950,6 +1178,162 @@ def pretrain_phase(here, tmp, dev):
           f"{_train_losses(eng_e.cfg, ENV_STEPS)}", flush=True)
     gan_loads_trunk(here, tmp, dev, ckpt, root_e)
     return launches, steps_s
+
+
+def warm_rate(eng, what):
+    """Warm steps/s of a pretrain engine (host clock, WARM_STEPS steps
+    ending in a sync) and the peak device memory of those steps; prints
+    pretrain_rays_per_sec."""
+    import torch
+    cfg = eng.cfg
+    for _ in range(3):
+        eng.train_step(eng.make_draws(eng.it))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        eng.train_step(eng.make_draws(eng.it))
+    torch.cuda.synchronize()
+    steps_s = WARM_STEPS / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fine = (f" + {cfg.nerf.sample_intvs_fine} fine"
+            if cfg.nerf.get("fine_sampling") else "")
+    print(f"{what}: warm {steps_s:.3f} steps/s = pretrain_rays_per_sec "
+          f"{steps_s * eng.rays_per_step():.1f} ({len(eng.train_data)} "
+          f"images x {eng.rays_per_image()} rays x {cfg.nerf.sample_intvs}"
+          f"{fine} samples, {WARM_STEPS} steps); peak device memory "
+          f"{peak:.3f} GiB (max_memory_allocated)", flush=True)
+    return steps_s
+
+
+def _moved(flat, field, init):
+    """The leaves of params/<field> in ``flat`` still equal to ``init``."""
+    import numpy as np
+    return [k for k, v in init.items() if np.array_equal(
+        flat[f"params/{field}/" + k.replace(".", "/")], v.numpy())]
+
+
+def hierarchical_phase(here, tmp, dev):
+    """The pretrain CLI with fine sampling at full width (64 coarse + 128
+    fine samples per ray); returns the launch counts of that run."""
+    import torch
+    from texpose_tpu_torch import train
+    from texpose_tpu_torch.nn.fields import init_nerf
+    from texpose_tpu_torch.utils.checkpoint import load_checkpoint_flat
+
+    argv, _ = pretrain_argv(here, tmp, dev, HIER_STEPS, name="hier", extra=(
+        "--nerf.fine_sampling=true", f"--nerf.sample_intvs_fine={N_FINE}",
+        "--loss_weight.render_fine=0"))
+    zero_launches()
+    t0 = time.perf_counter()
+    eng = train.main(argv)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"hierarchical: {HIER_STEPS} steps (cold, incl. validation at step "
+          f"0) {cold_s:.2f} s; launches {launches}", flush=True)
+    if any(launches[k] != 2 * HIER_STEPS for k in FIELD_KERNELS):
+        fail(f"hierarchical: both fields must run the field forward and "
+             f"backward kernels once per step each: {launches}")
+    cfg = eng.cfg
+    losses = _train_losses(cfg, HIER_STEPS)
+    if "render_fine" not in losses:
+        fail(f"hierarchical: no render_fine loss logged: {losses}")
+    print(f"hierarchical: step {HIER_STEPS} losses {losses}", flush=True)
+    flat = load_checkpoint_flat(os.path.join(cfg.output_path, "model.ckpt"))
+    seed = int(cfg.get("seed", 0))
+    still = []
+    for field, s in (("nerf", seed), ("nerf_fine", seed + 1)):
+        init = init_nerf(cfg, torch.Generator().manual_seed(s)).state_dict()
+        still += [f"{field}: {k}" for k in _moved(flat, field, init)]
+    if still or not any(k.startswith("opt_state/0/mu/nerf_fine/")
+                        for k in flat):
+        fail(f"hierarchical: leaves that did not move or no fine Adam "
+             f"state: {still}")
+    print(f"hierarchical: both fields moved; model.ckpt holds {len(flat)} "
+          "keypaths with params/nerf_fine", flush=True)
+    route_check(eng, "fused_coarse",
+                lambda: {k: p.grad.clone() for k, p in eng._all_params()},
+                "hierarchical")
+    warm_rate(eng, "hierarchical")
+    return launches
+
+
+def two_kernel_phase(here, tmp, dev):
+    """The pretrain CLI with kernels.coarse_mega off: field kernel →
+    composite kernel forward, their backwards; returns the launch counts
+    of that run."""
+    import torch
+    from texpose_tpu_torch import train
+
+    argv, _ = pretrain_argv(here, tmp, dev, TWO_KERNEL_STEPS, name="two",
+                            extra=("--kernels.coarse_mega=false",))
+    zero_launches()
+    eng = train.main(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"two_kernel: {TWO_KERNEL_STEPS} steps, launches {launches}, "
+          f"losses {_train_losses(eng.cfg, TWO_KERNEL_STEPS)}", flush=True)
+    if (min(launches[k] for k in TWO_KERNELS) <= 0
+            or launches["coarse_render_fwd"]):
+        fail(f"the two-kernel route did not launch its four kernels (and "
+             f"no mega forward): {launches}")
+    route_check(eng, "coarse_mega",
+                lambda: {k: p.grad.clone() for k, p in eng._named_params()},
+                "two_kernel", ref=True, ref_name="mega")
+    warm_rate(eng, "two_kernel")
+    return launches
+
+
+def trunk_phase(here, tmp, dev, ckpt):
+    """The evaluate CLI with nerf.density_noise_reg on 2 frames at 480×640
+    with the model ``ckpt`` trained by train_phase: the trunk kernel under
+    plain heads; returns the launch counts of that run."""
+    import numpy as np
+    import torch
+    from texpose_tpu_torch import evaluate
+
+    argv = fixture_argv(here, tmp, dev, 2, sub="trunk", init=ckpt) + [
+        "--nerf.density_noise_reg=1"]
+    zero_launches()
+    t0 = time.perf_counter()
+    engine = evaluate.main(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"trunk: evaluate (cold, 2 frames, density_noise_reg 1) "
+          f"{time.perf_counter() - t0:.2f} s; launches {launches}",
+          flush=True)
+    if launches["trunk_fwd"] <= 0 or launches["st_field_fwd"]:
+        fail(f"trunk: the noisy-config evaluation must run the trunk kernel "
+             f"and not the ST field kernel: {launches}")
+    rows = [ln.split() for ln in open(os.path.join(engine.cfg.output_path,
+                                                   "quant.txt"))][1:]
+    if len(rows) != 2 or not all(math.isfinite(float(r[1])) for r in rows):
+        fail(f"trunk: quant.txt {rows}")
+    frame = engine.eval_frame(0)
+    sample = engine.eval_data[0]
+    lt = np.zeros((1, int(engine.cfg.nerf.N_latent_trans)), np.float32)
+    ll = engine.latents["light"][0:1]
+    obj = torch.as_tensor(sample["obj_mask"].reshape(-1) > 0,
+                          device=engine.device)
+    with torch.inference_mode():
+        t_out = engine._render_frame_st(frame, lt, ll,
+                                        obj_host=sample["obj_mask"])
+        engine.cfg.nerf.density_noise_reg = None
+        k_out = engine._render_frame_st(frame, lt, ll,
+                                        obj_host=sample["obj_mask"])
+        engine.cfg.nerf.density_noise_reg = 1
+        err = float((t_out["rgb_static"][0][obj]
+                     - k_out["rgb_static"][0][obj]).abs().max())
+    print(f"trunk: {launches['trunk_fwd'] / 2:.1f} trunk launches per frame; "
+          f"PSNR {[float(r[1]) for r in rows]}; frame 0 rgb_static trunk "
+          f"kernel + plain heads vs ST kernel route max|err|={err:.3g} over "
+          f"{int(obj.sum())} object pixels (bound {RENDER_MAX_ERR})",
+          flush=True)
+    if not err <= RENDER_MAX_ERR:
+        fail("trunk: the trunk kernel's route disagrees with the ST kernel "
+             "route on frame 0")
+    return launches
 
 
 def gan_loads_trunk(here, tmp, dev, pre_ckpt, root):
@@ -1009,7 +1393,7 @@ def main():
 
     from texpose_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    sources = ("st_field", "composite", "coarse_field")
+    sources = ("st_field", "composite", "coarse_field", "trunk_fwd")
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(_build.build, sources))
     print(f"build: {len(sources)} kernel sources in "
@@ -1020,11 +1404,18 @@ def main():
     tmp = tempfile.mkdtemp(prefix="texpose_chip_smoke_")
     try:
         slice_phase(here, tmp, dev)
-        launches, _ = train_phase(here, tmp, dev)
+        launches, gan_ckpt = train_phase(here, tmp, dev)
+        trunk_launches = trunk_phase(here, tmp, dev, gan_ckpt)
         pre_launches, _ = pretrain_phase(here, tmp, dev)
+        hier_launches = hierarchical_phase(here, tmp, dev)
+        two_launches = two_kernel_phase(here, tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # each kernel's count from the run of the path it was ported for
     launches.update({k: pre_launches[k] for k in PRETRAIN_KERNELS})
+    launches["coarse_field_fwd"] = hier_launches["coarse_field_fwd"]
+    launches["composite_coarse_fwd"] = two_launches["composite_coarse_fwd"]
+    launches["trunk_fwd"] = trunk_launches["trunk_fwd"]
 
     src = {"st_field_fwd": ("texpose_tpu_torch/csrc/st_field.cu",
                             "texpose_tpu/kernels/fused_st_field.py:922"),
@@ -1042,7 +1433,15 @@ def main():
                "texpose_tpu/kernels/fused_composite_coarse.py:132"),
            "coarse_field_bwd": (
                "texpose_tpu_torch/csrc/coarse_field.cu",
-               "texpose_tpu/kernels/fused_coarse_field.py:449")}
+               "texpose_tpu/kernels/fused_coarse_field.py:449"),
+           "coarse_field_fwd": (
+               "texpose_tpu_torch/csrc/coarse_field.cu",
+               "texpose_tpu/kernels/fused_coarse_field.py:413"),
+           "composite_coarse_fwd": (
+               "texpose_tpu_torch/csrc/composite.cu",
+               "texpose_tpu/kernels/fused_composite_coarse.py:115"),
+           "trunk_fwd": ("texpose_tpu_torch/csrc/trunk_fwd.cu",
+                         "texpose_tpu/kernels/fused_trunk.py:229")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 **numbers} for name, numbers in measured.items()]

@@ -373,3 +373,142 @@ def test_coarse_render_autograd_launches_all_three(cuda):
                                  coarse_field_bwd)] == [c + 1 for c in counts]
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in params)
+
+
+# ------------------------------- the coarse field's two-kernel route, trunk
+#
+# Field forward with raw outputs (row 7a): the mega forward's bounds for the
+# raw outputs and the residual activations, at rows that are not a multiple
+# of the 64-row tile too.  Composite-coarse forward (rows 9a/9c): float32 on
+# both sides, 1e-4 absolute.  Trunk forward (row 10): the features as the
+# residual activations (3e-2 of max(|ref|, 1), mean 1e-3), the raw density
+# as a raw output.
+
+
+@pytest.mark.parametrize("BR,N,view_dep", [(2048, 64, False),
+                                           (2048, 192, False),
+                                           (301, 24, True), (13, 7, False)])
+def test_coarse_field_fwd_kernel_matches_plain(cuda, BR, N, view_dep):
+    from texpose_tpu_torch.kernels.coarse_field import (coarse_field_fwd,
+                                                        coarse_field_plain)
+    w = _coarse_weights(cuda, view_dep)
+    xext, ep, _, _ = _coarse_inputs(cuda, BR, N, view_dep, BR + N)
+    with torch.no_grad():
+        n0 = coarse_field_fwd.launches
+        rgb0, dens0 = coarse_field_fwd(xext, ep, w)
+        rgb, dens, (xe, acts) = coarse_field_fwd(xext, ep, w, want_res=True)
+        torch.cuda.synchronize()
+        assert coarse_field_fwd.launches == n0 + 2
+        rgb_ref, dens_ref, acts_ref = coarse_field_plain(xext, ep, w,
+                                                         want_res=True)
+    assert torch.equal(rgb0, rgb) and torch.equal(dens0, dens)
+    assert rgb.shape == (BR * N, 3) and acts.shape == (11, BR * N, 256)
+    for a, b in ((rgb, rgb_ref), (dens, dens_ref)):
+        err = (a - b).abs()
+        assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
+    for a, b in zip(acts, acts_ref):
+        err = (a.float() - b).abs()
+        assert float((err / b.abs().clamp(min=1.0)).max()) <= 3e-2
+        assert float(err.mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("BR,N", [(2048, 64), (2048, 192), (37, 100),
+                                  (5, 256), (3, 7)])
+def test_composite_coarse_fwd_kernel_matches_plain(cuda, BR, N):
+    from texpose_tpu_torch.kernels.composite import (composite_coarse_fwd,
+                                                     composite_coarse_plain)
+    g = torch.Generator().manual_seed(N + 3)
+    M = BR * N
+    rgb_raw = torch.randn(M, 3, generator=g).to(cuda)
+    dens_raw = (torch.randn(M, 1, generator=g) * 3).to(cuda)
+    depth = torch.sort(torch.rand(BR, N, generator=g) * 4 + 2,
+                       dim=1).values.to(cuda)
+    ray = torch.randn(1, BR, 3, generator=g).to(cuda)
+    dist = _dists(depth.reshape(1, BR, N, 1), ray).reshape(BR, N)
+    n0 = composite_coarse_fwd.launches
+    out = composite_coarse_fwd(rgb_raw, dens_raw, depth, dist)
+    torch.cuda.synchronize()
+    assert composite_coarse_fwd.launches == n0 + 1
+    ref = composite_coarse_plain(rgb_raw, dens_raw, depth, dist)
+    assert out.shape == (BR, 8)
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("BR,N", [(2048, 192), (9, 256), (7, 130)])
+def test_composite_coarse_bwd_kernel_widened(cuda, BR, N):
+    """Row 9b past 64 samples per ray (4 and 8 samples per lane)."""
+    from texpose_tpu_torch.kernels.composite import (
+        composite_coarse_bwd, composite_coarse_bwd_plain)
+    g = torch.Generator().manual_seed(N + 5)
+    M = BR * N
+    rgb_raw = torch.randn(M, 3, generator=g).to(cuda)
+    dens_raw = (torch.randn(M, 1, generator=g) * 3).to(cuda)
+    depth = torch.sort(torch.rand(BR, N, generator=g) * 4 + 2,
+                       dim=1).values.to(cuda)
+    ray = torch.randn(1, BR, 3, generator=g).to(cuda)
+    dist = _dists(depth.reshape(1, BR, N, 1), ray).reshape(BR, N)
+    cot = torch.randn(BR, 8, generator=g).to(cuda)
+    got = composite_coarse_bwd(rgb_raw, dens_raw, dist, depth, cot)
+    torch.cuda.synchronize()
+    want = composite_coarse_bwd_plain(rgb_raw, dens_raw, dist, depth, cot)
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    print("composite_coarse_bwd relative errors:", errs)
+    assert max(errs) <= COMPOSITE_BWD_REL
+
+
+@pytest.mark.parametrize("M", [131072, 1000])
+def test_trunk_fwd_kernel_matches_plain(cuda, M):
+    from texpose_tpu_torch.kernels.trunk import (trunk_forward_plain,
+                                                 trunk_fwd)
+    tw = _weights(cuda)          # the ST field's weights: their trunk pack
+    g = torch.Generator().manual_seed(M)
+    pts = (torch.randn(M, 3, generator=g) * 0.5).to(cuda)
+    xext = make_xext(pts, 10, torch.linspace(1.0, 0.3, 10).to(cuda))
+    n0 = trunk_fwd.launches
+    feat, dens = trunk_fwd(xext, tw)
+    torch.cuda.synchronize()
+    assert trunk_fwd.launches == n0 + 1
+    assert feat.dtype == torch.bfloat16 and feat.shape == (M, 256)
+    feat_ref, dens_ref = trunk_forward_plain(xext, tw.trunk, tw.skip)
+    err = (feat.float() - feat_ref).abs()
+    assert float((err / feat_ref.abs().clamp(min=1.0)).max()) <= 3e-2
+    assert float(err.mean()) <= 1e-3
+    err = (dens - dens_ref[:, 0]).abs()
+    assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
+
+
+def test_coarse_field_autograd_and_raising_wrappers(cuda):
+    """coarse_field's autograd launches the field forward and backward
+    kernels once each; the new wrappers raise on what their kernels do not
+    take (f32 compute, more than 256 samples per ray)."""
+    from texpose_tpu_torch.kernels.coarse_field import (coarse_field,
+                                                        coarse_field_bwd,
+                                                        coarse_field_fwd)
+    from texpose_tpu_torch.kernels.composite import (composite_coarse_bwd,
+                                                     composite_coarse_fwd)
+    from texpose_tpu_torch.kernels.trunk import trunk_fwd
+    w = _coarse_weights(cuda, False)
+    xext, ep, _, _ = _coarse_inputs(cuda, 100, 24, False, 6)
+    counts = [f.launches for f in (coarse_field_fwd, coarse_field_bwd)]
+    params = w.params()
+    for p in params:
+        p.requires_grad_(True)
+    rgb, dens = coarse_field(xext, ep, w)
+    (rgb.sum() + dens.sum()).backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in (coarse_field_fwd, coarse_field_bwd)] == \
+        [c + 1 for c in counts]
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in params)
+    with pytest.raises(ValueError, match="bfloat16"):
+        coarse_field_fwd(xext, ep, w, torch.float32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        trunk_fwd(xext, w, torch.float32)
+    big = torch.zeros(2, 257, device=cuda)
+    with pytest.raises(ValueError, match="256"):
+        composite_coarse_fwd(torch.zeros(514, 3, device=cuda),
+                             torch.zeros(514, 1, device=cuda), big, big)
+    with pytest.raises(ValueError, match="256"):
+        composite_coarse_bwd(torch.zeros(514, 3, device=cuda),
+                             torch.zeros(514, 1, device=cuda), big, big,
+                             torch.zeros(2, 8, device=cuda))

@@ -13,8 +13,9 @@ package's:
   * ``validate`` and ``evaluate_full`` of one state agree with the JAX
     engine's (losses rtol 1e-4, PSNR 0.01 dB, SSIM 1e-4); the port's
     evaluate CLI reloads a checkpoint;
-  * the env variant's CLI; the unported options are refused before the
-    networks are built.
+  * the env variant's CLI; the hierarchical pretrain's CLI
+    (``nerf.fine_sampling``) and its evaluation; the unported options are
+    refused before the networks are built.
 """
 
 import json
@@ -236,14 +237,40 @@ def test_env_cli_trains(root, tmp_path):
 
 
 def test_cli_refuses_unported_options(root, tmp_path):
+    """The hierarchical pretrain runs through the CLI (3 steps, both
+    fields' leaves and Adam moments in model.ckpt, the fine render loss
+    logged) and the evaluate CLI reloads its coarse field; visualize and
+    --video are refused before anything is built."""
     from texpose_tpu_torch import evaluate, train
     cfg = pre_cfg(root, tmp_path)
     cfg.nerf.fine_sampling = True
+    cfg.nerf.sample_intvs_fine = 16
+    cfg.loss_weight.render_fine = 0
     yml = _yaml(cfg, tmp_path / "fine.yaml")
-    with pytest.raises(NotImplementedError, match="fine_sampling"):
-        train.main([f"--yaml={yml}", "--device=cpu", "--freq.vis=null"])
     with pytest.raises(NotImplementedError, match="visualize"):
         train.main([f"--yaml={yml}", "--device=cpu", "--freq.vis=1"])
     with pytest.raises(NotImplementedError, match="video"):
         evaluate.main([f"--yaml={yml}", "--device=cpu", "--video"])
     assert not os.path.exists(os.path.join(cfg.output_path, "model.ckpt"))
+
+    eng = _train(yml)
+    assert eng.it == 3 and eng.nerf_fine is not None
+    out = load_checkpoint_flat(os.path.join(cfg.output_path, "model.ckpt"))
+    for field in ("nerf", "nerf_fine"):
+        for k in ("params/{}/mlp_feat/0/w", "params/{}/mlp_rgb/1/b",
+                  "opt_state/0/mu/{}/mlp_feat/2/w",
+                  "opt_state/0/nu/{}/mlp_rgb/0/w"):
+            assert k.format(field) in out, k.format(field)
+    recs = [json.loads(ln) for ln in
+            open(os.path.join(cfg.output_path, "metrics.jsonl"))]
+    train_recs = [r for r in recs if r["split"] == "train"]
+    assert [r["step"] for r in train_recs] == [1, 2, 3]
+    assert all(np.isfinite(r["render_fine"]) for r in train_recs)
+    ev = evaluate.main([f"--yaml={yml}", "--device=cpu", "--resume"])
+    assert ev.start_step == 3
+    np.testing.assert_array_equal(
+        ev.nerf.mlp_feat[0].w.detach().numpy(),
+        out["params/nerf/mlp_feat/0/w"])
+    rows = open(os.path.join(cfg.output_path, "quant.txt")).read().split(
+        "\n")[1:]
+    assert len([r for r in rows if r.strip()]) == len(ev.eval_data)

@@ -217,12 +217,31 @@ def test_kernel_route_matches_plain_route(root, tmp_path):
 
 
 def test_gate_refuses_unported_two_kernel_route(tmp_path, root):
-    from texpose_tpu_torch.nn.fields import use_fused_coarse_render
-    cfg = step_cfg(root, tmp_path, **{"kernels.coarse_mega": False})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        use_fused_coarse_render(cfg, 32, True)
-    cfg = step_cfg(root, tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        use_fused_coarse_render(cfg, 48, False)
-    cfg["kernels"]["fused_composite"] = False
-    assert not use_fused_coarse_render(cfg, 48, False)
+    """Which coarse route each configuration takes, as the JAX package's
+    gates: the mega forward (field + composite kernel) with N | 64 and
+    kernels.coarse_mega on or unset; the two-kernel route (field kernel →
+    composite kernel) with coarse_mega off or N ∤ 64; the field kernel under
+    the plain composite without fused_composite; the plain route without
+    fused_coarse, and with density noise in training.  None raises."""
+    from texpose_tpu_torch.nn.fields import (use_fused_coarse,
+                                             use_fused_coarse_mega,
+                                             use_fused_coarse_render)
+
+    def route(cfg, N, training):
+        if use_fused_coarse_mega(cfg, N, training):
+            return "mega"
+        if use_fused_coarse_render(cfg, N, training):
+            return "two_kernel"
+        return "field_kernel" if use_fused_coarse(cfg, training) else "plain"
+
+    cases = [({}, 32, True, "mega"), ({}, 64, False, "mega"),
+             ({"kernels.coarse_mega": None}, 32, True, "mega"),
+             ({"kernels.coarse_mega": False}, 32, True, "two_kernel"),
+             ({}, 48, False, "two_kernel"), ({}, 192, True, "two_kernel"),
+             ({"kernels.fused_composite": False}, 48, False, "field_kernel"),
+             ({"kernels.fused_coarse": False}, 32, False, "plain"),
+             ({"nerf.density_noise_reg": 0.5}, 32, True, "plain"),
+             ({"nerf.density_noise_reg": 0.5}, 32, False, "mega")]
+    for over, N, training, want in cases:
+        cfg = step_cfg(root, tmp_path, **over)
+        assert route(cfg, N, training) == want, (over, N, training)

@@ -3,22 +3,28 @@
 // to PyTorch through ctypes (texpose_tpu_torch/kernels/coarse_field.py).
 //
 // Replaces: texpose_tpu/kernels/fused_coarse_render.py::_run_fwd (the coarse
-// field + single-density composite mega forward, _mega_fwd_kernel) and
-// texpose_tpu/kernels/fused_coarse_field.py::_run_bwd (the trunk-training
+// field + single-density composite mega forward, _mega_fwd_kernel),
+// texpose_tpu/kernels/fused_coarse_field.py::_run_fwd (the coarse field
+// forward with raw outputs, _fwd_kernel) and ::_run_bwd (the trunk-training
 // backward, _bwd_kernel).
 //
-// FORWARD (coarse_fwd_kernel).  Per 64-row tile, in shared memory:
+// FORWARD (coarse_fwd_kernel<kComposite>).  Per 64-row tile, in shared
+// memory:
 //   xext [64,kx] -> 8x256 trunk (trunk.cuh; skip layers re-read xext)
 //        -> feat, raw density
 //   feat ⊕ enc⊕pts [64,256+ke] -> RGB head -> rgb_raw
-//   then the composite of the tile's whole rays (64/N of them, N | 64): one
-//   warp per ray (composite_coarse.cuh) -> packed [BR,8] (rgb, depth,
-//   opacity).
+//   then, with kComposite (the mega forward, entry coarse_fwd), the
+//   composite of the tile's whole rays (64/N of them, N | 64): one warp per
+//   ray (composite_coarse.cuh) -> packed [BR,8] (rgb, depth, opacity).
+// Without it (the field forward, entry coarse_field_fwd) the epilogue is
+// compiled out and the rows need not form whole rays: any M, any N; the
+// composite kernel (composite.cu) or plain PyTorch takes the raw outputs.
 // rgb_raw [M,3] and dens_raw [M,1] (f32, no activation) go to global memory
 // in every mode: the epilogue reads them back (L2), and in training they are
 // the composite backward's residuals.  In training the kernel also stores
 // every hidden layer's bf16 ReLU output, [n_trunk + n_rgb - 1, M, 256]
-// (11 x 64 MB = 0.74 GB at M = 131,072): the field backward's residuals.
+// (11 x 64 MB = 0.74 GB at M = 131,072, 2.21 GB at the fine field's
+// 393,216 rows): the field backward's residuals.
 // What bounds it: ~1.38 MFLOP per row (181 GFLOP per 131,072-row step) on
 // the tensor cores against ~0.2 KB of row input/output in eval; in training
 // the 0.74 GB of residual stores (0.22 ms at 3.35 TB/s) stay below the
@@ -73,6 +79,7 @@ struct FwdParams {
   unsigned skip_mask;
 };
 
+template <bool kComposite>
 __global__ void __launch_bounds__(kThreads, 2)
     coarse_fwd_kernel(const FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -130,18 +137,20 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
-  // composite epilogue: the tile holds whole rays (N divides 64)
-  const int rays = kTile / p.N;
-  const int ray0 = row0 / p.N;
-  for (int r = warp; r < rays; r += kWarps) {
-    const int ray = ray0 + r;
-    if ((size_t)ray * p.N >= (size_t)p.M) break;   // uniform per warp
-    if (p.N <= 32)
-      composite_coarse_ray<1>(p.rgb_raw, p.dens_raw, p.dist, p.depth, ray,
-                              p.N, lane, p.out);
-    else
-      composite_coarse_ray<2>(p.rgb_raw, p.dens_raw, p.dist, p.depth, ray,
-                              p.N, lane, p.out);
+  if constexpr (kComposite) {
+    // composite epilogue: the tile holds whole rays (N divides 64)
+    const int rays = kTile / p.N;
+    const int ray0 = row0 / p.N;
+    for (int r = warp; r < rays; r += kWarps) {
+      const int ray = ray0 + r;
+      if ((size_t)ray * p.N >= (size_t)p.M) break;   // uniform per warp
+      if (p.N <= 32)
+        composite_coarse_ray<1>(p.rgb_raw, p.dens_raw, p.dist, p.depth, ray,
+                                p.N, lane, p.out);
+      else
+        composite_coarse_ray<2>(p.rgb_raw, p.dens_raw, p.dist, p.depth, ray,
+                                p.N, lane, p.out);
+    }
   }
 }
 
@@ -329,12 +338,55 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 int g_smem_limit_fwd[kMaxDevices];
+int g_smem_limit_field[kMaxDevices];
 int g_smem_limit_bwd[kMaxDevices];
+
+// The forward's parameters shared by both entries (the composite's stay
+// null/0 for the field forward).
+FwdParams fwd_params(const void* xe, const void* wpack, const void* bias,
+                     const void* wpack_rgb, const void* bias_rgb,
+                     void* rgb_raw, void* dens_raw, void* acts, int M, int kx,
+                     int ke, int n_trunk, int n_rgb, int skip_mask) {
+  FwdParams p = {};
+  p.xe = static_cast<const bf16*>(xe);
+  p.wpack = static_cast<const uint2*>(wpack);
+  p.bias = static_cast<const float*>(bias);
+  p.wpack_rgb = static_cast<const uint2*>(wpack_rgb);
+  p.bias_rgb = static_cast<const float*>(bias_rgb);
+  p.rgb_raw = static_cast<float*>(rgb_raw);
+  p.dens_raw = static_cast<float*>(dens_raw);
+  p.acts = static_cast<bf16*>(acts);
+  p.M = M;
+  p.kx = kx;
+  p.ke = ke;
+  p.n_trunk = n_trunk;
+  p.n_rgb = n_rgb;
+  p.skip_mask = static_cast<unsigned>(skip_mask);
+  return p;
+}
+
+bool bad_fwd_shape(int kx, int ke, int n_trunk, int n_rgb) {
+  return kx % 16 || ke % 16 || kx <= 0 || ke <= 0 || kx + ke > 256 ||
+         n_trunk < 2 || n_rgb < 2;
+}
+
+template <bool kComposite>
+int launch_fwd(const FwdParams& p, int* limits, void* stream) {
+  const int smem =
+      (3 * kTile * kActStride + kTile * (p.kx + p.ke + 8)) * (int)sizeof(bf16);
+  cudaError_t e = ensure_smem(coarse_fwd_kernel<kComposite>, smem, limits);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.M + kTile - 1) / kTile);
+  coarse_fwd_kernel<kComposite><<<grid, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
-// Launches the forward on `stream`; returns cudaGetLastError() (0 =
-// launched).  acts may be null (no residuals: evaluation).
+// Launches the mega forward (field + composite) on `stream`; returns
+// cudaGetLastError() (0 = launched).  acts may be null (no residuals:
+// evaluation).
 extern "C" int coarse_fwd(const void* xe, const void* wpack, const void* bias,
                           const void* wpack_rgb, const void* bias_rgb,
                           const void* dist, const void* depth, void* out,
@@ -342,36 +394,33 @@ extern "C" int coarse_fwd(const void* xe, const void* wpack, const void* bias,
                           int kx, int ke, int N, int n_trunk, int n_rgb,
                           int skip_mask, void* stream) {
   if (M <= 0) return 0;
-  if (kx % 16 || ke % 16 || kx <= 0 || ke <= 0 || kx + ke > 256 || N <= 0 ||
-      kTile % N || M % N || n_trunk < 2 || n_rgb < 2)
+  if (bad_fwd_shape(kx, ke, n_trunk, n_rgb) || N <= 0 || kTile % N || M % N)
     return (int)cudaErrorInvalidValue;
-  FwdParams p;
-  p.xe = static_cast<const bf16*>(xe);
-  p.wpack = static_cast<const uint2*>(wpack);
-  p.bias = static_cast<const float*>(bias);
-  p.wpack_rgb = static_cast<const uint2*>(wpack_rgb);
-  p.bias_rgb = static_cast<const float*>(bias_rgb);
+  FwdParams p = fwd_params(xe, wpack, bias, wpack_rgb, bias_rgb, rgb_raw,
+                           dens_raw, acts, M, kx, ke, n_trunk, n_rgb,
+                           skip_mask);
   p.dist = static_cast<const float*>(dist);
   p.depth = static_cast<const float*>(depth);
   p.out = static_cast<float*>(out);
-  p.rgb_raw = static_cast<float*>(rgb_raw);
-  p.dens_raw = static_cast<float*>(dens_raw);
-  p.acts = static_cast<bf16*>(acts);
-  p.M = M;
-  p.kx = kx;
-  p.ke = ke;
   p.N = N;
-  p.n_trunk = n_trunk;
-  p.n_rgb = n_rgb;
-  p.skip_mask = static_cast<unsigned>(skip_mask);
-  const int smem =
-      (3 * kTile * kActStride + kTile * (kx + ke + 8)) * (int)sizeof(bf16);
-  cudaError_t e = ensure_smem(coarse_fwd_kernel, smem, g_smem_limit_fwd);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((M + kTile - 1) / kTile);
-  coarse_fwd_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch_fwd<true>(p, g_smem_limit_fwd, stream);
+}
+
+// Launches the field forward (raw outputs, no composite) on `stream`: any M,
+// the rows need not form whole rays.  acts may be null (no residuals).
+// Returns cudaGetLastError().
+extern "C" int coarse_field_fwd(const void* xe, const void* wpack,
+                                const void* bias, const void* wpack_rgb,
+                                const void* bias_rgb, void* rgb_raw,
+                                void* dens_raw, void* acts, int M, int kx,
+                                int ke, int n_trunk, int n_rgb, int skip_mask,
+                                void* stream) {
+  if (M <= 0) return 0;
+  if (bad_fwd_shape(kx, ke, n_trunk, n_rgb)) return (int)cudaErrorInvalidValue;
+  const FwdParams p = fwd_params(xe, wpack, bias, wpack_rgb, bias_rgb,
+                                 rgb_raw, dens_raw, acts, M, kx, ke, n_trunk,
+                                 n_rgb, skip_mask);
+  return launch_fwd<false>(p, g_smem_limit_field, stream);
 }
 
 // Launches the field backward on `stream`; grads must be zeroed by the

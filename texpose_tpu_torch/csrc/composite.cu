@@ -39,6 +39,19 @@
 // design as the forward: 40 B read and 32 B written per sample, ~80 flops,
 // everything in registers.
 //
+// COARSE FORWARD (composite_coarse_fwd_kernel).
+// Replaces: texpose_tpu/kernels/fused_composite_coarse.py::_run_fwd (the
+// single-density composite on [BR,N] channel planes, _fwd_kernel) and
+// ::_run_fwd_flat (the same on the flat [M,3]/[M,1] outputs,
+// _fwd_kernel_flat).  The field kernel writes the flat layout and this
+// kernel reads it, so one kernel serves both (kernels.composite_flat
+// selects the same launch).  One warp per ray, S = ceil(N/32) samples per
+// lane (N ≤ 256): composite_coarse_ray (composite_coarse.cuh), the device
+// function the coarse mega forward runs as its epilogue.  What bounds it:
+// memory — 24 B read per sample and 32 B written per ray, ~25 flops and 3
+// transcendentals per sample.  Design: as the dual composite, nothing
+// staged, everything in registers.
+//
 // COARSE BACKWARD (composite_coarse_bwd_kernel).
 // Replaces: texpose_tpu/kernels/fused_composite_coarse.py::_run_bwd (the
 // closed-form VJP of the single-density composite, _bwd_kernel), the
@@ -53,6 +66,8 @@
 // What bounds it: memory — 24 B read and 16 B written per sample
 // (0.016 ms of traffic at 131,072 samples), ~40 flops and 4 transcendentals
 // per sample.  Design: as the forward, nothing staged, nothing spilled.
+// N ≤ 256 (S up to 8): the hierarchical fine field's 64 + 128 samples and
+// the two-kernel route at any N.
 
 #include <cuda_runtime.h>
 
@@ -320,6 +335,28 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int S>
+__global__ void __launch_bounds__(kThreads)
+    composite_coarse_fwd_kernel(const float* __restrict__ rgb,
+                                const float* __restrict__ dens,
+                                const float* __restrict__ dist,
+                                const float* __restrict__ depth, int BR, int N,
+                                float* __restrict__ out) {
+  const int ray = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (ray >= BR) return;                      // uniform across the warp
+  composite_coarse_ray<S>(rgb, dens, dist, depth, ray, N, lane, out);
+}
+
+template <int S>
+void launch_coarse_fwd(const float* rgb, const float* dens, const float* dist,
+                       const float* depth, int BR, int N, float* out,
+                       cudaStream_t stream) {
+  const int blocks = (BR * 32 + kThreads - 1) / kThreads;
+  composite_coarse_fwd_kernel<S><<<blocks, kThreads, 0, stream>>>(
+      rgb, dens, dist, depth, BR, N, out);
+}
+
+template <int S>
 void launch_coarse_bwd(const float* rgb, const float* dens, const float* dist,
                        const float* depth, const float* g, int BR, int N,
                        float* d_rgb, float* d_dens, cudaStream_t stream) {
@@ -420,11 +457,40 @@ extern "C" int composite_coarse_bwd(const void* rgb, const void* dens,
   float* o2 = static_cast<float*>(d_dens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N <= 0) return (int)cudaErrorInvalidValue;
-  // N up to the coarse render forward's 64-row tile, its only producer
   if (N <= 32)
     launch_coarse_bwd<1>(a, b, c, d, gg, BR, N, o1, o2, st);
   else if (N <= 64)
     launch_coarse_bwd<2>(a, b, c, d, gg, BR, N, o1, o2, st);
+  else if (N <= 128)
+    launch_coarse_bwd<4>(a, b, c, d, gg, BR, N, o1, o2, st);
+  else if (N <= 256)
+    launch_coarse_bwd<8>(a, b, c, d, gg, BR, N, o1, o2, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Launches the coarse forward on `stream`: rgb_raw [M,3], dens_raw [M,1],
+// dist, depth [BR,N] → packed [BR,8]; returns cudaGetLastError().
+extern "C" int composite_coarse_fwd(const void* rgb, const void* dens,
+                                    const void* dist, const void* depth,
+                                    int BR, int N, void* out, void* stream) {
+  if (BR <= 0) return 0;
+  const float* a = static_cast<const float*>(rgb);
+  const float* b = static_cast<const float*>(dens);
+  const float* c = static_cast<const float*>(dist);
+  const float* d = static_cast<const float*>(depth);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  if (N <= 32)
+    launch_coarse_fwd<1>(a, b, c, d, BR, N, o, st);
+  else if (N <= 64)
+    launch_coarse_fwd<2>(a, b, c, d, BR, N, o, st);
+  else if (N <= 128)
+    launch_coarse_fwd<4>(a, b, c, d, BR, N, o, st);
+  else if (N <= 256)
+    launch_coarse_fwd<8>(a, b, c, d, BR, N, o, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

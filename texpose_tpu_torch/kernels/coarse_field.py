@@ -1,13 +1,16 @@
-"""The pretrain stage's coarse field with the single-density composite fused
-into its forward, and the field's trunk-training backward: the CUDA
-kernels' wrappers, their plain-PyTorch twins, and the autograd Function
-that pairs them (``coarse_render``).
+"""The pretrain stage's coarse field: its forward with the single-density
+composite fused in, its forward with raw outputs, and its trunk-training
+backward — the CUDA kernels' wrappers, their plain-PyTorch twins, and the
+autograd Functions that pair them (``coarse_render``: mega forward →
+composite backward → field backward; ``coarse_field``: field forward →
+field backward).
 
 Replaces texpose_tpu/kernels/fused_coarse_render.py (``_run_fwd``, the
 field + composite mega forward, and the hybrid backward ``op_bwd``) and
-texpose_tpu/kernels/fused_coarse_field.py (``_run_bwd``, the trunk-training
-backward).  The kernels are in ``csrc/coarse_field.cu``; its header says
-what bounds them on the card and how their design answers that.
+texpose_tpu/kernels/fused_coarse_field.py (``_run_fwd``, the field forward
+with raw outputs, and ``_run_bwd``, the trunk-training backward).  The
+kernels are in ``csrc/coarse_field.cu``; its header says what bounds them
+on the card and how their design answers that.
 
 Forward contract:
   xext  [M, 3+6L] f32  pts ⊕ c2f-weighted sin/cos bands (``make_xext``)
@@ -18,8 +21,11 @@ Forward contract:
 With ``want_res`` it also returns the backward's residuals: rgb_raw [M,3]
 and dens_raw [M,1] (f32, pre-activation) for the composite backward, and
 every hidden layer's ReLU output rounded to compute_dtype (the trunk's
-layers, then the RGB head's hidden layers) for the field backward.  Both
-paths round every matmul operand to compute_dtype and accumulate in f32.
+layers, then the RGB head's hidden layers) for the field backward.  The
+field forward (``coarse_field_fwd``) takes xext and ep alone, any M, and
+returns rgb_raw and dens_raw (with ``want_res`` the residuals too).  Every
+path rounds every matmul operand to compute_dtype and accumulates in f32,
+the trunk at the rounding points of kernels/trunk.py.
 
 Backward contract (the trunk trains): from the residuals and the raw-output
 gradients d rgb_raw [M,3], d dens_raw [M,1] → the gradient of every trunk
@@ -36,14 +42,15 @@ import torch
 from ..nn.mlp import relu, round_to
 from . import _build
 from .composite import composite_coarse_bwd, composite_coarse_plain
-from .st_field import (HIDDEN, PackCache, _cat_packs, _ceil16, _pack_layer,
-                       _OUT_TILE, check_trunk, pack_head, pack_trunk,
+from .st_field import (HIDDEN, TrunkWeights, _cat_packs, _ceil16,
+                       _pack_layer, _OUT_TILE, check_trunk, pack_head,
                        stage_rows)
+from .trunk import trunk_forward_plain
 
 ROW_TILE = 64          # the kernel's row tile: rays must fit whole into it
 
 
-class CoarseFieldWeights(PackCache):
+class CoarseFieldWeights(TrunkWeights):
     """The coarse field's dense layers (``.w`` [in,out], ``.b``) plus the
     kernels' packed copies.  The trunk trains, so both the trunk pack and
     the RGB-head pack, and the backward's transposed pack, rebuild after
@@ -52,10 +59,8 @@ class CoarseFieldWeights(PackCache):
     _kind = "coarse_field"
 
     def __init__(self, trunk, rgb, skip):
-        self.trunk, self.rgb = list(trunk), list(rgb)
-        self.skip = tuple(sorted(int(s) for s in skip))
-        self.feat_dim = self.trunk[-1].w.shape[1] - 1
-        self._packs = {}
+        super().__init__(trunk, skip)
+        self.rgb = list(rgb)
 
     def params(self):
         """Every tensor, in the order the backward returns gradients: trunk
@@ -76,20 +81,17 @@ class CoarseFieldWeights(PackCache):
 
     def kernel_buffers(self, xw, e3):
         """Forward: (trunk wpack, trunk bias, rgb wpack, rgb bias, kx, ke)."""
-        kx, ke = _ceil16(xw), _ceil16(e3)
+        ke = _ceil16(e3)
 
         def build_rgb():
+            self._check(xw, e3)
             w, b = pack_head(self.rgb, [(0, HIDDEN, HIDDEN),
                                         (HIDDEN, HIDDEN + e3, ke)])
             return _cat_packs(w), _cat_packs(b, torch.float32)
 
-        def build_trunk():
-            self._check(xw, e3)
-            return pack_trunk(self.trunk, self.skip, xw, kx)
-
-        trunk = self._cached("trunk", (xw, e3), self.trunk, build_trunk)
-        rgb = self._cached("rgb", (e3,), self.rgb, build_rgb)
-        return trunk + rgb + (kx, ke)
+        wpack, bias, kx = self.trunk_buffers(xw)
+        rgb = self._cached("rgb", (xw, e3), self.rgb, build_rgb)
+        return (wpack, bias) + rgb + (kx, ke)
 
     def kernel_buffer_bwd(self, xw, e3):
         """Backward: the Wᵀ packs in the kernel's walk order — RGB output
@@ -176,36 +178,34 @@ class CoarseFieldWeights(PackCache):
         return out
 
 
-def coarse_render_plain(xext, ep, dist, depth, weights,
-                        compute_dtype=torch.bfloat16, want_res=False):
-    """The forward kernel's plain-PyTorch twin: same signature, same
-    rounding points.  With want_res: (packed, rgb_raw, dens_raw, acts),
-    acts the list of hidden ReLU outputs (trunk, then RGB head) rounded to
-    compute_dtype and held in f32."""
+def coarse_field_plain(xext, ep, weights, compute_dtype=torch.bfloat16,
+                       want_res=False):
+    """The field forward kernel's twin: (rgb_raw [M,3], dens_raw [M,1]); with
+    want_res also acts, the list of hidden ReLU outputs (trunk, then RGB
+    head) rounded to compute_dtype and held in f32."""
     def c(x):
         return round_to(x, compute_dtype)
 
-    xc = c(xext)
-    h, acts = None, []
-    nf = len(weights.trunk)
-    for li, layer in enumerate(weights.trunk):
-        x = xc if li == 0 else (torch.cat([h, xc], -1) if li in weights.skip
-                                else h)
-        z = x @ c(layer.w) + layer.b
-        if li == nf - 1:
-            dens = z[:, :1]
-            z = z[:, 1:]
-        h = c(relu(z))
-        acts.append(h)
-    x = torch.cat([h, c(ep)], -1)
+    h, dens, acts = trunk_forward_plain(xext, weights.trunk, weights.skip,
+                                        compute_dtype, want_acts=True)
+    x = torch.cat([h, c(ep.float())], -1)
     nr = len(weights.rgb)
     for li, layer in enumerate(weights.rgb):
         z = x @ c(layer.w) + layer.b
         if li < nr - 1:
             x = c(relu(z))
             acts.append(x)
-    packed = composite_coarse_plain(z, dens, depth, dist)
-    return (packed, z, dens, acts) if want_res else packed
+    return (z, dens, acts) if want_res else (z, dens)
+
+
+def coarse_render_plain(xext, ep, dist, depth, weights,
+                        compute_dtype=torch.bfloat16, want_res=False):
+    """The mega forward kernel's twin: the field twin, then the composite
+    twin.  With want_res: (packed, rgb_raw, dens_raw, acts)."""
+    rgb_raw, dens, acts = coarse_field_plain(xext, ep, weights, compute_dtype,
+                                             want_res=True)
+    packed = composite_coarse_plain(rgb_raw, dens, depth, dist)
+    return (packed, rgb_raw, dens, acts) if want_res else packed
 
 
 def coarse_field_bwd_plain(xext, ep, acts, weights, g_rgb, g_dens,
@@ -249,6 +249,8 @@ def coarse_field_bwd_plain(xext, ep, acts, weights, g_rgb, g_dens,
 
 _ARGTYPES = {
     "coarse_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "coarse_field_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
     "coarse_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
@@ -312,6 +314,50 @@ def coarse_render_fwd(xext, ep, dist, depth, weights,
 
 
 coarse_render_fwd.launches = 0
+
+
+def coarse_field_fwd(xext, ep, weights, compute_dtype=torch.bfloat16,
+                     want_res=False):
+    """(rgb_raw [M,3], dens_raw [M,1]) f32; with want_res also res, the
+    kernel's (staged input, [n_res, M, 256] bf16 activations) or the twin's
+    (None, list of activations), as ``coarse_render_fwd``'s.
+
+    CPU tensors take ``coarse_field_plain``; CUDA tensors launch the kernel
+    (bf16 compute only, any M) or raise."""
+    if xext.device.type == "cpu":
+        out = coarse_field_plain(xext, ep, weights, compute_dtype, want_res)
+        return out[:2] + ((None, out[2]),) if want_res else out
+    _check_cuda("coarse_field_fwd", xext, compute_dtype)
+    M, xw = xext.shape
+    e3 = ep.shape[1]
+    dev = xext.device
+    if ep.shape[0] != M:
+        raise ValueError(f"coarse_field_fwd: {M} xext rows, {ep.shape[0]} "
+                         "enc⊕pts rows")
+    wpack, bias, wr, br, kx, ke = weights.kernel_buffers(xw, e3)
+    if any(t.device != dev for t in (ep, wpack)):
+        raise ValueError("coarse_field_fwd: inputs and weights must all lie "
+                         f"on {dev}")
+    xe = stage_rows(xext, ep, kx, ke)
+    rgb_raw = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    dens_raw = torch.empty((M, 1), dtype=torch.float32, device=dev)
+    n_res = len(weights.trunk) + len(weights.rgb) - 1
+    acts = (torch.empty((n_res, M, HIDDEN), dtype=torch.bfloat16, device=dev)
+            if want_res else None)
+    lib = _build.load("coarse_field", _ARGTYPES)
+    err = lib.coarse_field_fwd(
+        xe.data_ptr(), wpack.data_ptr(), bias.data_ptr(), wr.data_ptr(),
+        br.data_ptr(), rgb_raw.data_ptr(), dens_raw.data_ptr(),
+        acts.data_ptr() if acts is not None else None, M, kx, ke,
+        len(weights.trunk), len(weights.rgb),
+        sum(1 << s for s in weights.skip), _build.stream_ptr(dev))
+    _build.check(err, "coarse_field_fwd")
+    coarse_field_fwd.launches += 1
+    return (rgb_raw, dens_raw, (xe, acts)) if want_res else (rgb_raw,
+                                                            dens_raw)
+
+
+coarse_field_fwd.launches = 0
 
 
 def coarse_field_bwd(xext, ep, xe, acts, weights, g_rgb, g_dens,
@@ -393,6 +439,39 @@ class _CoarseRender(torch.autograd.Function):
         grads = coarse_field_bwd(xext, ep, xe, acts, ctx.weights, d_rgb,
                                  d_dens, ctx.compute_dtype)
         return (None,) * 6 + tuple(grads)
+
+
+class _CoarseField(torch.autograd.Function):
+    """fused_coarse_field's custom_vjp: the forward keeps the residuals, the
+    backward runs the field backward (kernel or twin by device) from the
+    raw-output gradients.  No gradient reaches the inputs."""
+
+    @staticmethod
+    def forward(ctx, xext, ep, weights, compute_dtype, *params):
+        rgb_raw, dens_raw, res = coarse_field_fwd(xext, ep, weights,
+                                                  compute_dtype, want_res=True)
+        ctx.save_for_backward(xext, ep)
+        ctx.res = res
+        ctx.weights = weights
+        ctx.compute_dtype = compute_dtype
+        return rgb_raw, dens_raw
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_dens):
+        xext, ep = ctx.saved_tensors
+        xe, acts = ctx.res
+        ctx.res = None
+        grads = coarse_field_bwd(xext, ep, xe, acts, ctx.weights,
+                                 g_rgb.contiguous(), g_dens.contiguous(),
+                                 ctx.compute_dtype)
+        return (None,) * 4 + tuple(grads)
+
+
+def coarse_field(xext, ep, weights, compute_dtype=torch.bfloat16):
+    """Differentiable coarse field: (rgb_raw [M,3], dens_raw [M,1]) with
+    gradients to every trunk and RGB-head tensor."""
+    return _CoarseField.apply(xext, ep, weights, compute_dtype,
+                              *weights.params())
 
 
 def coarse_render(xext, ep, dist, depth, weights,

@@ -18,12 +18,14 @@ Packed output columns [BR,16]:
   14 sum_n softplus(transient density raw) | 15 zero
 
 The single-density composite replaces texpose_tpu/kernels/
-fused_composite_coarse.py: its forward runs as the epilogue of the coarse
-field kernel (``csrc/composite_coarse.cuh``, called by
-``csrc/coarse_field.cu``; twin ``composite_coarse_plain``), its backward
-(``_run_bwd``, the closed-form VJP to rgb AND density) is
-``composite_coarse_bwd``.  Packed columns [BR,8]: 0-2 rgb | 3 depth |
-4 opacity | 5-7 zero.
+fused_composite_coarse.py (``fused_composite_coarse``): its forward
+(``_run_fwd``, and ``_run_fwd_flat`` with ``kernels.composite_flat``) is
+``composite_coarse_fwd`` (twin ``composite_coarse_plain``; the same device
+function runs as the epilogue of the coarse mega forward,
+``csrc/coarse_field.cu``), its backward (``_run_bwd`` / ``_run_bwd_flat``,
+the closed-form VJP to rgb AND density) is ``composite_coarse_bwd``.  Both
+read the field's flat [M,3]/[M,1] outputs, N ≤ 256 samples per ray.
+Packed columns [BR,8]: 0-2 rgb | 3 depth | 4 opacity | 5-7 zero.
 """
 
 from __future__ import annotations
@@ -149,7 +151,10 @@ _ARGTYPES = {
     + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
     "composite_coarse_bwd": [ctypes.c_void_p] * 5
     + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
+    "composite_coarse_fwd": [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2,
 }
+MAX_SAMPLES = 256      # the composite kernels' samples per ray (8 per lane)
 
 
 def _check_planes(what, device, args, numels):
@@ -217,6 +222,41 @@ def composite_st_bwd(rgb_raw, trans_raw, dens_raw, dist, g):
 composite_st_bwd.launches = 0
 
 
+def _check_samples(what, N):
+    if N > MAX_SAMPLES:
+        raise ValueError(f"{what}: {N} samples per ray; the kernel takes up "
+                         f"to {MAX_SAMPLES}")
+
+
+def composite_coarse_fwd(rgb_raw, dens_raw, depth, dist):
+    """Packed [BR,8] single-density composite of the raw field outputs.
+    CPU tensors take ``composite_coarse_plain``; CUDA tensors launch the
+    kernel (N ≤ 256) or raise."""
+    if rgb_raw.device.type == "cpu":
+        return composite_coarse_plain(rgb_raw, dens_raw, depth, dist)
+    if rgb_raw.device.type != "cuda":
+        raise ValueError(
+            f"composite_coarse_fwd: no kernel for {rgb_raw.device}")
+    BR, N = depth.shape
+    _check_samples("composite_coarse_fwd", N)
+    M = BR * N
+    args = _check_planes("composite_coarse_fwd", rgb_raw.device,
+                         (rgb_raw, dens_raw, dist, depth),
+                         (3 * M, M, M, M))
+    out = torch.empty((BR, N_OUT_COARSE), dtype=torch.float32,
+                      device=rgb_raw.device)
+    lib = _build.load("composite", _ARGTYPES)
+    err = lib.composite_coarse_fwd(*(x.data_ptr() for x in args), BR, N,
+                                   out.data_ptr(),
+                                   _build.stream_ptr(rgb_raw.device))
+    _build.check(err, "composite_coarse_fwd")
+    composite_coarse_fwd.launches += 1
+    return out
+
+
+composite_coarse_fwd.launches = 0
+
+
 def composite_coarse_bwd(rgb_raw, dens_raw, dist, depth, g):
     """(d rgb_raw [M,3], d dens_raw [M,1]) from the packed cotangent g
     [BR,8].  CPU tensors take ``composite_coarse_bwd_plain``; CUDA tensors
@@ -227,9 +267,7 @@ def composite_coarse_bwd(rgb_raw, dens_raw, dist, depth, g):
         raise ValueError(
             f"composite_coarse_bwd: no kernel for {rgb_raw.device}")
     BR, N = dist.shape
-    if N > 64:
-        raise ValueError(f"composite_coarse_bwd: {N} samples per ray; the "
-                         "kernel takes up to 64, as the coarse render does")
+    _check_samples("composite_coarse_bwd", N)
     M = BR * N
     args = _check_planes("composite_coarse_bwd", rgb_raw.device,
                          (rgb_raw, dens_raw, dist, depth, g),
@@ -275,6 +313,38 @@ def fused_composite_st(rgb_raw, trans_raw, dens_raw, depth_samples, ray,
     packed = _CompositeST.apply(rgb_raw, trans_raw, dens_raw, d, dist,
                                 float(min_uncert))
     return packed_to_dict(packed, B, R, N)
+
+
+class _CompositeCoarse(torch.autograd.Function):
+    """fused_composite_coarse's custom_vjp: gradients to rgb_raw and
+    dens_raw; depths and intervals get none."""
+
+    @staticmethod
+    def forward(ctx, rgb_raw, dens_raw, depth, dist):
+        ctx.save_for_backward(rgb_raw, dens_raw, dist, depth)
+        return composite_coarse_fwd(rgb_raw, dens_raw, depth, dist)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_rgb, d_dens = composite_coarse_bwd(*ctx.saved_tensors,
+                                             g.contiguous())
+        return d_rgb, d_dens, None, None
+
+
+def fused_composite_coarse(rgb_raw, dens_raw, depth_samples, ray):
+    """Single-density composite from RAW field outputs (the JAX function of
+    this name): rgb_raw [BR·N,3], dens_raw [BR·N,1], depth_samples
+    [B,R,N,1], ray [B,R,3] → dict(rgb [B,R,3], depth [B,R,1], opacity
+    [B,R,1]); differentiable in rgb_raw and dens_raw."""
+    B, R, N, _ = depth_samples.shape
+    d = depth_samples.reshape(B * R, N).detach()
+    dist = _dists(depth_samples, ray).reshape(B * R, N).detach()
+    packed = _CompositeCoarse.apply(rgb_raw, dens_raw, d, dist)
+
+    def out(lo, hi):
+        return packed[:, lo:hi].reshape(B, R, hi - lo)
+
+    return dict(rgb=out(0, 3), depth=out(3, 4), opacity=out(4, 5))
 
 
 def packed_to_dict(packed, B, R, N):

@@ -160,6 +160,31 @@ def pack_trunk(trunk, skip, xw, kx):
     return _cat_packs(ws), _cat_packs(bs, torch.float32)
 
 
+class TrunkWeights(PackCache):
+    """The trunk's dense layers (``.w`` [in,out], ``.b``) plus the kernels'
+    packed copy, rebuilt whenever a trunk tensor changed.  Every field's
+    weights extend it, so a field holds one trunk pack for all its
+    kernels (the trunk kernel of kernels/trunk.py takes it as it is)."""
+
+    _kind = "trunk"
+
+    def __init__(self, trunk, skip):
+        self.trunk = list(trunk)
+        self.skip = tuple(sorted(int(s) for s in skip))
+        self.feat_dim = self.trunk[-1].w.shape[1] - 1
+        self._packs = {}
+
+    def trunk_buffers(self, xw):
+        """(wpack bf16, bias f32, kx) of the trunk (``pack_trunk``)."""
+        kx = _ceil16(xw)
+
+        def build():
+            check_trunk(self.trunk, self.skip, xw, self._bad)
+            return pack_trunk(self.trunk, self.skip, xw, kx)
+
+        return self._cached("trunk", (xw,), self.trunk, build) + (kx,)
+
+
 def pack_head(layers, first_segs):
     """(wpack bf16, bias f32) of a head: layer 0 with ``first_segs``, the
     hidden layers 256 → 256, the output layer padded to one n8 tile."""
@@ -176,7 +201,7 @@ def pack_head(layers, first_segs):
     return ws, bs
 
 
-class STFieldWeights(PackCache):
+class STFieldWeights(TrunkWeights):
     """The field's dense layers (objects with ``.w`` [in,out] and ``.b``)
     plus the kernels' packed copies of them: the trunk pack is rebuilt only
     when a trunk tensor changed, the head packs whenever a head tensor
@@ -185,10 +210,8 @@ class STFieldWeights(PackCache):
     _kind = "st_field"
 
     def __init__(self, trunk, rgb, trans, skip):
-        self.trunk, self.rgb, self.trans = list(trunk), list(rgb), list(trans)
-        self.skip = tuple(sorted(int(s) for s in skip))
-        self.feat_dim = self.trunk[-1].w.shape[1] - 1
-        self._packs = {}
+        super().__init__(trunk, skip)
+        self.rgb, self.trans = list(rgb), list(trans or ())
 
     def _check_heads(self, e3):
         for name, head, n_out in (("rgb", self.rgb, 3),
@@ -206,12 +229,11 @@ class STFieldWeights(PackCache):
         bias, kx, ke) in the kernel's walk order: trunk layers (the last
         split into 256 feature columns and one density tile); then the RGB
         head, then the transient head."""
-        kx, ke = _ceil16(xw), _ceil16(e3)
-        trunk = self._cached("trunk", (xw,), self.trunk,
-                             lambda: self._pack_trunk(xw, kx))
+        ke = _ceil16(e3)
+        wpack, bias, kx = self.trunk_buffers(xw)
         heads = self._cached("heads", (e3,), self.rgb + self.trans,
                              lambda: self._pack_heads(e3, ke))
-        return trunk + heads + (kx, ke)
+        return (wpack, bias) + heads + (kx, ke)
 
     def kernel_buffers_bwd(self, e3):
         """Backward: (heads wpack, heads bias, Wᵀ pack, ke); the Wᵀ pack
@@ -231,10 +253,6 @@ class STFieldWeights(PackCache):
                              lambda: self._pack_heads(e3, ke))
         wT = self._cached("heads_t", (e3,), self.rgb + self.trans, build_t)
         return heads + (wT, ke)
-
-    def _pack_trunk(self, xw, kx):
-        check_trunk(self.trunk, self.skip, xw, self._bad)
-        return pack_trunk(self.trunk, self.skip, xw, kx)
 
     def _pack_heads(self, e3, ke):
         self._check_heads(e3)

@@ -8,16 +8,26 @@ step in ``draws`` (``make_draws``: one ray permutation shared by every
 image, the stratified depth uniforms, the density noise), so a test can
 feed the JAX package's draws.  The whole train split renders R =
 rand_rays // B rays per image through the coarse field kernel with the
-composite in its epilogue; the mask, scale-invariant depth and masked
-render losses (weights 10**w) backpropagate through the composite and
-field backward kernels into the trunk and the head; one Adam step on the
-per-iteration schedule.
+composite in its epilogue (or, with ``kernels.coarse_mega`` off, the field
+kernel then the composite kernel); the mask, scale-invariant depth and
+masked render losses (weights 10**w) backpropagate through the composite
+and field backward kernels into the trunk and the head; one Adam step on
+the per-iteration schedule.
+
+With ``nerf.fine_sampling`` a second field, ``nerf_fine``, renders the
+coarse samples plus ``nerf.sample_intvs_fine`` importance samples drawn
+from the coarse weights (models/render.py
+``render_rays_nerf_hierarchical``); both fields run their field kernels
+forward and backward, the composites are plain, ``loss_weight.render_fine``
+adds the fine render loss, and Adam steps both fields.  Its state lives
+under ``params/nerf_fine`` beside ``params/nerf``.
 
 Evaluation: ``validate`` renders val_sub whole frames and logs the losses
 and PSNR; ``evaluate_full`` renders every eval frame from a compact uint8
 payload, with PSNR/SSIM/LPIPS, an RGB and an opacity PNG per frame and
-quant.txt.  ``nerf.fine_sampling``, ``visualize`` and
-``generate_videos_synthesis`` are later slices of the port.
+quant.txt.  Both render the coarse field only, as the JAX package's.
+``visualize`` and ``generate_videos_synthesis`` are later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -41,7 +51,8 @@ from .base import Engine, compute_dtype
 from .losses import (masked_mse_loss, mse_loss, scale_invariant_depth_loss,
                      summarize_loss)
 from .optim import make_pretrain_optimizer, set_lrs
-from .render import ray_batch_sample, render_full_nerf, render_rays_nerf
+from .render import (ray_batch_sample, render_full_nerf, render_rays_nerf,
+                     render_rays_nerf_hierarchical)
 
 
 class PretrainEngine(Engine):
@@ -52,16 +63,18 @@ class PretrainEngine(Engine):
     # ------------------------------------------------------------- networks
 
     def build_networks(self, seed=None):
-        """The coarse field from one seeded generator."""
+        """The coarse field from one seeded generator; with
+        nerf.fine_sampling the fine field from its own (seed + 1)."""
         cfg = self.cfg
-        if cfg.nerf.get("fine_sampling"):
-            raise NotImplementedError(
-                "nerf.fine_sampling (the hierarchical coarse + fine render) "
-                "is not ported to texpose_tpu_torch yet (ROADMAP.md)")
         seed = int(cfg.get("seed", 0) if seed is None else seed)
-        log.info("building networks (coarse nerf)...")
+        fine = bool(cfg.nerf.get("fine_sampling"))
+        log.info("building networks (coarse nerf"
+                 + (" + fine nerf" if fine else "") + ")...")
         self.nerf = init_nerf(cfg, torch.Generator().manual_seed(seed)
                               ).to(self.device)
+        self.nerf_fine = init_nerf(
+            cfg, torch.Generator().manual_seed(seed + 1)).to(self.device) \
+            if fine else None
 
     def max_iter(self):
         return int(self.cfg.max_iter)
@@ -69,16 +82,29 @@ class PretrainEngine(Engine):
     def rays_per_step(self):
         return int(self.cfg.nerf.rand_rays)
 
-    def _named_params(self):
-        """(keypath under params/nerf, parameter), trunk then RGB head."""
+    def _fields(self):
+        """(name under params/, field) of every trained field."""
+        fields = [("nerf", self.nerf)]
+        if self.nerf_fine is not None:
+            fields.append(("nerf_fine", self.nerf_fine))
+        return fields
+
+    def _named_params(self, field="nerf"):
+        """(keypath under params/<field>, parameter), trunk then RGB head."""
+        nerf = dict(self._fields())[field]
         return [(f"{name}/{k.replace('.', '/')}", p)
                 for name in ("mlp_feat", "mlp_rgb")
-                for k, p in getattr(self.nerf, name).named_parameters()]
+                for k, p in getattr(nerf, name).named_parameters()]
+
+    def _all_params(self):
+        """(keypath under params/, parameter) of every trained field."""
+        return [(f"{field}/{path}", p) for field, _ in self._fields()
+                for path, p in self._named_params(field)]
 
     def setup_optimizer(self):
         cfg = self.cfg
         self.opt = make_pretrain_optimizer(
-            cfg, [p for _, p in self._named_params()], self.max_iter())
+            cfg, [p for _, p in self._all_params()], self.max_iter())
         self.it = 0
         self.draw_gen = torch.Generator(self.device)
         self.draw_gen.manual_seed(int(cfg.get("seed", 0)))
@@ -113,10 +139,11 @@ class PretrainEngine(Engine):
         if lw.get("depth") is not None:
             loss["depth"] = scale_invariant_depth_loss(out["depth"], depth_gt,
                                                        mask_obj)
-        if lw.get("render") is not None:
-            loss["render"] = (masked_mse_loss(out["rgb"], image, mask_obj)
-                              if cfg.nerf.get("mask_obj")
-                              else mse_loss(out["rgb"], image))
+        for key, rgb in (("render", "rgb"), ("render_fine", "rgb_fine")):
+            if rgb in out and lw.get(key) is not None:
+                loss[key] = (masked_mse_loss(out[rgb], image, mask_obj)
+                             if cfg.nerf.get("mask_obj")
+                             else mse_loss(out[rgb], image))
         return loss
 
     def rays_per_image(self):
@@ -127,18 +154,28 @@ class PretrainEngine(Engine):
         engine's generator: ray_idx [R] (one permutation of the pixels,
         shared by every image), depth [B,R,N,1] uniforms when sampling is
         stratified, density_noise [B,R,N] standard normals when the config
-        sets nerf.density_noise_reg."""
+        sets nerf.density_noise_reg.  With fine sampling also the fine
+        draws' uniforms fine [B,R,N_fine] (stratified) and the fine field's
+        noise density_noise_fine [B,R,N+N_fine]."""
         cfg = self.cfg
         g, dev = self.draw_gen, self.device
         B, R = len(self.train_data), self.rays_per_image()
         N = int(cfg.nerf.sample_intvs)
+        Nf = int(cfg.nerf.sample_intvs_fine) if self.nerf_fine is not None \
+            else 0
         draws = {"ray_idx": torch.randperm(cfg.H * cfg.W, generator=g,
                                            device=dev)[:R]}
         if cfg.nerf.sample_stratified:
             draws["depth"] = torch.rand((B, R, N, 1), generator=g, device=dev)
+            if Nf:
+                draws["fine"] = torch.rand((B, R, Nf), generator=g,
+                                           device=dev)
         if cfg.nerf.get("density_noise_reg"):
             draws["density_noise"] = torch.randn((B, R, N), generator=g,
                                                  device=dev)
+            if Nf:
+                draws["density_noise_fine"] = torch.randn(
+                    (B, R, N + Nf), generator=g, device=dev)
         return draws
 
     def train_step(self, draws):
@@ -153,11 +190,18 @@ class PretrainEngine(Engine):
         B = batch["image"].shape[0]
         with record_function("step/forward"):
             ray_idx = draws["ray_idx"][None].expand(B, -1)
-            out = render_rays_nerf(
-                self.nerf, cfg, self.get_pose(batch, "train"), batch["intr"],
-                ray_idx, batch["z_near"], batch["z_far"], progress,
-                compute_dtype(cfg), draws.get("depth"),
-                draws.get("density_noise"), training=True)
+            rays = (self.get_pose(batch, "train"), batch["intr"], ray_idx,
+                    batch["z_near"], batch["z_far"], progress,
+                    compute_dtype(cfg), draws.get("depth"))
+            if self.nerf_fine is not None:
+                out = render_rays_nerf_hierarchical(
+                    self.nerf, self.nerf_fine, cfg, *rays, draws.get("fine"),
+                    draws.get("density_noise"),
+                    draws.get("density_noise_fine"), training=True)
+            else:
+                out = render_rays_nerf(self.nerf, cfg, *rays,
+                                       draws.get("density_noise"),
+                                       training=True)
             total, loss = summarize_loss(
                 self.compute_loss(cfg, out, batch, ray_idx), cfg.loss_weight)
         with record_function("step/backward"):
@@ -186,8 +230,8 @@ class PretrainEngine(Engine):
         count_key, mu, nu, sched_key = ckpt.pretrain_opt_keys(
             self._has_schedule_state())
         flat, count = {}, 0
-        for path, p in self._named_params():
-            flat["params/nerf/" + path] = np_(p)
+        for path, p in self._all_params():
+            flat["params/" + path] = np_(p)
             st = self.opt.state.get(p, {})
             count = int(st["step"]) if "step" in st else count
             zero = np.zeros(tuple(p.shape), np.float32)
@@ -217,8 +261,8 @@ class PretrainEngine(Engine):
             self._has_schedule_state())
         count = int(get(count_key, ()).item())
         with torch.no_grad():
-            for path, p in self._named_params():
-                p.copy_(get("params/nerf/" + path, p.shape))
+            for path, p in self._all_params():
+                p.copy_(get("params/" + path, p.shape))
                 self.opt.state[p] = {
                     "step": torch.tensor(float(count)),
                     "exp_avg": get(mu + path, p.shape),

@@ -2,10 +2,13 @@
 
 JAX's ``lax.map`` over ray chunks becomes a Python loop; every chunk runs
 the field and the composite on ``chunk`` rays × N samples, with mid-bin
-depth samples.  ``render_rays_nerf`` (the pretrain's coarse field) and
-``render_st_core`` (the texture model's field, also the training step's
-render through models/texture_gan.py::render_patch) take stratified depth
-uniforms and the optional density noise from the caller.
+depth samples.  ``render_rays_nerf`` (the pretrain's coarse field: the mega
+forward, the two-kernel route or the plain route, by the gates of
+nn/fields.py), ``render_rays_nerf_hierarchical`` (coarse + importance-
+sampled fine field) and ``render_st_core`` (the texture model's field, also
+the training step's render through models/texture_gan.py::render_patch)
+take stratified depth uniforms and the optional density noise from the
+caller, and ``training`` (the trunk kernel runs only outside training).
 """
 
 from __future__ import annotations
@@ -16,12 +19,15 @@ import numpy as np
 import torch
 
 from ..geometry.rays import cam2world, convert_NDC, img2cam, pixel_grid, to_hom
-from ..kernels.composite import fused_composite_st
+from ..kernels.composite import fused_composite_coarse, fused_composite_st
 from ..nn.fields import (forward_coarse_render, forward_samples_nerf,
-                         forward_samples_nerf_st,
+                         forward_samples_nerf_raw, forward_samples_nerf_st,
                          forward_samples_nerf_st_raw,
-                         use_fused_coarse_render, use_fused_render)
-from ..ops.render import composite, composite_static_transient, sample_depth
+                         use_fused_coarse_mega, use_fused_coarse_render,
+                         use_fused_render)
+from ..ops.render import (composite, composite_static_transient,
+                          sample_depth, sample_depth_from_pdf,
+                          union_sorted_depths)
 
 
 def ray_batch_sample(values, ray_idx):
@@ -56,8 +62,11 @@ def render_rays_nerf(nerf, cfg, pose, intr, ray_idx, z_near, z_far,
     """Coarse-NeRF render of the selected rays → dict(rgb [B,R,3], depth
     [B,R,1], opacity [B,R,1]).  depth_rand [B,R,N,1] uniforms make the
     samples stratified, else mid-bin; density_noise [B,R,N] (standard
-    normal) is added in training on the plain route, which the gate picks
-    for a noisy training config."""
+    normal) is added in training on the plain route, which the gates pick
+    for a noisy training config.  Routes, as the JAX package's: the mega
+    forward (field + composite kernel), the two-kernel route (field kernel
+    → composite kernel, ``kernels.coarse_mega`` off or N ∤ 64), the plain
+    route."""
     center, ray, near, far = gather_rays(
         pose, intr, ray_idx, z_near, z_far, cfg.H, cfg.W,
         ndc=cfg.camera.get("ndc", False))
@@ -65,17 +74,59 @@ def render_rays_nerf(nerf, cfg, pose, intr, ray_idx, z_near, z_far,
     depth_samples = sample_depth(near, far, N, param=cfg.nerf.depth.param,
                                  rand=depth_rand)
     if use_fused_coarse_render(cfg, N, training):
-        out = forward_coarse_render(nerf, cfg, center, ray, depth_samples,
-                                    progress, compute_dtype)
+        if use_fused_coarse_mega(cfg, N, training):
+            out = forward_coarse_render(nerf, cfg, center, ray,
+                                        depth_samples, progress,
+                                        compute_dtype)
+        else:
+            rgb_raw, dens_raw = forward_samples_nerf_raw(
+                nerf, cfg, center, ray, depth_samples, progress,
+                compute_dtype)
+            out = fused_composite_coarse(rgb_raw, dens_raw, depth_samples,
+                                         ray)
         if cfg.nerf.get("setbg_opaque", False):
             out["rgb"] = out["rgb"] + 1.0 * (1.0 - out["opacity"])
         return out
     rgb_s, dens_s = forward_samples_nerf(
         nerf, cfg, center, ray, depth_samples, progress, compute_dtype,
-        density_noise if training else None)
+        density_noise if training else None, training)
     out = composite(rgb_s, dens_s, depth_samples, ray,
                     setbg_opaque=cfg.nerf.get("setbg_opaque", False))
     return dict(rgb=out["rgb"], depth=out["depth"], opacity=out["opacity"])
+
+
+def render_rays_nerf_hierarchical(nerf, nerf_fine, cfg, pose, intr, ray_idx,
+                                  z_near, z_far, progress=None,
+                                  compute_dtype=None, depth_rand=None,
+                                  fine_rand=None, density_noise=None,
+                                  density_noise_fine=None, training=False):
+    """Coarse + importance-sampled fine render (the JAX package's working
+    ``nerf.fine_sampling``) → the coarse dict plus rgb_fine, depth_fine,
+    opacity_fine.  Each field goes through ``forward_samples_nerf`` (its
+    kernel where ``use_fused_coarse`` holds) and the plain composite; the
+    fine depths are drawn from the coarse weights, detached: fine_rand
+    [B,R,N_fine] uniforms make them stratified, and density_noise [B,R,N] /
+    density_noise_fine [B,R,N+N_fine] are the two fields' training noise."""
+    center, ray, near, far = gather_rays(
+        pose, intr, ray_idx, z_near, z_far, cfg.H, cfg.W,
+        ndc=cfg.camera.get("ndc", False))
+    setbg = cfg.nerf.get("setbg_opaque", False)
+    depth_samples = sample_depth(near, far, int(cfg.nerf.sample_intvs),
+                                 param=cfg.nerf.depth.param, rand=depth_rand)
+    rgb_s, dens_s = forward_samples_nerf(
+        nerf, cfg, center, ray, depth_samples, progress, compute_dtype,
+        density_noise if training else None, training)
+    out_c = composite(rgb_s, dens_s, depth_samples, ray, setbg_opaque=setbg)
+    fine = sample_depth_from_pdf(depth_samples, out_c["prob"][..., 0].detach(),
+                                 int(cfg.nerf.sample_intvs_fine), fine_rand)
+    depth_all = union_sorted_depths(depth_samples, fine)
+    rgb_f, dens_f = forward_samples_nerf(
+        nerf_fine, cfg, center, ray, depth_all, progress, compute_dtype,
+        density_noise_fine if training else None, training)
+    out_f = composite(rgb_f, dens_f, depth_all, ray, setbg_opaque=setbg)
+    return dict(rgb=out_c["rgb"], depth=out_c["depth"],
+                opacity=out_c["opacity"], rgb_fine=out_f["rgb"],
+                depth_fine=out_f["depth"], opacity_fine=out_f["opacity"])
 
 
 def render_full_nerf(nerf, cfg, pose, intr, z_near, z_far, progress=None,
@@ -94,7 +145,7 @@ def render_full_nerf(nerf, cfg, pose, intr, z_near, z_far, progress=None,
 
 def render_st_core(nerf, cfg, center, ray, near, far, latent_trans,
                    latent_light, progress=None, compute_dtype=None,
-                   depth_rand=None, density_noise=None):
+                   depth_rand=None, density_noise=None, training=False):
     """Samples → field → dual composite.  depth_rand [B,R,N,1] uniforms
     make the samples stratified (training), else mid-bin; density_noise
     [B,R,N] is the training density noise's standard normal draw (plain
@@ -113,7 +164,7 @@ def render_st_core(nerf, cfg, center, ray, near, far, latent_trans,
                                   depth_samples, ray, min_uncert)
     rgb_s, dens_s, unc_s = forward_samples_nerf_st(
         nerf, cfg, center, ray, depth_samples, latent_trans, latent_light,
-        progress, compute_dtype, density_noise)
+        progress, compute_dtype, density_noise, training)
     out = composite_static_transient(rgb_s, dens_s, depth_samples, ray,
                                      unc_s, min_uncert)
     out["trans_density_mean"] = dens_s[..., -1].mean()

@@ -61,7 +61,7 @@ from .render import (masked_ray_indices, render_full_nerf_st,
 
 def render_patch(nerf, cfg, pose, intr, coords, z_near, z_far, latent_trans,
                  latent_light, progress, compute_dtype=None,
-                 depth_rand=None, density_noise=None):
+                 depth_rand=None, density_noise=None, training=False):
     """Patch-coordinate render: coords [B,h,w,2] in [-1,1] → the composite
     dict with [B,hw,C] leaves."""
     B, h, w, _ = coords.shape
@@ -71,7 +71,7 @@ def render_patch(nerf, cfg, pose, intr, coords, z_near, z_far, latent_trans,
                           ray.reshape(B, h * w, 3), near.reshape(B, h * w),
                           far.reshape(B, h * w), latent_trans, latent_light,
                           progress, compute_dtype, depth_rand,
-                          density_noise)
+                          density_noise, training)
 
 
 def sample_patch_images(cfg, batch, coords):
@@ -248,7 +248,7 @@ class TextureGANEngine(Engine):
         out = render_patch(self.nerf, cfg, pose, batch["intr"], coords,
                            batch["z_near"], batch["z_far"], lat_t, lat_l,
                            progress, compute_dtype(cfg), draws["depth"],
-                           draws.get("density_noise"))
+                           draws.get("density_noise"), training=True)
         rgb = out["rgb"].reshape(B, p, p, 3).permute(0, 3, 1, 2)
         uncert = out["uncert"].reshape(B, p, p, 1).permute(0, 3, 1, 2)
         sup = sample_patch_images(cfg, batch, coords)

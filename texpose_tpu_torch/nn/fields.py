@@ -1,20 +1,33 @@
 """The NeRF fields (port of texpose_tpu/nn/fields.py): the pretrain's coarse
-field and the texture stage's static/transient/light field.
+field, the density-only field and the texture stage's
+static/transient/light field.
 
 ``NerfCoarse`` holds the 8×256 trunk (``mlp_feat``) and the RGB head
-(``mlp_rgb``); the pretrain trains both.  Two routes, as in the JAX
-package: ``apply_nerf`` / ``forward_samples_nerf`` (plain PyTorch, with the
-training density noise of ``apply_trunk``) and ``forward_coarse_render``
-(the coarse field kernel with the composite in its epilogue,
-kernels/coarse_field.py; with grad enabled its autograd Function runs the
-composite and field backward kernels).  ``use_fused_coarse_render`` picks.
+(``mlp_rgb``); the pretrain trains both.  Routes, as in the JAX package:
+  * ``apply_nerf`` / ``forward_samples_nerf`` — activated outputs: through
+    the coarse field kernel (``apply_nerf_raw``: raw outputs, with grad
+    enabled through the autograd Function ``coarse_field`` whose backward
+    is the field's backward kernel; kernels/coarse_field.py) when
+    ``use_fused_coarse`` holds, else plain PyTorch with the training
+    density noise, the trunk through ``run_trunk``;
+  * ``forward_coarse_render`` — the coarse field kernel with the composite
+    in its epilogue (with grad enabled, the composite and field backward
+    kernels); ``use_fused_coarse_mega`` picks it, ``use_fused_coarse_render``
+    the two-kernel route (``forward_samples_nerf_raw`` → the composite
+    kernel, models/render.py).
+
+``run_trunk`` is JAX's: where the trunk is not trained in the call
+(evaluation) it runs the trunk kernel (kernels/trunk.py), else
+``apply_trunk`` with the noise.  ``NerfDensity`` is the trunk alone
+(``forward_samples_density``, ``composite_density``).
 
 ``NerfST`` holds the frozen 8×256 trunk (``mlp_feat``), the light-latent
 RGB head (``mlp_rgb``) and the transient head (``mlp_trans``) as
 ``Dense`` layers with weights stored [in, out], so the checkpoint bridge
 maps the JAX npz leaves onto it one to one.  Two forward routes, as in
 the JAX package:
-  * ``apply_nerf_st`` — plain PyTorch, activated outputs;
+  * ``apply_nerf_st`` — plain PyTorch heads, activated outputs, the trunk
+    through ``run_trunk``;
   * ``apply_nerf_st_raw`` — raw head outputs through the ST-field kernel
     wrapper (kernels/st_field.py), the input of the composite kernel; with
     grad enabled it goes through the autograd Function ``st_field``, whose
@@ -31,11 +44,13 @@ import torch
 from torch import nn
 
 from ..kernels.coarse_field import (ROW_TILE, CoarseFieldWeights,
+                                    coarse_field, coarse_field_fwd,
                                     coarse_render, coarse_render_fwd)
-from ..kernels.st_field import (STFieldWeights, make_xext, st_field,
-                                st_field_fwd)
+from ..kernels.st_field import (STFieldWeights, TrunkWeights, make_xext,
+                                st_field, st_field_fwd)
+from ..kernels.trunk import trunk_fwd
 from ..ops.posenc import c2f_band_weights, posenc_with_identity
-from ..ops.render import _dists
+from ..ops.render import _dists, composite
 from .init import dense_init
 from .mlp import DENSITY_ACTIVATIONS, Dense, dense, relu, softplus
 
@@ -153,6 +168,29 @@ def init_nerf(cfg, generator=None):
     return NerfCoarse(cfg, generator)
 
 
+class NerfDensity(nn.Module):
+    """The density-only field: the trunk alone (the JAX package's
+    ``init_nerf_density``, a geometry-only utility variant)."""
+
+    def __init__(self, cfg, generator):
+        super().__init__()
+        self.mlp_feat = _trunk(cfg, generator)
+        self.skip = tuple(cfg.arch.skip)
+        self._kernel_weights = None
+
+    def kernel_weights(self):
+        """The trunk as the trunk kernel wrapper takes it."""
+        if self._kernel_weights is None:
+            self._kernel_weights = TrunkWeights(self.mlp_feat, self.skip)
+        return self._kernel_weights
+
+
+def init_nerf_density(cfg, generator=None):
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    return NerfDensity(cfg, generator)
+
+
 class NerfST(nn.Module):
     """Frozen trunk + light-conditioned RGB head + transient head.  Weights
     are drawn from ``generator`` (a seeded ``torch.Generator``)."""
@@ -211,6 +249,34 @@ def apply_trunk(layers, cfg, points_enc, compute_dtype=None,
     return feat, density
 
 
+def run_trunk(nerf, cfg, points, progress=None, compute_dtype=None,
+              density_noise=None, training=False):
+    """posenc + trunk of ``nerf`` on raw points [...,3] → (feat [...,F],
+    density [...]) with the activation (and, in training, the noise)
+    applied.  Where the trunk is not trained in this call (not
+    ``training``), with posenc and ``kernels.fused_trunk`` (JAX's
+    ``_use_fused_trunk`` without its backend clause: the wrapper picks the
+    kernel or its twin by device), the trunk kernel runs (kernels/trunk.py;
+    its features come rounded to compute_dtype, as every consumer rounds
+    them); no gradient reaches the trunk there.  Otherwise ``apply_trunk``
+    with the noise."""
+    kcfg = cfg.get("kernels") or {}
+    if (not training and cfg.arch.get("posenc")
+            and kcfg.get("fused_trunk", True)):
+        L3 = cfg.arch.posenc.L_3D
+        shape = points.shape[:-1]
+        pts = points.reshape(-1, 3)
+        xext = make_xext(pts, L3, _c2f_band_weights(cfg, L3, progress,
+                                                    device=pts.device))
+        feat, dens = trunk_fwd(xext, nerf.kernel_weights(), compute_dtype)
+        density = DENSITY_ACTIVATIONS[cfg.arch.density_activ](dens)
+        return (feat.float().reshape(*shape, feat.shape[-1]),
+                density.reshape(shape))
+    return apply_trunk(nerf.mlp_feat, cfg,
+                       _encode_points(cfg, points, progress), compute_dtype,
+                       density_noise)
+
+
 def _run_head(layers, x, compute_dtype):
     n = len(layers)
     for li, layer in enumerate(layers):
@@ -220,15 +286,39 @@ def _run_head(layers, x, compute_dtype):
     return x
 
 
+def use_fused_coarse(cfg, training=False):
+    """Whether the coarse field takes its kernels (``apply_nerf_raw``): JAX's
+    ``_use_fused_coarse`` — ``kernels.fused_coarse``, posenc, no density
+    noise in training.  Its row-tile clause is TPU tiling and is dropped:
+    the CUDA kernel masks a ragged last tile.  The compute dtype is not part
+    of the gate: on the card the kernel computes in bf16 only and its
+    wrapper raises for anything else."""
+    kcfg = cfg.get("kernels") or {}
+    if not kcfg.get("fused_coarse", True) or not cfg.arch.get("posenc"):
+        return False
+    return not (training and cfg.nerf.get("density_noise_reg"))
+
+
 def apply_nerf(nerf, cfg, points, ray_unit=None, progress=None,
-               compute_dtype=None, density_noise=None):
-    """Plain route: points [...,3] (+ ray_unit [...,3] with view_dep) →
-    (rgb [...,3], density [...]); the trunk trains.  The view encoding takes
-    no c2f window (as the JAX package's coarse field)."""
-    feat, density = apply_trunk(nerf.mlp_feat, cfg,
-                                _encode_points(cfg, points, progress),
-                                compute_dtype, density_noise)
+               compute_dtype=None, density_noise=None, training=False):
+    """points [...,3] (+ ray_unit with view_dep: per point [...,3], or per
+    ray with one axis fewer) → (rgb [...,3], density [...]).  With
+    ``use_fused_coarse`` the field kernel (its twin on the CPU) computes the
+    raw outputs and the activations follow here; otherwise the plain route.
+    The view encoding takes no c2f window (as the JAX package's coarse
+    field)."""
+    shape = points.shape[:-1]
+    if use_fused_coarse(cfg, training):
+        rgb_raw, dens_raw = apply_nerf_raw(nerf, cfg, points, ray_unit,
+                                           progress, compute_dtype)
+        density = DENSITY_ACTIVATIONS[cfg.arch.density_activ](dens_raw[:, 0])
+        return (torch.sigmoid(rgb_raw).reshape(*shape, 3),
+                density.reshape(shape))
+    feat, density = run_trunk(nerf, cfg, points, progress, compute_dtype,
+                              density_noise, training)
     if cfg.nerf.view_dep:
+        if ray_unit.dim() == points.dim() - 1:
+            ray_unit = ray_unit[..., None, :].expand(points.shape)
         feat = torch.cat([feat, _encode_view(cfg, ray_unit, progress),
                           points], dim=-1)
     else:
@@ -237,25 +327,27 @@ def apply_nerf(nerf, cfg, points, ray_unit=None, progress=None,
         density
 
 
+def _ray_unit(cfg, ray):
+    if not cfg.nerf.view_dep:
+        return None
+    return ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+
+
 def forward_samples_nerf(nerf, cfg, center, ray, depth_samples, progress=None,
-                         compute_dtype=None, density_noise=None):
+                         compute_dtype=None, density_noise=None,
+                         training=False):
     """center/ray [B,R,3], depth_samples [B,R,N,1] → rgb [B,R,N,3],
     density [B,R,N]."""
     pts = center[..., None, :] + ray[..., None, :] * depth_samples
-    ray_unit = None
-    if cfg.nerf.view_dep:
-        ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
-        ray_unit = ray_unit[..., None, :].expand(pts.shape)
-    return apply_nerf(nerf, cfg, pts, ray_unit, progress, compute_dtype,
-                      density_noise)
+    return apply_nerf(nerf, cfg, pts, _ray_unit(cfg, ray), progress,
+                      compute_dtype, density_noise, training)
 
 
 def coarse_field_inputs(cfg, points, ray_unit=None, progress=None):
-    """The coarse field kernel's row inputs for points [B,R,N,3]: (xext
+    """The coarse field kernel's row inputs for points [...,3]: (xext
     [M,3+6L], enc⊕pts [M,E+3] — pts alone without view_dep) in float32.
-    ray_unit is per ray [B,R,3]; its encoding (no c2f) is broadcast over
-    the samples."""
-    B, R, N, _ = points.shape
+    ray_unit may be per ray (one axis fewer than points); its encoding (no
+    c2f) is then broadcast over the samples."""
     L3 = cfg.arch.posenc.L_3D
     pts = points.reshape(-1, 3)
     xext = make_xext(pts, L3, _c2f_band_weights(cfg, L3, progress,
@@ -263,8 +355,30 @@ def coarse_field_inputs(cfg, points, ray_unit=None, progress=None):
     if not cfg.nerf.view_dep:
         return xext, pts.float()
     enc = _encode_view(cfg, ray_unit, progress)
-    enc = enc[..., None, :].expand(B, R, N, enc.shape[-1])
+    if ray_unit.dim() == points.dim() - 1:
+        enc = enc[..., None, :].expand(*points.shape[:-1], enc.shape[-1])
     return xext, torch.cat([enc.reshape(pts.shape[0], -1), pts], dim=1)
+
+
+def apply_nerf_raw(nerf, cfg, points, ray_unit=None, progress=None,
+                   compute_dtype=None):
+    """Kernel route of the coarse field: raw outputs (rgb_raw [M,3],
+    dens_raw [M,1]), M = the points' rows, no activations — the composite
+    kernel's input.  With grad enabled the trunk and the RGB head
+    differentiate through ``coarse_field``."""
+    xext, ep = coarse_field_inputs(cfg, points, ray_unit, progress)
+    op = coarse_field if torch.is_grad_enabled() else coarse_field_fwd
+    return op(xext, ep, nerf.kernel_weights(),
+              compute_dtype or torch.bfloat16)
+
+
+def forward_samples_nerf_raw(nerf, cfg, center, ray, depth_samples,
+                             progress=None, compute_dtype=None):
+    """The raw-output counterpart of ``forward_samples_nerf`` for the
+    two-kernel route: (rgb_raw [M,3], dens_raw [M,1])."""
+    pts = center[..., None, :] + ray[..., None, :] * depth_samples
+    return apply_nerf_raw(nerf, cfg, pts, _ray_unit(cfg, ray), progress,
+                          compute_dtype)
 
 
 def forward_coarse_render(nerf, cfg, center, ray, depth_samples,
@@ -274,9 +388,7 @@ def forward_coarse_render(nerf, cfg, center, ray, depth_samples,
     differentiate through ``coarse_render``; depths and rays take none."""
     pts = center[..., None, :] + ray[..., None, :] * depth_samples
     B, R, N, _ = pts.shape
-    ray_unit = (ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
-                if cfg.nerf.view_dep else None)
-    xext, ep = coarse_field_inputs(cfg, pts, ray_unit, progress)
+    xext, ep = coarse_field_inputs(cfg, pts, _ray_unit(cfg, ray), progress)
     depth = depth_samples.reshape(B * R, N).detach()
     dist = _dists(depth_samples, ray).reshape(B * R, N).detach()
     op = coarse_render if torch.is_grad_enabled() else coarse_render_fwd
@@ -290,41 +402,65 @@ def forward_coarse_render(nerf, cfg, center, ray, depth_samples,
 
 
 def use_fused_coarse_render(cfg, N, training=False):
-    """Whether the coarse render takes the kernel route: the JAX gates'
-    contract (``kernels.fused_coarse`` and ``kernels.fused_composite``,
-    posenc, softplus density, no density noise in training).  The JAX
-    package's other fused route — the two-kernel field → composite path,
-    taken with ``kernels.coarse_mega`` off or rays that do not fit whole
-    into the kernel's row tile — needs kernels not ported yet, so those
-    configurations raise instead of running plain.  The compute dtype is
-    not part of the gate: on the card the kernel computes in bf16 only and
-    its wrapper raises for anything else."""
+    """Whether the coarse render takes a kernel route (JAX's gate of the
+    same name): ``use_fused_coarse`` plus ``kernels.fused_composite`` and a
+    softplus density (the composite kernels' activation).  Then
+    ``use_fused_coarse_mega`` picks between the mega forward and the
+    two-kernel route (field kernel → composite kernel).  The JAX gate's
+    ray-tile clause is TPU tiling and is dropped."""
     kcfg = cfg.get("kernels") or {}
-    if not (kcfg.get("fused_coarse", True)
-            and kcfg.get("fused_composite", True)):
+    if not kcfg.get("fused_composite", True):
         return False
-    if not cfg.arch.get("posenc") or cfg.arch.density_activ != "softplus":
+    if cfg.arch.density_activ != "softplus":
         return False
-    if training and cfg.nerf.get("density_noise_reg"):
+    return use_fused_coarse(cfg, training)
+
+
+def use_fused_coarse_mega(cfg, N, training=False):
+    """Whether the coarse render takes the mega forward (field + composite
+    in one kernel): the two-kernel contract, ``kernels.coarse_mega`` not
+    off (null means on, as the JAX package's default), and rays that fit
+    whole into the kernel's row tile (N | 64)."""
+    knob = (cfg.get("kernels") or {}).get("coarse_mega")
+    if knob is not None and not knob:
         return False
-    if kcfg.get("coarse_mega") is False or ROW_TILE % int(N):
-        raise NotImplementedError(
-            f"the two-kernel coarse route (kernels.coarse_mega="
-            f"{kcfg.get('coarse_mega')}, {N} samples per ray, row tile "
-            f"{ROW_TILE}) needs the coarse field and composite forward "
-            "kernels, not ported yet (ROADMAP.md, Queue 2 rows 7a/9a)")
-    return True
+    return ROW_TILE % int(N) == 0 and use_fused_coarse_render(cfg, N,
+                                                              training)
+
+
+# ------------------------------------------------------- density-only field
+
+def forward_samples_density(nerf, cfg, center, ray, depth_samples,
+                            progress=None, compute_dtype=None,
+                            density_noise=None, training=False):
+    """center/ray [B,R,3], depth_samples [B,R,N,1] → density [B,R,N]
+    through ``run_trunk``."""
+    pts = center[..., None, :] + ray[..., None, :] * depth_samples
+    _, density = run_trunk(nerf, cfg, pts, progress, compute_dtype,
+                           density_noise, training)
+    return density
+
+
+def composite_density(density_samples, depth_samples, ray):
+    """Depth/opacity-only compositing (no RGB head) → dict(depth, opacity,
+    prob)."""
+    out = composite(torch.zeros(density_samples.shape + (3,),
+                                device=density_samples.device),
+                    density_samples, depth_samples, ray)
+    return dict(depth=out["depth"], opacity=out["opacity"],
+                prob=out["prob"])
 
 
 def apply_nerf_st(nerf, cfg, points, ray_unit, latent_trans, latent_light,
-                  progress=None, compute_dtype=None, density_noise=None):
+                  progress=None, compute_dtype=None, density_noise=None,
+                  training=False):
     """Plain route: points [B,R,N,3] → (rgb [B,R,N,3,2], density [B,R,N,2],
-    uncert [B,R,N,1]).  The trunk's outputs are detached (frozen
-    geometry), as the JAX package's stop_gradient."""
+    uncert [B,R,N,1]).  The trunk runs through ``run_trunk`` (its kernel
+    outside training); its outputs are detached (frozen geometry), as the
+    JAX package's stop_gradient."""
     B, R, N, _ = points.shape
-    feat, density = apply_trunk(nerf.mlp_feat, cfg,
-                                _encode_points(cfg, points, progress),
-                                compute_dtype, density_noise)
+    feat, density = run_trunk(nerf, cfg, points, progress, compute_dtype,
+                              density_noise, training)
     feat, density = feat.detach(), density.detach()
     if cfg.nerf.view_dep:
         ray_enc = _encode_view(cfg, ray_unit, progress, c2f=True)
@@ -375,15 +511,15 @@ def apply_nerf_st_raw(nerf, cfg, points, ray_unit, latent_trans,
 
 def forward_samples_nerf_st(nerf, cfg, center, ray, depth_samples,
                             latent_trans, latent_light, progress=None,
-                            compute_dtype=None, density_noise=None):
+                            compute_dtype=None, density_noise=None,
+                            training=False):
     pts = center[..., None, :] + ray[..., None, :] * depth_samples
-    ray_unit = None
-    if cfg.nerf.view_dep:
-        ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+    ray_unit = _ray_unit(cfg, ray)
+    if ray_unit is not None:
         ray_unit = ray_unit[..., None, :].expand(pts.shape)
     return apply_nerf_st(nerf, cfg, pts, ray_unit, latent_trans,
                          latent_light, progress, compute_dtype,
-                         density_noise)
+                         density_noise, training)
 
 
 def forward_samples_nerf_st_raw(nerf, cfg, center, ray, depth_samples,
@@ -402,7 +538,8 @@ def use_fused_render(cfg, nerf):
     density noise, the ``kernels.fused_st`` / ``kernels.fused_composite``
     switches).  The compute dtype is not part of the gate: on the card the
     field kernel computes in bf16 only and its wrapper raises for anything
-    else."""
+    else.  Where the JAX package would take its ST mega kernel instead
+    (``kernels.st_mega`` on), this raises: that kernel is not ported."""
     kcfg = cfg.get("kernels") or {}
     if not (kcfg.get("fused_st", True) and kcfg.get("fused_composite", True)):
         return False
@@ -413,4 +550,12 @@ def use_fused_render(cfg, nerf):
     if not (cfg.arch.get("posenc") and cfg.arch.posenc.get("L_view")
             and cfg.nerf.view_dep):
         return False
-    return len(nerf.mlp_rgb) >= 2 and len(nerf.mlp_trans) >= 2
+    if len(nerf.mlp_rgb) < 2 or len(nerf.mlp_trans) < 2:
+        return False
+    if kcfg.get("st_mega"):
+        raise NotImplementedError(
+            "kernels.st_mega: the ST field + composite mega kernel "
+            "(texpose_tpu/kernels/fused_st_render.py) is not ported to "
+            "texpose_tpu_torch yet (ROADMAP.md, Queue 2 row 6); leave "
+            "kernels.st_mega off for the two-kernel route")
+    return True

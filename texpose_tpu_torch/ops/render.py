@@ -1,5 +1,6 @@
-"""Depth sampling, the vanilla NeRF composite and the dual-density
-composite (port of texpose_tpu/ops/render.py).
+"""Depth sampling (stratified, and importance sampling from coarse
+weights), the vanilla NeRF composite and the dual-density composite (port
+of texpose_tpu/ops/render.py).
 
 Transmittances are exp(−exclusive cumsum), in float32 whatever the field's
 compute dtype.
@@ -24,6 +25,39 @@ def sample_depth(depth_min, depth_max, num_samples, param="metric",
     if param == "inverse":
         depth = 1.0 / (depth + 1e-8)
     return depth
+
+
+def sample_depth_from_pdf(depth_samples, weights, n_fine, rand=None,
+                          eps=1e-5):
+    """Hierarchical (importance) sampling: inverse-CDF draws from the
+    coarse compositing weights.  depth_samples [B,R,N,1] (sorted), weights
+    [B,R,N] → [B,R,n_fine,1].  rand [B,R,n_fine] uniforms make the draws
+    stratified (training; drawn by the caller), mid-bin without."""
+    d = depth_samples[..., 0]                               # [B,R,N]
+    mids = 0.5 * (d[..., 1:] + d[..., :-1])                 # [B,R,N-1]
+    w = weights[..., 1:-1] + eps                            # [B,R,N-2]
+    pdf = w / w.sum(dim=-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[..., :1]),
+                     torch.cumsum(pdf, dim=-1)], dim=-1)    # [B,R,N-1]
+    grid = torch.arange(n_fine, dtype=d.dtype, device=d.device)
+    u = (grid + (0.5 if rand is None else rand)) / n_fine
+    u = u.expand(*d.shape[:-1], n_fine).contiguous()
+    # the last bin edge ≤ u, as the JAX package's (u ≥ cdf).sum() − 1
+    below = torch.searchsorted(cdf.contiguous(), u, right=True) - 1
+    below = torch.clamp(below, 0, cdf.shape[-1] - 2)
+    cdf_lo = torch.gather(cdf, -1, below)
+    cdf_hi = torch.gather(cdf, -1, below + 1)
+    mid_lo = torch.gather(mids, -1, below)
+    mid_hi = torch.gather(mids, -1, torch.clamp(below + 1, 0,
+                                                mids.shape[-1] - 1))
+    t = (u - cdf_lo) / torch.clamp_min(cdf_hi - cdf_lo, eps)
+    return (mid_lo + t * (mid_hi - mid_lo))[..., None]
+
+
+def union_sorted_depths(coarse, fine):
+    """Coarse and fine depth samples sorted together along the sample axis:
+    [B,R,N,1] + [B,R,Nf,1] → [B,R,N+Nf,1]."""
+    return torch.sort(torch.cat([coarse, fine], dim=-2), dim=-2).values
 
 
 def _dists(depth_samples, ray):

@@ -7,6 +7,9 @@ package's ``train.py``:
     python -m texpose_tpu_torch.train --model=nerf_adapt_st_gan \\
         --yaml=configs/nerf_lm_adapt_gan.yaml --group=Duck --name=run0 \\
         --resume_pretrain --freq.vis=null
+    python -m texpose_tpu_torch.train --yaml=configs/nerf_lm_pretrain.yaml \\
+        --nerf.fine_sampling=true --nerf.sample_intvs_fine=128 \\
+        --loss_weight.render_fine=0 --freq.vis=null   (hierarchical)
 
 Bootstraps: options → engine → load_dataset (train split uploaded once) →
 build_networks → setup_optimizer → init_weights / resume_pretrain /
@@ -14,8 +17,7 @@ resume_real → resume → train.  Checkpoints are the JAX package's npz
 files, both ways.  ``--device=`` picks the device (default: cuda; with no
 card visible the run raises unless ``--device=cpu`` asks for the CPU).
 Not ported yet, and refused before anything is built: ``visualize`` (a run
-whose freq.vis would fire within max_iter) here, and the pretrain's
-``nerf.fine_sampling`` by its engine's ``build_networks``.
+whose freq.vis would fire within max_iter).
 """
 
 import sys

@@ -33,12 +33,15 @@ A pretrain run's state (models/pretrain.py maps its field and torch Adam
 onto it; ``pretrain_opt_keys``):
 
   params/nerf/{mlp_feat,mlp_rgb}/<i>/{w,b}   the coarse field
-  opt_state/0/{count,mu/nerf/...,nu/nerf/...} optax adam's ScaleByAdamState
+  params/nerf_fine/...               the fine field (nerf.fine_sampling)
+  opt_state/0/{count,mu/<field>/...,nu/<field>/...}  optax adam's
+                                     ScaleByAdamState over both fields
   opt_state/1/count                  the schedule's count (only with a
                                      schedule: optim.sched.gamma or lr_end)
   key, it, step
 Its trunk leaves are what ``--resume_pretrain`` reads from the group's
-pretrain_model.ckpt.
+pretrain_model.ckpt; evaluation and ``--resume_pretrain`` read
+``params/nerf`` only and ignore ``nerf_fine``.
 """
 
 from __future__ import annotations
@@ -108,9 +111,9 @@ def adam_keys(lr_latent):
 
 def pretrain_opt_keys(has_schedule):
     """The optax keypaths of the pretrain's Adam state → (count key, mu
-    prefix, nu prefix, schedule count key or None)."""
-    return ("opt_state/0/count", "opt_state/0/mu/nerf/",
-            "opt_state/0/nu/nerf/",
+    prefix, nu prefix, schedule count key or None); a field's moments lie
+    under <prefix><field>/..."""
+    return ("opt_state/0/count", "opt_state/0/mu/", "opt_state/0/nu/",
             "opt_state/1/count" if has_schedule else None)
 
 

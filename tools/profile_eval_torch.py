@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 tools/profile_eval_torch.py [--frames 12] [--trace out.json]
     python3 tools/profile_eval_torch.py --train [--steps 30] [--trace ...]
     python3 tools/profile_eval_torch.py --pretrain [--steps 30] [--trace ...]
+    python3 tools/profile_eval_torch.py --pretrain --fine [--steps 30]
 
 Builds the same 480x640 fixture and seeded full-width checkpoint as
 chip_smoke.py (``fixture_argv``), runs the evaluation CLI once cold, then
@@ -48,7 +49,10 @@ train images at 128x128, the full width of configs/nerf_lm_pretrain.yaml,
 2048 rays x 64 samples per step) and prints the same lines with the prefix
 ``pretrain_`` (its stages are ``step/forward``, ``step/backward`` and
 ``step/update`` of models/pretrain.py; every pack — trunk, head and the
-backward's transposed one — rebuilds after each update).
+backward's transposed one — rebuilds after each update).  With --fine, the
+hierarchical pretrain (chip_smoke.py's hierarchical phase: a coarse and a
+fine field, 64 + 128 samples per ray), prefix ``hierarchical_``, both
+fields' packs in the repack line.
 
 The profiler's own cost lengthens the profiled wall, so the idle share
 there is an upper bound on the unprofiled one.  --trace writes the
@@ -260,16 +264,18 @@ def profile_train(eng, steps, trace, key="train"):
 
     w = eng.nerf.kernel_weights()
     xw = w.trunk[0].w.shape[0]
-    if key == "pretrain":
+    if key in ("pretrain", "hierarchical"):
         e3 = w.rgb[0].w.shape[0] - w.feat_dim
+        ws = [f.kernel_weights() for _, f in eng._fields()]
 
         def repack():
-            with torch.no_grad():
-                for layer in w.trunk + w.rgb:   # bump every version
-                    layer.b.add_(0.0)
-            w.kernel_buffers(xw, e3)
-            w.kernel_buffer_bwd(xw, e3)
-        what = "trunk + head + transposed repack"
+            for w in ws:
+                with torch.no_grad():
+                    for layer in w.trunk + w.rgb:   # bump every version
+                        layer.b.add_(0.0)
+                w.kernel_buffers(xw, e3)
+                w.kernel_buffer_bwd(xw, e3)
+        what = f"trunk + head + transposed repack ({len(ws)} fields)"
     else:
         e3 = w.rgb[0].w.shape[0] - w.feat_dim \
             - int(eng.cfg.nerf.N_latent_light)
@@ -292,13 +298,21 @@ def main_train(args):
     dev = torch.device("cuda", 0)
     tmp = tempfile.mkdtemp(prefix="texpose_profile_")
     try:
-        make_argv = pretrain_argv if args.pretrain else train_argv
-        argv, _ = make_argv(HERE, tmp, dev, 5)
+        key = "train"
+        if args.pretrain and args.fine:
+            argv, _ = pretrain_argv(HERE, tmp, dev, 5, name="hier", extra=(
+                "--nerf.fine_sampling=true", "--nerf.sample_intvs_fine=128",
+                "--loss_weight.render_fine=0"))
+            key = "hierarchical"
+        elif args.pretrain:
+            argv, _ = pretrain_argv(HERE, tmp, dev, 5)
+            key = "pretrain"
+        else:
+            argv, _ = train_argv(HERE, tmp, dev, 5)
         eng = train.main(argv)
         torch.cuda.synchronize()
         eng.cfg.max_iter = 100000
-        profile_train(eng, args.steps, args.trace,
-                      "pretrain" if args.pretrain else "train")
+        profile_train(eng, args.steps, args.trace, key)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -310,6 +324,8 @@ def main():
                     help="profile warm texture-GAN train steps instead")
     ap.add_argument("--pretrain", action="store_true",
                     help="profile warm geometry-pretrain steps instead")
+    ap.add_argument("--fine", action="store_true",
+                    help="with --pretrain: the hierarchical pretrain")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace", default=None,
                     help="write the profiled run as a Chrome trace here")

@@ -6,9 +6,9 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero and no result line is printed:
-  1. build: the four kernel sources compiled from csrc/ by nvcc (sm_90a),
+  1. build: the five kernel sources compiled from csrc/ by nvcc (sm_90a),
      in parallel;
-  2. kernels: each of the ten kernels against its plain-PyTorch twin on
+  2. kernels: each of the twelve kernels against its plain-PyTorch twin on
      the card at the main paths' shapes — ST field forward on one
      2048-ray × 64-sample chunk (131,072 rows, full width, bf16), its
      backward on the train step's 8 images × 16,384 rows, the dual
@@ -68,7 +68,19 @@ Phases; any failure exits non-zero and no result line is printed:
   8. two-kernel: the pretrain CLI with --kernels.coarse_mega=false for
      TWO_KERNEL_STEPS steps (field forward → composite forward, composite
      backward → field backward, every counter > 0) and its route check
-     against the mega route.
+     against the mega route;
+  9. st_mega: the texture model's render kernels (rows 6f/6b).  In phase 2
+     each is held against its twin at full width — the forward's
+     evaluation launch on one 2048-ray × 64-sample chunk, its training
+     launch and the fused backward on the train step's 8 images × 16,384
+     rows (the backward also against the hybrid backward).  Then the train
+     CLI with --kernels.st_mega=true and TEXPOSE_MEGA_FULLBWD=1 for
+     MEGA_STEPS steps (the fused backward exactly once per step, nothing of
+     the two-kernel route), HYBRID_STEPS steps of the default hybrid
+     backward (each of its three kernels once per step), route checks of
+     the fused vs the hybrid backward and of the mega vs the two-kernel
+     route, warm steps/s of all three; and the eval CLI with the mega route
+     on 2 frames of that model, frame 0 against the two-kernel route.
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers, and last {"ok": true, "device": {...}}.
 """
@@ -138,6 +150,8 @@ PRETRAIN_STEPS = 30
 ENV_STEPS = 10
 HIER_STEPS = 20
 TWO_KERNEL_STEPS = 10
+MEGA_STEPS = 10
+HYBRID_STEPS = 3
 N_FINE = 128               # NeRF's N_f (Mildenhall et al. 2020)
 # the least time the card could take (H100 SXM data sheet): bf16
 # tensor-core and f32 peak rates, device-memory rate
@@ -176,11 +190,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, ops, peak):
+def bound(n_bytes, ops, peak, f32_ops=0):
     """The least time the card could take, (ms, what bounds it): the larger
-    of moving n_bytes at the memory rate and doing ops at ``peak``."""
+    of moving n_bytes at the memory rate and doing ops at ``peak`` (plus
+    f32_ops at the f32 rate: a fused kernel's composite)."""
     by_bytes = n_bytes / PEAK_BYTES * 1e3
-    by_ops = ops / peak * 1e3
+    by_ops = (ops / peak + f32_ops / PEAK_F32) * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else \
         (by_bytes, "bytes")
 
@@ -209,31 +224,22 @@ def load_cfg(here):
     return process_options(cfg)
 
 
-def kernel_phase(cfg, dev):
-    """Each kernel against its twin on one eval chunk; returns the
-    measured numbers per kernel."""
+def eval_chunk(cfg, dev, seed):
+    """One eval chunk of the texture field at full width: (generator, the
+    seeded field's kernel weights, R, N, depth [1,R,N,1], ray [1,R,3],
+    xext, enc⊕pts, light [1,48], trans [1,16]).  R = 2048 object rays: a
+    camera 4 units from the origin (the fixture's 400 mm at depth scale
+    10), pixels of the frame's central 160x160 window, bounds around a
+    0.6-unit sphere; N = 64 mid-bin samples."""
     import torch
-    from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
-                                                     composite_st_bwd_plain,
-                                                     composite_st_fwd,
-                                                     composite_st_plain)
-    from texpose_tpu_torch.kernels.st_field import (st_field_bwd,
-                                                    st_field_bwd_plain,
-                                                    st_field_fwd,
-                                                    st_field_plain)
-    from texpose_tpu_torch.kernels.trunk import trunk_forward_plain, trunk_fwd
     from texpose_tpu_torch.models.render import gather_rays
     from texpose_tpu_torch.nn.fields import init_nerf_st, st_field_inputs
-    from texpose_tpu_torch.ops.render import _dists, sample_depth
+    from texpose_tpu_torch.ops.render import sample_depth
 
-    g = torch.Generator().manual_seed(1)
+    g = torch.Generator().manual_seed(seed)
     nerf = init_nerf_st(cfg, torch.Generator().manual_seed(0)).to(dev)
-    weights = nerf.kernel_weights()
     R, N = int(cfg.nerf.rand_rays), int(cfg.nerf.sample_intvs)
     H, W = cfg.H, cfg.W
-    # one chunk of object rays: a camera 4 units from the origin (the
-    # fixture's 400 mm at depth scale 10), 2048 pixels of the frame's
-    # central 160x160 window, bounds around a 0.6-unit sphere
     pose = torch.tensor([[[1., 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 4]]])
     intr = torch.tensor([[[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]]])
     ys = torch.randint(160, 320, (R,), generator=g)
@@ -249,6 +255,27 @@ def kernel_phase(cfg, dev):
     xext, encpts = st_field_inputs(cfg, pts, ray_unit, progress=1.0)
     light = torch.randn(1, int(cfg.nerf.N_latent_light), generator=g).to(dev)
     trans = torch.randn(1, int(cfg.nerf.N_latent_trans), generator=g).to(dev)
+    return (g, nerf.kernel_weights(), R, N, depth, ray, xext, encpts, light,
+            trans)
+
+
+def kernel_phase(cfg, dev):
+    """Each kernel against its twin on one eval chunk; returns the
+    measured numbers per kernel."""
+    import torch
+    from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
+                                                     composite_st_bwd_plain,
+                                                     composite_st_fwd,
+                                                     composite_st_plain)
+    from texpose_tpu_torch.kernels.st_field import (st_field_bwd,
+                                                    st_field_bwd_plain,
+                                                    st_field_fwd,
+                                                    st_field_plain)
+    from texpose_tpu_torch.kernels.trunk import trunk_forward_plain, trunk_fwd
+    from texpose_tpu_torch.ops.render import _dists
+
+    g, weights, R, N, depth, ray, xext, encpts, light, trans = eval_chunk(
+        cfg, dev, 1)
     out = {}
     with torch.inference_mode():
         args = (xext, encpts, light, trans, weights, R * N, torch.bfloat16)
@@ -424,6 +451,161 @@ def st_bwd_macs(weights, e3):
         total += first + sum(rest)                 # dW
         total += sum(rest)                         # dX
     return total
+
+
+def mega_bwd_macs(weights, e3):
+    """Multiply-adds per row of the render backward (row 6b): the heads'
+    backward (``st_bwd_macs``) plus both output layers' forward, which the
+    composite's VJP needs (the kernel's second recompute of the transient
+    head's hidden layers is its own cost, not the function's)."""
+    return (st_bwd_macs(weights, e3) + weights.rgb[-1].w.numel()
+            + weights.trans[-1].w.numel())
+
+
+def st_mega_kernel_phase(cfg, dev):
+    """The render kernels against their twins at full width (rows 6f/6b):
+    the forward's evaluation launch on one eval chunk (one image, 2048
+    rays × 64 samples = 131,072 rows), its training launch and the fused
+    backward on the train step's 8 images × 16,384 rows (the chunk's rays
+    repeated); returns the measured numbers per kernel."""
+    import torch
+    from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
+                                                     composite_st_plain)
+    from texpose_tpu_torch.kernels.st_field import st_field_bwd
+    from texpose_tpu_torch.kernels.st_render import (st_render_bwd,
+                                                     st_render_bwd_plain,
+                                                     st_render_fwd,
+                                                     st_render_plain)
+    from texpose_tpu_torch.ops.render import _dists
+
+    g, weights, R, N, depth, ray, xext, encpts, light, trans = eval_chunk(
+        cfg, dev, 3)
+    mu = float(cfg.nerf.min_uncert)
+    M = R * N
+    e3 = encpts.shape[1]
+    params = [t for layer in weights.trunk for t in (layer.w, layer.b)] \
+        + weights.head_params()
+    fwd_ops = 2 * weights_macs(weights, e3)
+    out = {}
+    with torch.inference_mode():
+        d = depth.reshape(R, N)
+        dist = _dists(depth, ray).reshape(R, N)
+        eargs = (xext, encpts, light, trans, dist, d, weights, M,
+                 torch.bfloat16, mu)
+        got = st_render_fwd(*eargs)
+        ref = st_render_plain(*eargs)
+        torch.cuda.synchronize()
+        e_rel = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+        e_abs = float((got - ref).abs().max())
+        ms_eval = time_ms(lambda: st_render_fwd(*eargs), reps=20)
+        plain_eval = time_ms(lambda: st_render_plain(*eargs))
+        b_eval = bound(nbytes(encpts, light, trans, dist, d, got, *params),
+                       fwd_ops * M, PEAK_BF16, COMPOSITE_ST_FWD_OPS * M)
+
+        # the training launch on the train step's layout
+        B = int(cfg.batch_size)
+        rpi = int(cfg.patch_size) ** 2 * N
+        MT = B * rpi
+        reps = -(-MT // M)
+        xt, et = xext.repeat(reps, 1)[:MT], encpts.repeat(reps, 1)[:MT]
+        dt = dist.repeat(reps, 1)[:MT // N]
+        ddt = d.repeat(reps, 1)[:MT // N]
+        lt = torch.randn(B, light.shape[1], generator=g).to(dev)
+        tt = torch.randn(B, trans.shape[1], generator=g).to(dev)
+        targs = (xt, et, lt, tt, dt, ddt, weights, rpi, torch.bfloat16, mu)
+        kgot, rgb, dens, tr, feat = st_render_fwd(*targs, want_res=True)
+        kref, rgb_ref, dens_ref, tr_ref, feat_ref = st_render_plain(
+            *targs, want_res=True)
+        epi = composite_st_plain(rgb, tr, dens, ddt, dt, mu)
+        same = torch.equal(st_render_fwd(*targs), kgot)
+        torch.cuda.synchronize()
+        if not same:
+            fail("st_render_fwd: the training launch composites differently "
+                 "from the evaluation launch")
+        p_rel = float(((kgot - kref).abs() / kref.abs().clamp(min=1.0)).max())
+        p_abs = float((kgot - kref).abs().max())
+        epi_err = float((kgot - epi).abs().max())
+        raw = [(a - b).abs() for a, b in ((rgb, rgb_ref), (dens, dens_ref),
+                                          (tr, tr_ref))]
+        raw_max = max(float(e.max()) for e in raw)
+        raw_mean = max(float(e.mean()) for e in raw)
+        ferr = (feat.float() - feat_ref).abs()
+        f_rel = float((ferr / feat_ref.abs().clamp(min=1.0)).max())
+        f_mean = float(ferr.mean())
+        del kref, rgb_ref, dens_ref, tr_ref, feat_ref, ferr
+        ms_res = time_ms(lambda: st_render_fwd(*targs, want_res=True),
+                         reps=20)
+        plain_res = time_ms(lambda: st_render_plain(*targs, want_res=True))
+        b_res = bound(nbytes(et, lt, tt, dt, ddt, kgot, rgb, dens, tr, feat,
+                             *params), fwd_ops * MT, PEAK_BF16,
+                      COMPOSITE_ST_FWD_OPS * MT)
+        print(f"kernel st_render_fwd: eval M={M} packed max|err|/max(|ref|,1)"
+              f"={e_rel:.3g} (bound {RENDER_MAX_ERR}); training M={MT} "
+              f"({B} images) packed {p_rel:.3g} (bound {RENDER_MAX_ERR}), "
+              f"epilogue vs composite twin of its raw outputs max|err|="
+              f"{epi_err:.3g} (bound {COMPOSITE_MAX_ERR}), raw max|err|="
+              f"{raw_max:.3g} (bound {FIELD_MAX_ERR}) mean={raw_mean:.3g} "
+              f"(bound {FIELD_MEAN_ERR}), feat max|err|/max(|ref|,1)="
+              f"{f_rel:.3g} (bound {FEAT_REL}) mean={f_mean:.3g}; eval "
+              f"{ms_eval:.4f} ms vs plain {plain_eval:.4f} ms (bound "
+              f"{b_eval[0]:.4f} ms, {b_eval[1]}); training {ms_res:.4f} ms "
+              f"vs plain {plain_res:.4f} ms (bound {b_res[0]:.4f} ms, "
+              f"{b_res[1]}); {fwd_ops * M / (ms_eval * 1e-3) / 1e12:.1f} "
+              "TFLOP/s eval", flush=True)
+        if not (e_rel <= RENDER_MAX_ERR and p_rel <= RENDER_MAX_ERR
+                and epi_err <= COMPOSITE_MAX_ERR and raw_max <= FIELD_MAX_ERR
+                and raw_mean <= FIELD_MEAN_ERR and f_rel <= FEAT_REL
+                and f_mean <= FIELD_MEAN_ERR):
+            fail("st_render_fwd kernel disagrees with its plain twin")
+        out["st_render_fwd"] = entry(
+            max(p_abs, raw_max), ms_res, plain_res, b_res,
+            packed_rel_err=p_rel, epilogue_err=epi_err, feat_rel_err=f_rel,
+            eval_ms=ms_eval, eval_plain_ms=plain_eval,
+            eval_bound_ms=b_eval[0], eval_bound_by=b_eval[1],
+            eval_max_abs_err=e_abs, eval_packed_rel_err=e_rel)
+
+        # the fused backward from the training launch's residuals, against
+        # its twin and against the hybrid backward (composite backward →
+        # field backward) on the same residuals
+        cot = (torch.randn(MT // N, 16, generator=g) / (MT // N)).to(dev)
+        bargs = (feat, et, lt, tt, dens, dt, cot, weights, rpi)
+        bgot = st_render_bwd(*bargs)
+        bwant = st_render_bwd_plain(*bargs)
+
+        def hybrid():
+            d_rgb, d_tr = composite_st_bwd(rgb, tr, dens, dt, cot)
+            return st_field_bwd(feat, et, lt, tt, weights, rpi, d_rgb, d_tr)
+
+        bhyb = hybrid()
+        torch.cuda.synchronize()
+        flat = [list(x[0]) + [x[1], x[2]] for x in (bgot, bwant, bhyb)]
+        norm = max(rel_norm(a, b) for a, b in zip(flat[0], flat[1]))
+        peak = max(rel_max(a, b) for a, b in zip(flat[0], flat[1]))
+        bmax = max(float((a - b).abs().max())
+                   for a, b in zip(flat[0], flat[1]))
+        h_norm = max(rel_norm(a, b) for a, b in zip(flat[0], flat[2]))
+        bms = time_ms(lambda: st_render_bwd(*bargs), reps=20)
+        bplain = time_ms(lambda: st_render_bwd_plain(*bargs))
+        hms = time_ms(hybrid, reps=20)
+        bb = bound(nbytes(feat, et, lt, tt, dens, dt, cot,
+                          *weights.head_params(), *flat[0]),
+                   2 * mega_bwd_macs(weights, e3) * MT, PEAK_BF16,
+                   COMPOSITE_ST_BWD_OPS * MT)
+        print(f"kernel st_render_bwd: M={MT} ({B} images) worst tensor "
+              f"‖err‖/‖ref‖={norm:.3g} (bound {FIELD_BWD_NORM}), max|err|/"
+              f"max|ref|={peak:.3g} (bound {FIELD_BWD_MAX}); vs the hybrid "
+              f"backward ‖err‖/‖ref‖={h_norm:.3g} (bound {FIELD_BWD_NORM}); "
+              f"{bms:.4f} ms vs plain {bplain:.4f} ms, hybrid (two kernels) "
+              f"{hms:.4f} ms (bound {bb[0]:.4f} ms, {bb[1]}); "
+              f"{2 * mega_bwd_macs(weights, e3) * MT / (bms * 1e-3) / 1e12:.1f}"
+              " TFLOP/s", flush=True)
+        if not (norm <= FIELD_BWD_NORM and peak <= FIELD_BWD_MAX
+                and h_norm <= FIELD_BWD_NORM):
+            fail("st_render_bwd kernel disagrees with its plain twin or the "
+                 "hybrid backward")
+        out["st_render_bwd"] = entry(bmax, bms, bplain, bb, hybrid_ms=hms,
+                                     hybrid_rel_norm=h_norm)
+    return out
 
 
 def coarse_macs(weights, e3):
@@ -843,6 +1025,8 @@ def slice_phase(here, tmp, dev):
     return launches
 
 
+_FIXTURES = {}          # generated fixtures by (scratch directory, kind)
+
 TEXTURE_KERNELS = ("st_field_fwd", "st_field_bwd", "composite_st_fwd",
                    "composite_st_bwd")
 PRETRAIN_KERNELS = ("coarse_render_fwd", "composite_coarse_bwd",
@@ -863,11 +1047,14 @@ def _launch_wrappers():
                                                      composite_st_bwd,
                                                      composite_st_fwd)
     from texpose_tpu_torch.kernels.st_field import st_field_bwd, st_field_fwd
+    from texpose_tpu_torch.kernels.st_render import (st_render_bwd,
+                                                     st_render_fwd)
     from texpose_tpu_torch.kernels.trunk import trunk_fwd
     return {f.__name__: f for f in (
         st_field_fwd, st_field_bwd, composite_st_fwd, composite_st_bwd,
         coarse_render_fwd, composite_coarse_bwd, coarse_field_bwd,
-        coarse_field_fwd, composite_coarse_fwd, trunk_fwd)}
+        coarse_field_fwd, composite_coarse_fwd, trunk_fwd, st_render_fwd,
+        st_render_bwd)}
 
 
 def zero_launches():
@@ -879,10 +1066,11 @@ def read_launches():
     return {k: f.launches for k, f in _launch_wrappers().items()}
 
 
-def train_argv(here, tmp, dev, steps):
-    """A 128x128 fixture of 16 train images (bench.py's), a seeded trunk
-    saved as the group's JAX-format pretrain_model.ckpt → the train CLI's
-    argv."""
+def train_argv(here, tmp, dev, steps, out="train_out", extra=()):
+    """A 128x128 fixture of 16 train images (bench.py's; made once per
+    scratch directory), a seeded trunk saved as the group's JAX-format
+    pretrain_model.ckpt under tmp/<out> → the train CLI's argv, plus
+    ``extra`` flags."""
     import torch
     from texpose_tpu_torch.data import generate_fixture
     from texpose_tpu_torch.nn.fields import init_nerf_st
@@ -890,13 +1078,15 @@ def train_argv(here, tmp, dev, steps):
                                                     torch_state_to_jax)
     from texpose_tpu_torch.utils.config import set_options
 
-    t0 = time.perf_counter()
-    root = generate_fixture(os.path.join(tmp, "train_data"), n_train=16,
-                            n_test=1, scene="scene_all", image_scale=1.0,
-                            crop_res=128)
-    print(f"fixture: 16 train frames at 128x128 in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    out_root = os.path.join(tmp, "train_out")
+    if (tmp, "train") not in _FIXTURES:
+        t0 = time.perf_counter()
+        _FIXTURES[tmp, "train"] = generate_fixture(
+            os.path.join(tmp, "train_data"), n_train=16, n_test=1,
+            scene="scene_all", image_scale=1.0, crop_res=128)
+        print(f"fixture: 16 train frames at 128x128 in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    root = _FIXTURES[tmp, "train"]
+    out_root = os.path.join(tmp, out)
     argv = ["--model=nerf_adapt_st_gan",
             f"--yaml={os.path.join(here, 'configs', 'nerf_lm_adapt_gan.yaml')}",
             f"--data.root={root}",
@@ -905,7 +1095,8 @@ def train_argv(here, tmp, dev, steps):
             "--nerf.depth.box_source=pred_box_init_calib",
             f"--output_root={out_root}", "--resume_pretrain",
             "--freq.vis=null", f"--max_iter={steps}", "--freq.scalar=10",
-            "--freq.val=1000", "--freq.ckpt=1000", f"--device={dev}"]
+            "--freq.val=1000", "--freq.ckpt=1000", f"--device={dev}",
+            *extra]
     cfg = set_options(list(argv))
     trunk = init_nerf_st(cfg, torch.Generator().manual_seed(123)).mlp_feat
     pre_dir = os.path.join(out_root, str(cfg.group))
@@ -995,8 +1186,14 @@ def train_phase(here, tmp, dev):
           f"PSNR {[float(r[1]) for r in q]}", flush=True)
 
     route_check(eng, "fused_st", lambda: gan_grads(eng), "train")
+    gan_warm_rate(eng, "train")
+    return launches, os.path.join(cfg.output_path, "model.ckpt")
 
-    # warm steps/s (host clock, the step's work ending in a sync)
+
+def gan_warm_rate(eng, what):
+    """Warm steps/s of a texture-GAN engine (host clock, WARM_STEPS steps
+    ending in a sync); prints texture_train_rays_per_sec."""
+    import torch
     for _ in range(3):
         eng.train_step(eng.make_draws(eng.it))
     torch.cuda.synchronize()
@@ -1005,10 +1202,10 @@ def train_phase(here, tmp, dev):
         eng.train_step(eng.make_draws(eng.it))
     torch.cuda.synchronize()
     steps_s = WARM_STEPS / (time.perf_counter() - t0)
-    print(f"train: warm {steps_s:.3f} steps/s = {steps_s * 2048:.1f} rays/s "
+    print(f"{what}: warm {steps_s:.3f} steps/s = {steps_s * 2048:.1f} rays/s "
           f"(texture_train_rays_per_sec, batch 8 x 16x16 patches, "
           f"{WARM_STEPS} steps)", flush=True)
-    return launches, os.path.join(cfg.output_path, "model.ckpt")
+    return steps_s
 
 
 def gan_grads(eng):
@@ -1020,23 +1217,34 @@ def gan_grads(eng):
     return out
 
 
-def route_check(eng, switch, grads, what, ref=False, ref_name="plain"):
+def route_check(eng, switch, grads, what, ref=False, ref_name="plain",
+                env=False):
     """One step from one state and one set of draws through the run's
-    route and, with cfg.kernels.<switch> set to ``ref``, through the
-    reference route (the plain route by default): losses and gradients
-    (``grads()`` after a step) agree."""
+    route and, with cfg.kernels.<switch> (with ``env``, the environment
+    variable <switch>) set to ``ref``, through the reference route (the
+    plain route by default): losses and gradients (``grads()`` after a
+    step) agree."""
     cfg = eng.cfg
     state = eng.train_state_flat(0)
     draws = eng.make_draws(eng.it)
     k_loss = eng.train_step(draws)
     k_grad = grads()
     eng.load_train_state_flat(state)
-    was = cfg.kernels.get(switch)
-    setattr(cfg.kernels, switch, ref)
+    if env:
+        was = os.environ.get(switch)
+        os.environ[switch] = ref
+    else:
+        was = cfg.kernels.get(switch)
+        setattr(cfg.kernels, switch, ref)
     try:
         p_loss = eng.train_step(draws)
     finally:
-        setattr(cfg.kernels, switch, was)
+        if not env:
+            setattr(cfg.kernels, switch, was)
+        elif was is None:
+            del os.environ[switch]
+        else:
+            os.environ[switch] = was
     p_grad = grads()
     eng.load_train_state_flat(state)
     loss_err = max(abs(float(k_loss[k]) - float(p_loss[k]))
@@ -1051,9 +1259,6 @@ def route_check(eng, switch, grads, what, ref=False, ref_name="plain"):
             and grad_err[worst] <= ROUTE_GRAD_NORM):
         fail(f"{what}: the kernel route disagrees with the {ref_name} "
              "route")
-
-
-_FIXTURES = {}
 
 
 def pretrain_argv(here, tmp, dev, steps, env=False, name=None, extra=()):
@@ -1336,6 +1541,132 @@ def trunk_phase(here, tmp, dev, ckpt):
     return launches
 
 
+MEGA_KERNELS = ("st_render_fwd", "st_render_bwd")
+TWO_KERNEL_ST = ("st_field_fwd", "composite_st_fwd", "composite_st_bwd",
+                 "st_field_bwd")
+
+
+def _with_env(name, value, fn):
+    """fn() with the environment variable ``name`` set to ``value``."""
+    was = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        if was is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = was
+
+
+def st_mega_phase(here, tmp, dev):
+    """The texture model's render kernels on their main paths: the train CLI
+    with --kernels.st_mega=true and TEXPOSE_MEGA_FULLBWD=1 for MEGA_STEPS
+    steps (render forward + fused backward, and nothing of the two-kernel
+    route), then HYBRID_STEPS steps with the default hybrid backward, the
+    route checks (fused vs hybrid backward; the mega route vs the
+    two-kernel route) and the warm rates of the three; then the eval CLI
+    with the mega route on 2 480×640 frames of the trained model, frame 0
+    against the two-kernel route.  Returns the launch counts of the train
+    CLI run."""
+    import numpy as np
+    import torch
+    from texpose_tpu_torch import evaluate, train
+
+    argv, _ = train_argv(here, tmp, dev, MEGA_STEPS, out="mega_out",
+                         extra=("--kernels.st_mega=true",))
+    zero_launches()
+    t0 = time.perf_counter()
+    eng = _with_env("TEXPOSE_MEGA_FULLBWD", "1", lambda: train.main(argv))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"st_mega: train CLI, {MEGA_STEPS} steps with TEXPOSE_MEGA_FULLBWD=1"
+          f" (cold, incl. validation at step 0) {cold_s:.2f} s; launches "
+          f"{launches}", flush=True)
+    if (launches["st_render_bwd"] != MEGA_STEPS
+            or launches["st_render_fwd"] < MEGA_STEPS
+            or any(launches[k] for k in TWO_KERNEL_ST)):
+        fail(f"st_mega: the train CLI must launch the render forward and the "
+             f"fused backward (once per step) and no two-kernel kernel: "
+             f"{launches}")
+    print(f"st_mega: step {MEGA_STEPS} losses "
+          f"{_train_losses(eng.cfg, MEGA_STEPS)}", flush=True)
+
+    # the default, hybrid backward: render forward → composite backward →
+    # field backward
+    zero_launches()
+    _with_env("TEXPOSE_MEGA_FULLBWD", "0", lambda: [
+        eng.train_step(eng.make_draws(eng.it)) for _ in range(HYBRID_STEPS)])
+    torch.cuda.synchronize()
+    hyb = read_launches()
+    want = dict(st_render_fwd=HYBRID_STEPS, composite_st_bwd=HYBRID_STEPS,
+                st_field_bwd=HYBRID_STEPS, st_render_bwd=0, st_field_fwd=0,
+                composite_st_fwd=0)
+    print(f"st_mega: {HYBRID_STEPS} hybrid-backward steps, launches "
+          f"{ {k: hyb[k] for k in want} }", flush=True)
+    if any(hyb[k] != v for k, v in want.items()):
+        fail(f"st_mega: the hybrid steps launched {hyb}, expected {want}")
+
+    _with_env("TEXPOSE_MEGA_FULLBWD", "1", lambda: route_check(
+        eng, "TEXPOSE_MEGA_FULLBWD", lambda: gan_grads(eng), "st_mega",
+        ref="0", ref_name="hybrid-backward", env=True))
+    _with_env("TEXPOSE_MEGA_FULLBWD", "0", lambda: route_check(
+        eng, "st_mega", lambda: gan_grads(eng), "st_mega", ref=False,
+        ref_name="two-kernel"))
+    rates = {}
+    for label, env, mega in (("fused backward", "1", True),
+                             ("hybrid backward", "0", True),
+                             ("two-kernel route", "0", False)):
+        eng.cfg.kernels.st_mega = mega
+        rates[label] = _with_env("TEXPOSE_MEGA_FULLBWD", env, lambda: (
+            gan_warm_rate(eng, f"st_mega ({label})")))
+    eng.cfg.kernels.st_mega = True
+
+    # evaluation through the render forward on the trained model
+    ckpt = os.path.join(eng.cfg.output_path, "model.ckpt")
+    argv = fixture_argv(here, tmp, dev, 2, sub="mega", init=ckpt) + [
+        "--kernels.st_mega=true"]
+    zero_launches()
+    t0 = time.perf_counter()
+    engine = evaluate.main(argv)
+    torch.cuda.synchronize()
+    ev = read_launches()
+    print(f"st_mega: evaluate (cold, 2 frames) {time.perf_counter() - t0:.2f}"
+          f" s; launches {ev}", flush=True)
+    if ev["st_render_fwd"] <= 0 or any(ev[k] for k in TWO_KERNEL_ST):
+        fail(f"st_mega: the evaluation must run the render forward and no "
+             f"two-kernel kernel: {ev}")
+    rows = [ln.split() for ln in open(os.path.join(engine.cfg.output_path,
+                                                   "quant.txt"))][1:]
+    if len(rows) != 2 or not all(math.isfinite(float(r[1])) for r in rows):
+        fail(f"st_mega: quant.txt {rows}")
+    frame = engine.eval_frame(0)
+    sample = engine.eval_data[0]
+    lt = np.zeros((1, int(engine.cfg.nerf.N_latent_trans)), np.float32)
+    ll = engine.latents["light"][0:1]
+    obj = torch.as_tensor(sample["obj_mask"].reshape(-1) > 0,
+                          device=engine.device)
+    with torch.inference_mode():
+        m_out = engine._render_frame_st(frame, lt, ll,
+                                        obj_host=sample["obj_mask"])
+        engine.cfg.kernels.st_mega = False
+        t_out = engine._render_frame_st(frame, lt, ll,
+                                        obj_host=sample["obj_mask"])
+        engine.cfg.kernels.st_mega = True
+        err = max(float((m_out[k][0][obj] - t_out[k][0][obj]).abs().max())
+                  for k in ("rgb", "rgb_static", "depth", "uncert"))
+    print(f"st_mega: {ev['st_render_fwd'] / 2:.1f} render launches per frame; "
+          f"PSNR {[float(r[1]) for r in rows]}; frame 0 rgb/rgb_static/depth/"
+          f"uncert mega vs two-kernel route max|err|={err:.3g} over "
+          f"{int(obj.sum())} object pixels (bound {COMPOSITE_MAX_ERR}: the "
+          "same raw outputs and composite arithmetic)", flush=True)
+    if not err <= COMPOSITE_MAX_ERR:
+        fail("st_mega: the mega route's frame disagrees with the two-kernel "
+             "route's")
+    return launches
+
+
 def gan_loads_trunk(here, tmp, dev, pre_ckpt, root):
     """The texture-GAN engine's --resume_pretrain reads the trunk of the
     port's pretrain checkpoint, placed as the group's pretrain_model.ckpt."""
@@ -1393,7 +1724,8 @@ def main():
 
     from texpose_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    sources = ("st_field", "composite", "coarse_field", "trunk_fwd")
+    sources = ("st_field", "composite", "coarse_field", "trunk_fwd",
+               "st_render")
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(_build.build, sources))
     print(f"build: {len(sources)} kernel sources in "
@@ -1401,6 +1733,7 @@ def main():
 
     measured = kernel_phase(load_cfg(here), dev)
     measured.update(coarse_kernel_phase(here, dev))
+    measured.update(st_mega_kernel_phase(load_cfg(here), dev))
     tmp = tempfile.mkdtemp(prefix="texpose_chip_smoke_")
     try:
         slice_phase(here, tmp, dev)
@@ -1409,6 +1742,7 @@ def main():
         pre_launches, _ = pretrain_phase(here, tmp, dev)
         hier_launches = hierarchical_phase(here, tmp, dev)
         two_launches = two_kernel_phase(here, tmp, dev)
+        mega_launches = st_mega_phase(here, tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's count from the run of the path it was ported for
@@ -1416,6 +1750,7 @@ def main():
     launches["coarse_field_fwd"] = hier_launches["coarse_field_fwd"]
     launches["composite_coarse_fwd"] = two_launches["composite_coarse_fwd"]
     launches["trunk_fwd"] = trunk_launches["trunk_fwd"]
+    launches.update({k: mega_launches[k] for k in MEGA_KERNELS})
 
     src = {"st_field_fwd": ("texpose_tpu_torch/csrc/st_field.cu",
                             "texpose_tpu/kernels/fused_st_field.py:922"),
@@ -1441,7 +1776,11 @@ def main():
                "texpose_tpu_torch/csrc/composite.cu",
                "texpose_tpu/kernels/fused_composite_coarse.py:115"),
            "trunk_fwd": ("texpose_tpu_torch/csrc/trunk_fwd.cu",
-                         "texpose_tpu/kernels/fused_trunk.py:229")}
+                         "texpose_tpu/kernels/fused_trunk.py:229"),
+           "st_render_fwd": ("texpose_tpu_torch/csrc/st_render.cu",
+                             "texpose_tpu/kernels/fused_st_render.py:198"),
+           "st_render_bwd": ("texpose_tpu_torch/csrc/st_render.cu",
+                             "texpose_tpu/kernels/fused_st_render.py:314")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 **numbers} for name, numbers in measured.items()]

@@ -160,18 +160,21 @@ def test_two_kernel_route_matches_mega_route(root, tmp_path):
         assert _rel(gt[k].numpy(), gm[k].numpy()) <= 1e-4, k
 
 
-def test_st_mega_gate_refuses_until_ported(tmp_path):
-    """kernels.st_mega on, where the JAX package would take its ST mega
-    kernel (row 6, not ported), raises instead of running the two-kernel
-    route unseen; unset or off, the two-kernel route's gate holds."""
+def test_st_mega_gate_refuses_until_ported(tmp_path, monkeypatch):
+    """kernels.st_mega on, where the JAX package takes its ST mega kernel
+    (row 6, now ported), no longer raises: the render kernels' gate picks
+    that route; unset or off, the two-kernel route's gate alone holds, and
+    with fused_st off neither."""
     from test_texture_gan_e2e import tiny_gan_cfg
+    monkeypatch.delenv("TEXPOSE_ST_MEGA", raising=False)
     cfg = tiny_gan_cfg("unused", tmp_path)
     nerf = tfields.init_nerf_st(cfg)
-    assert tfields.use_fused_render(cfg, nerf)
-    cfg.kernels = {"st_mega": False}
-    assert tfields.use_fused_render(cfg, nerf)
-    cfg.kernels = {"st_mega": True}
-    with pytest.raises(NotImplementedError, match="row 6"):
-        tfields.use_fused_render(cfg, nerf)
-    cfg.kernels = {"st_mega": True, "fused_st": False}
-    assert not tfields.use_fused_render(cfg, nerf)
+    N = int(cfg.nerf.sample_intvs)
+    for kernels, two, mega in (({}, True, False),
+                               ({"st_mega": False}, True, False),
+                               ({"st_mega": True}, True, True),
+                               ({"st_mega": True, "fused_st": False},
+                                False, False)):
+        cfg.kernels = kernels
+        assert tfields.use_fused_render(cfg, nerf) == two, kernels
+        assert tfields.use_fused_st_render(cfg, nerf, N) == mega, kernels

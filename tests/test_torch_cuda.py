@@ -512,3 +512,148 @@ def test_coarse_field_autograd_and_raising_wrappers(cuda):
         composite_coarse_bwd(torch.zeros(514, 3, device=cuda),
                              torch.zeros(514, 1, device=cuda), big, big,
                              torch.zeros(2, 8, device=cuda))
+
+
+# ------------------------------------- the render kernels (kernels.st_mega)
+#
+# Forward (row 6f): the packed composite against the whole twin (field twin
+# → composite twin) at RENDER_REL of max(|ref|, 1): the ST field's raw-output
+# bound after the sigmoid (slope ≤ 1/4) and weights summing to ≤ 1, and for
+# column 14 a sum over N samples whose errors are mostly of random sign; the
+# composite epilogue alone, against composite_st_plain of the kernel's own
+# raw outputs, at the composites' 1e-4 (f32 both sides).  The training
+# variant's raw outputs and residual as the field forward's.  Backward (row
+# 6b): from the kernel's residuals, per tensor on the norm (atomics reorder
+# its sums), as the field backward — against its twin and against the
+# hybrid backward (composite_st_bwd → st_field_bwd).
+
+RENDER_REL = 2e-2
+
+
+def _render_inputs(device, B, R, N, seed):
+    rows = R * N
+    xext, encpts, light, trans = _field_inputs(device, B, rows, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    depth = torch.sort(torch.rand(B * R, N, generator=g) * 2 + 3,
+                       dim=1).values.to(device)
+    ray = torch.randn(1, B * R, 3, generator=g).to(device)
+    dist = _dists(depth.reshape(1, B * R, N, 1), ray).reshape(B * R, N)
+    return xext, encpts, light, trans, dist, depth
+
+
+@pytest.mark.parametrize("B,R,N", [(1, 2048, 64), (4, 18, 16), (4, 5, 32)])
+def test_st_render_fwd_kernel_matches_plain(cuda, B, R, N):
+    """The eval chunk's shape (one image, 2048 rays × 64 samples) and two
+    whose 64-row tiles straddle image boundaries (288 and 160 rows per
+    image)."""
+    from texpose_tpu_torch.kernels.st_render import (st_render_fwd,
+                                                     st_render_plain)
+    w = _weights(cuda)
+    args = (*_render_inputs(cuda, B, R, N, B + N), w, R * N)
+    with torch.no_grad():
+        n0 = st_render_fwd.launches
+        out = st_render_fwd(*args)
+        got, rgb, dens, tr, feat = st_render_fwd(*args, want_res=True)
+        torch.cuda.synchronize()
+        assert st_render_fwd.launches == n0 + 2
+        ref, rgb_ref, dens_ref, tr_ref, feat_ref = st_render_plain(
+            *args, want_res=True)
+        epi = composite_st_plain(rgb, tr, dens, args[5], args[4], 0.05)
+    assert torch.equal(out, got) and out.shape == (B * R, 16)
+    assert float((got - epi).abs().max()) <= 1e-4
+    err = (got - ref).abs() / ref.abs().clamp(min=1.0)
+    assert float(err.max()) <= RENDER_REL
+    for a, b in ((rgb, rgb_ref), (dens, dens_ref), (tr, tr_ref)):
+        e = (a - b).abs()
+        assert float(e.max()) <= 3e-2 and float(e.mean()) <= 1e-3
+    e = (feat.float() - feat_ref).abs()
+    assert float((e / feat_ref.abs().clamp(min=1.0)).max()) <= 3e-2
+    assert float(e.mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("B,R,N", [(8, 256, 64), (4, 18, 16), (4, 5, 32)])
+def test_st_render_bwd_kernel_matches_plain(cuda, B, R, N):
+    """The train step's shape (8 images × 256 rays × 64 samples) and two
+    whose tiles straddle image boundaries: the fused backward against its
+    twin and against the hybrid backward on the same residuals."""
+    from texpose_tpu_torch.kernels.st_render import (st_render_bwd,
+                                                     st_render_bwd_plain,
+                                                     st_render_fwd)
+    w = _weights(cuda)
+    xext, encpts, light, trans, dist, depth = _render_inputs(cuda, B, R, N,
+                                                             B + 2 * N)
+    g = torch.Generator().manual_seed(11)
+    cot = (torch.randn(B * R, 16, generator=g) / (B * R)).to(cuda)
+    with torch.no_grad():
+        _, rgb, dens, tr, feat = st_render_fwd(
+            xext, encpts, light, trans, dist, depth, w, R * N, want_res=True)
+        n0 = st_render_bwd.launches
+        got = st_render_bwd(feat, encpts, light, trans, dens, dist, cot, w,
+                            R * N)
+        torch.cuda.synchronize()
+        assert st_render_bwd.launches == n0 + 1
+        want = st_render_bwd_plain(feat, encpts, light, trans, dens, dist,
+                                   cot, w, R * N)
+        d_rgb, d_tr = composite_st_bwd(rgb, tr, dens, dist, cot)
+        hyb = st_field_bwd(feat, encpts, light, trans, w, R * N, d_rgb, d_tr)
+    flat = [list(x[0]) + [x[1], x[2]] for x in (got, want, hyb)]
+    for a, b in zip(flat[0], flat[1]):
+        assert a.shape == b.shape
+    for ref in (flat[1], flat[2]):
+        norm = [_norm_err(a, b) for a, b in zip(flat[0], ref)]
+        peak = [_rel_err(a, b) for a, b in zip(flat[0], ref)]
+        print("st_render_bwd norm errors:", [f"{e:.1e}" for e in norm])
+        assert max(norm) <= FIELD_BWD_REL and max(peak) <= FIELD_BWD_MAX
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["hybrid", "fullbwd"])
+def test_st_render_autograd_launches_its_kernels(cuda, monkeypatch, full):
+    """fused_st_render under grad: the training forward, then the hybrid
+    backward's two kernels, or with TEXPOSE_MEGA_FULLBWD=1 the fused one —
+    and nothing of the two-kernel forward route."""
+    from texpose_tpu_torch.kernels import composite as comp
+    from texpose_tpu_torch.kernels import st_field as sf
+    from texpose_tpu_torch.kernels import st_render as sr
+    monkeypatch.setenv("TEXPOSE_MEGA_FULLBWD", "1" if full else "0")
+    w = _weights(cuda)
+    B, R, N = 2, 64, 64
+    xext, encpts, light, trans, dist, depth = _render_inputs(cuda, B, R, N, 5)
+    light.requires_grad_(True)
+    trans.requires_grad_(True)
+    params = w.head_params()
+    for p in params:
+        p.requires_grad_(True)
+    fns = (sr.st_render_fwd, sr.st_render_bwd, comp.composite_st_bwd,
+           sf.st_field_bwd, sf.st_field_fwd, comp.composite_st_fwd)
+    counts = [f.launches for f in fns]
+    depth_samples = depth.reshape(B, R, N, 1)
+    ray = torch.ones(B, R, 3, device=cuda)
+    out = sr.fused_st_render(xext, encpts, light, trans, depth_samples, ray,
+                             w, R * N)
+    (out["rgb"].square().mean() + out["uncert"].mean()
+     + out["trans_density_mean"]).backward()
+    torch.cuda.synchronize()
+    added = [f.launches - c for f, c in zip(fns, counts)]
+    assert added == ([1, 1, 0, 0, 0, 0] if full else [1, 0, 1, 1, 0, 0])
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in params + [light, trans])
+
+
+def test_st_render_wrappers_raise_on_unsupported_input(cuda):
+    from texpose_tpu_torch.kernels.st_render import (st_render_bwd,
+                                                     st_render_fwd)
+    w = _weights(cuda)
+    xext, encpts, light, trans, dist, depth = _render_inputs(cuda, 1, 4, 16,
+                                                             3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        st_render_fwd(xext, encpts, light, trans, dist, depth, w, 64,
+                      compute_dtype=torch.float32)
+    # 48 samples per ray do not fit the 64-row tile whole
+    d48 = torch.ones(4, 48, device=cuda)
+    x48, e48, l48, t48 = _field_inputs(cuda, 1, 192, 4)
+    with pytest.raises(ValueError, match="64"):
+        st_render_fwd(x48, e48, l48, t48, d48, d48, w, 192)
+    feat = torch.zeros(192, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="64"):
+        st_render_bwd(feat, e48, l48, t48, torch.zeros(192, 1, device=cuda),
+                      d48, torch.zeros(4, 16, device=cuda), w, 192)

@@ -35,7 +35,8 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
         names = [m.name for m in pkgutil.walk_packages(
             texpose_tpu_torch.__path__, "texpose_tpu_torch.")]
         for name in ("kernels.coarse_field", "kernels.composite",
-                     "kernels.st_field", "kernels.trunk", "nn.fields",
+                     "kernels.st_field", "kernels.st_render",
+                     "kernels.trunk", "nn.fields",
                      "models.pretrain", "models.render", "ops.render"):
             assert "texpose_tpu_torch." + name in names, name
         for name in names:

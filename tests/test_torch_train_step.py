@@ -146,19 +146,42 @@ BRANCHES = {
                  "render.latent_ema": 0.9, "optim.lr_latent": 3e-4},
     "wgan_gp": {"gan.type": "wgan", "loss_weight.gan_gp": 1,
                 "loss_weight.gan_reg_real": None},
+    # the render kernels (kernels.st_mega) with the hybrid backward, and
+    # with the fully fused one (TEXPOSE_MEGA_FULLBWD=1)
+    "st_mega": {"kernels": {"st_mega": True}},
+    "st_mega_fullbwd": {"kernels": {"st_mega": True}},
 }
 
 
 @pytest.mark.parametrize("interpret,variant", [
-    (False, None), (True, None), (False, "branches"), (False, "wgan_gp")],
+    (False, None), (True, None), (False, "branches"), (False, "wgan_gp"),
+    (True, "st_mega"), (True, "st_mega_fullbwd")],
     ids=["jax_plain", "jax_interpret", "jax_plain_branches",
-         "jax_plain_wgan_gp"])
+         "jax_plain_wgan_gp", "jax_interpret_st_mega",
+         "jax_interpret_st_mega_fullbwd"])
 def test_one_step_matches_jax(root, tmp_path, monkeypatch, interpret,
                               variant):
+    from texpose_tpu.kernels.fused_st_render import _make_op
+    from texpose_tpu.nn import fields as jfields
+    from texpose_tpu_torch.nn import fields as tfields
     from texpose_tpu_torch.utils.checkpoint import adam_keys
     cfg = step_cfg(root, tmp_path, **BRANCHES.get(variant, {}))
-    jeng, peng, before, after, jloss, ploss = _run_one(cfg, monkeypatch,
-                                                       interpret)
+    if variant == "st_mega_fullbwd":
+        monkeypatch.setenv("TEXPOSE_MEGA_FULLBWD", "1")
+    else:
+        monkeypatch.delenv("TEXPOSE_MEGA_FULLBWD", raising=False)
+    _make_op.cache_clear()
+    try:
+        jeng, peng, before, after, jloss, ploss = _run_one(cfg, monkeypatch,
+                                                           interpret)
+    finally:
+        _make_op.cache_clear()
+    mega = bool(variant and variant.startswith("st_mega"))
+    R = int(cfg.patch_size) ** 2
+    N = int(cfg.nerf.sample_intvs)
+    assert jfields.use_fused_st_render(cfg, int(cfg.batch_size), R, N,
+                                       jeng.state["params"]["nerf"]) == mega
+    assert tfields.use_fused_st_render(cfg, peng.nerf, N) == mega
     # losses, G and D
     assert sorted(jloss) == sorted(ploss)
     for k in jloss:

@@ -38,6 +38,9 @@
 // static density is frozen-trunk output and gets no gradient.  Bound and
 // design as the forward: 40 B read and 32 B written per sample, ~80 flops,
 // everything in registers.
+// Both per-ray bodies are the device functions composite_st_ray and
+// composite_st_ray_bwd (composite_st.cuh), which the ST render kernels
+// (st_render.cu) run as their composite stages.
 //
 // COARSE FORWARD (composite_coarse_fwd_kernel).
 // Replaces: texpose_tpu/kernels/fused_composite_coarse.py::_run_fwd (the
@@ -72,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "composite_coarse.cuh"
+#include "composite_st.cuh"
 
 namespace {
 
@@ -88,75 +92,10 @@ __global__ void __launch_bounds__(kThreads)
   const int ray = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (ray >= BR) return;                      // uniform across the warp
-
-  float cs[3][S], ct[3][S], dt[S], u[S], sds[S], sdt[S], dep[S];
-  float tot = 0.f, tot_s = 0.f, tot_t = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int n = lane * S + s;
-    if (n < N) {
-      const size_t row = (size_t)ray * N + n;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        cs[c][s] = sigmoidf_(__ldg(rgb + row * 3 + c));
-        ct[c][s] = sigmoidf_(__ldg(tr + row * 5 + c));
-      }
-      dt[s] = softplusf_(__ldg(tr + row * 5 + 3));
-      u[s] = softplusf_(__ldg(tr + row * 5 + 4));
-      const float d = __ldg(dist + row);
-      sds[s] = softplusf_(__ldg(dens + row)) * d;
-      sdt[s] = dt[s] * d;
-      dep[s] = __ldg(depth + row);
-    } else {                                  // padding lanes weigh nothing
-#pragma unroll
-      for (int c = 0; c < 3; ++c) cs[c][s] = ct[c][s] = 0.f;
-      dt[s] = u[s] = sds[s] = sdt[s] = dep[s] = 0.f;
-    }
-    tot += sds[s] + sdt[s];
-    tot_s += sds[s];
-    tot_t += sdt[s];
-  }
-  float run = warp_exclusive_sum(tot, lane);
-  float run_s = warp_exclusive_sum(tot_s, lane);
-  float run_t = warp_exclusive_sum(tot_t, lane);
-
-  float acc[15];
-#pragma unroll
-  for (int j = 0; j < 15; ++j) acc[j] = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const float T = expf(-run), Ts = expf(-run_s), Tt = expf(-run_t);
-    const float sd = sds[s] + sdt[s];
-    const float a_s = 1.f - expf(-sds[s]);
-    const float a_t = 1.f - expf(-sdt[s]);
-    const float a = 1.f - expf(-sd);
-    const float ps = T * a_s, pt = T * a_t, pj = T * a;
-    const float ws = Ts * a_s, wt = Tt * a_t;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      acc[c] += ps * cs[c][s] + pt * ct[c][s];
-      acc[3 + c] += ws * cs[c][s];
-      acc[6 + c] += wt * ct[c][s];
-    }
-    acc[9] += ws * dep[s];
-    acc[10] += pj;
-    acc[11] += ws;
-    acc[12] += wt;
-    acc[13] += u[s] * pt;
-    acc[14] += dt[s];
-    run += sd;
-    run_s += sds[s];
-    run_t += sdt[s];
-  }
-#pragma unroll
-  for (int j = 0; j < 15; ++j) acc[j] = warp_sum(acc[j]);
-  if (lane == 0) {
-    float4* o = reinterpret_cast<float4*>(out + (size_t)ray * 16);
-    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-    o[2] = make_float4(acc[8], acc[9], acc[10], acc[11]);
-    o[3] = make_float4(acc[12], acc[13] + min_uncert, acc[14], 0.f);
-  }
+  const size_t row = (size_t)ray * N;
+  composite_st_ray<S>(rgb + row * 3, tr + row * 5, dens + row, depth + row,
+                      dist + row, N, min_uncert, lane,
+                      out + (size_t)ray * 16);
 }
 
 template <int S>
@@ -171,97 +110,10 @@ __global__ void __launch_bounds__(kThreads)
   const int ray = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (ray >= BR) return;                      // uniform across the warp
-
-  float g[15];                                // column 15 is padding
-#pragma unroll
-  for (int j = 0; j < 15; ++j) g[j] = __ldg(gpk + (size_t)ray * 16 + j);
-
-  float cs[3][S], ct[3][S], u[S], sds[S], sdt[S], dd[S], sg3[S], sg4[S];
-  float tot = 0.f, tot_s = 0.f, tot_t = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int n = lane * S + s;
-    if (n < N) {
-      const size_t row = (size_t)ray * N + n;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        cs[c][s] = sigmoidf_(__ldg(rgb + row * 3 + c));
-        ct[c][s] = sigmoidf_(__ldg(tr + row * 5 + c));
-      }
-      const float t3 = __ldg(tr + row * 5 + 3);
-      const float t4 = __ldg(tr + row * 5 + 4);
-      u[s] = softplusf_(t4);
-      sg3[s] = sigmoidf_(t3);                 // softplus' = sigmoid
-      sg4[s] = sigmoidf_(t4);
-      dd[s] = __ldg(dist + row);
-      sds[s] = softplusf_(__ldg(dens + row)) * dd[s];
-      sdt[s] = softplusf_(t3) * dd[s];
-    } else {                                  // padding lanes weigh nothing
-#pragma unroll
-      for (int c = 0; c < 3; ++c) cs[c][s] = ct[c][s] = 0.f;
-      u[s] = sds[s] = sdt[s] = dd[s] = sg3[s] = sg4[s] = 0.f;
-    }
-    tot += sds[s] + sdt[s];
-    tot_s += sds[s];
-    tot_t += sdt[s];
-  }
-  float run = warp_exclusive_sum(tot, lane);
-  float run_s = warp_exclusive_sum(tot_s, lane);
-  float run_t = warp_exclusive_sum(tot_t, lane);
-
-  // per sample: the weights, the local part of d sdt, and v = what the
-  // sample's T_n and T_t,n pass to every earlier sample's sdt
-  float ps[S], pt[S], ws[S], wt[S], loc[S], v[S];
-  float vtot = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const float T = expf(-run), Ts = expf(-run_s), Tt = expf(-run_t);
-    const float sd = sds[s] + sdt[s];
-    const float e_s = expf(-sds[s]), e_t = expf(-sdt[s]), e = expf(-sd);
-    ps[s] = T * (1.f - e_s);
-    pt[s] = T * (1.f - e_t);
-    ws[s] = Ts * (1.f - e_s);
-    wt[s] = Tt * (1.f - e_t);
-    const float pj = T * (1.f - e);
-    float F_ps = 0.f, F_pt = u[s] * g[13], F_wt = g[12];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      F_ps += cs[c][s] * g[c];
-      F_pt += ct[c][s] * g[c];
-      F_wt += ct[c][s] * g[6 + c];
-    }
-    loc[s] = F_pt * T * e_t + F_wt * Tt * e_t + g[10] * T * e;
-    v[s] = F_ps * ps[s] + F_pt * pt[s] + g[10] * pj + F_wt * wt[s];
-    vtot += v[s];
-    run += sd;
-    run_s += sds[s];
-    run_t += sdt[s];
-  }
-  // Σ of v over the lanes above this one (suffix scan of the lane totals)
-  float suf = vtot;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_down_sync(kFull, suf, o);
-    if (lane + o < 32) suf += y;
-  }
-  suf -= vtot;
-#pragma unroll
-  for (int s = S - 1; s >= 0; --s) {
-    const float strict = suf;                 // Σ_{n' > n} v_n'
-    suf += v[s];
-    const int n = lane * S + s;
-    if (n >= N) continue;
-    const size_t row = (size_t)ray * N + n;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      d_rgb[row * 3 + c] =
-          (ps[s] * g[c] + ws[s] * g[3 + c]) * cs[c][s] * (1.f - cs[c][s]);
-      d_tr[row * 5 + c] =
-          (pt[s] * g[c] + wt[s] * g[6 + c]) * ct[c][s] * (1.f - ct[c][s]);
-    }
-    d_tr[row * 5 + 3] = ((loc[s] - strict) * dd[s] + g[14]) * sg3[s];
-    d_tr[row * 5 + 4] = pt[s] * g[13] * sg4[s];
-  }
+  const size_t row = (size_t)ray * N;
+  composite_st_ray_bwd<S>(rgb + row * 3, tr + row * 5, dens + row,
+                          dist + row, gpk + (size_t)ray * 16, N, lane,
+                          d_rgb + row * 3, d_tr + row * 5);
 }
 
 template <int S>

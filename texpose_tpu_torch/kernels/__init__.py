@@ -14,7 +14,17 @@ wrapper counts its kernel launches in a ``launches`` attribute.
                                     fused_composite_coarse.py bwd
   coarse_field.coarse_field_bwd   ← texpose_tpu/kernels/fused_coarse_field.py
                                     bwd (the trunk trains)
-``st_field.st_field``, ``composite.fused_composite_st`` and
-``coarse_field.coarse_render`` pair each forward with its backward in a
+  coarse_field.coarse_field_fwd   ← texpose_tpu/kernels/fused_coarse_field.py
+                                    fwd (raw outputs)
+  composite.composite_coarse_fwd  ← texpose_tpu/kernels/
+                                    fused_composite_coarse.py fwd
+  trunk.trunk_fwd                 ← texpose_tpu/kernels/fused_trunk.py
+  st_render.st_render_fwd         ← texpose_tpu/kernels/fused_st_render.py
+                                    fwd (field + composite)
+  st_render.st_render_bwd         ← texpose_tpu/kernels/fused_st_render.py
+                                    bwd (fully fused)
+``st_field.st_field``, ``composite.fused_composite_st``,
+``coarse_field.coarse_render``, ``coarse_field.coarse_field`` and
+``st_render.fused_st_render`` pair each forward with its backward in a
 ``torch.autograd.Function``.
 """

@@ -42,12 +42,10 @@ import torch
 from ..nn.mlp import relu, round_to
 from . import _build
 from .composite import composite_coarse_bwd, composite_coarse_plain
-from .st_field import (HIDDEN, TrunkWeights, _cat_packs, _ceil16,
+from .st_field import (HIDDEN, ROW_TILE, TrunkWeights, _cat_packs, _ceil16,
                        _pack_layer, _OUT_TILE, check_trunk, pack_head,
                        stage_rows)
 from .trunk import trunk_forward_plain
-
-ROW_TILE = 64          # the kernel's row tile: rays must fit whole into it
 
 
 class CoarseFieldWeights(TrunkWeights):

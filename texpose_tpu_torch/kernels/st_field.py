@@ -39,6 +39,8 @@ from . import _build
 
 HIDDEN = 256          # the CUDA kernel's layer width
 _OUT_TILE = 8         # output layers are padded to one mma n-tile
+ROW_TILE = 64         # the kernels' row tile (trunk.cuh): a kernel with a
+                      # composite epilogue needs whole rays in it
 
 
 def make_xext(pts, L, c2f_w):
@@ -283,6 +285,29 @@ def _latent_rows(weights, light, trans, e3, compute_dtype):
                        weights.trans[0].w[F:], compute_dtype)
 
 
+def heads_plain(feat, encpts, light, trans, weights, rows_per_img,
+                compute_dtype=torch.bfloat16):
+    """Both heads' raw outputs (rgb_raw [M,3], trans_raw [M,5]) from the
+    trunk features, at the forward twin's rounding points: the heads of
+    ``st_field_plain``, and the recompute of the render backward's twin."""
+    def c(x):
+        return round_to(x, compute_dtype)
+
+    lrow, trow = _latent_rows(weights, light, trans, encpts.shape[1],
+                              compute_dtype)
+    img = torch.arange(feat.shape[0], device=feat.device) // rows_per_img
+
+    def head(layers, extra, lat):
+        x0 = feat if extra is None else torch.cat([feat, c(extra)], dim=-1)
+        w0 = layers[0].w[:x0.shape[1]]
+        h = relu(c(x0) @ c(w0) + lat[img] + layers[0].b)
+        for layer in layers[1:-1]:
+            h = relu(c(h) @ c(layer.w) + layer.b)
+        return c(h) @ c(layers[-1].w) + layers[-1].b
+
+    return head(weights.rgb, encpts, lrow), head(weights.trans, None, trow)
+
+
 def st_field_plain(xext, encpts, light, trans, weights, rows_per_img,
                    compute_dtype=torch.bfloat16, want_feat=False):
     """The forward kernel's plain-PyTorch twin: same signature, same
@@ -291,8 +316,6 @@ def st_field_plain(xext, encpts, light, trans, weights, rows_per_img,
     def c(x):
         return round_to(x, compute_dtype)
 
-    lrow, trow = _latent_rows(weights, light, trans, encpts.shape[1],
-                              compute_dtype)
     xc = c(xext)
     h = xc
     n = len(weights.trunk)
@@ -305,20 +328,10 @@ def st_field_plain(xext, encpts, light, trans, weights, rows_per_img,
             dens = z[:, :1]
             z = z[:, 1:]
         h = relu(z)
-    feat = h
-    img = torch.arange(xext.shape[0], device=xext.device) // rows_per_img
-
-    def head(layers, extra, lat):
-        x0 = feat if extra is None else torch.cat([feat, c(extra)], dim=-1)
-        w0 = layers[0].w[:x0.shape[1]]
-        h = relu(c(x0) @ c(w0) + lat[img] + layers[0].b)
-        for layer in layers[1:-1]:
-            h = relu(c(h) @ c(layer.w) + layer.b)
-        return c(h) @ c(layers[-1].w) + layers[-1].b
-
-    out = (head(weights.rgb, encpts, lrow), dens,
-           head(weights.trans, None, trow))
-    return out + (c(feat),) if want_feat else out
+    rgb, tr = heads_plain(h, encpts, light, trans, weights, rows_per_img,
+                          compute_dtype)
+    out = (rgb, dens, tr)
+    return out + (c(h),) if want_feat else out
 
 
 def _image_index(M, rows_per_img, n_img, device):
@@ -425,8 +438,27 @@ def _check_cuda(what, x, compute_dtype):
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
     if compute_dtype != torch.bfloat16:
-        raise ValueError("st_field CUDA kernel computes in bfloat16 only, "
-                         f"got compute_dtype={compute_dtype}")
+        raise ValueError(f"{what}: the CUDA kernel computes in bfloat16 "
+                         f"only, got compute_dtype={compute_dtype}")
+
+
+def fwd_inputs(what, xext, encpts, light, trans, weights, rows_per_img,
+               compute_dtype, others=()):
+    """The field forward kernels' checked, staged inputs: (wpack, bias,
+    heads wpack, heads bias, kx, ke, lrow, trow, xe) on the inputs' card;
+    ``others`` are further tensors that must lie there."""
+    _check_cuda(what, xext, compute_dtype)
+    M, xw = xext.shape
+    e3 = encpts.shape[1]
+    dev = xext.device
+    _check_rows(what, M, encpts, light, trans, rows_per_img)
+    wpack, bias, wh, bh, kx, ke = weights.kernel_buffers(xw, e3)
+    if any(t.device != dev for t in (encpts, light, trans, wpack, *others)):
+        raise ValueError(f"{what}: inputs, latents and weights must all lie "
+                         f"on {dev}")
+    lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
+    return (wpack, bias, wh, bh, kx, ke, lrow.float().contiguous(),
+            trow.float().contiguous(), stage_rows(xext, encpts, kx, ke))
 
 
 def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
@@ -439,19 +471,10 @@ def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
     if xext.device.type == "cpu":
         return st_field_plain(xext, encpts, light, trans, weights,
                               rows_per_img, compute_dtype, want_feat)
-    _check_cuda("st_field_fwd", xext, compute_dtype)
-    M, xw = xext.shape
-    e3 = encpts.shape[1]
-    dev = xext.device
-    _check_rows("st_field_fwd", M, encpts, light, trans, rows_per_img)
-    wpack, bias, wh, bh, kx, ke = weights.kernel_buffers(xw, e3)
-    if any(t.device != dev for t in (encpts, light, trans, wpack)):
-        raise ValueError("st_field_fwd: inputs, latents and weights must "
-                         f"all lie on {dev}")
-    lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
-    xe = stage_rows(xext, encpts, kx, ke)
-    lrow = lrow.float().contiguous()
-    trow = trow.float().contiguous()
+    wpack, bias, wh, bh, kx, ke, lrow, trow, xe = fwd_inputs(
+        "st_field_fwd", xext, encpts, light, trans, weights, rows_per_img,
+        compute_dtype)
+    M, dev = xext.shape[0], xext.device
     rgb = torch.empty((M, 3), dtype=torch.float32, device=dev)
     dens = torch.empty((M, 1), dtype=torch.float32, device=dev)
     tr = torch.empty((M, 5), dtype=torch.float32, device=dev)
@@ -475,6 +498,44 @@ def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
 st_field_fwd.launches = 0
 
 
+def bwd_inputs(what, feat, encpts, light, trans, weights, rows_per_img,
+               compute_dtype, others=()):
+    """The heads' backward kernels' checked inputs and zeroed outputs:
+    (heads wpack, heads bias, Wᵀ pack, ke, ep, lrow, trow, layout, grads,
+    d_lrow, d_trow) on the residual's card; ``others`` are further tensors
+    that must lie there."""
+    _check_cuda(what, feat, compute_dtype)
+    M, e3 = feat.shape[0], encpts.shape[1]
+    dev = feat.device
+    _check_rows(what, M, encpts, light, trans, rows_per_img)
+    if feat.dtype != torch.bfloat16 or tuple(feat.shape) != (M, HIDDEN):
+        raise ValueError(f"{what}: expects a bf16 [M,256] residual, got "
+                         f"{feat.dtype} {tuple(feat.shape)}")
+    wh, bh, wT, ke = weights.kernel_buffers_bwd(e3)
+    if any(t.device != dev for t in (encpts, light, trans, wh, *others)):
+        raise ValueError(f"{what}: inputs, gradients, latents and weights "
+                         f"must all lie on {dev}")
+    lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
+    ep = torch.zeros((M, ke), dtype=torch.bfloat16, device=dev)
+    ep[:, :e3] = encpts
+    lrow = lrow.float().contiguous()
+    trow = trow.float().contiguous()
+    layout = _grad_layout(weights, ke)
+    grads = torch.zeros(sum(r * c for *_, r, c in layout),
+                        dtype=torch.float32, device=dev)
+    return (wh, bh, wT, ke, ep, lrow, trow, layout, grads,
+            torch.zeros_like(lrow), torch.zeros_like(trow))
+
+
+def finish_flat(weights, layout, grads, d_lrow, d_trow, light, trans, e3):
+    """The backward kernels' flat f32 output → ``_finish_bwd``'s result."""
+    parts, off = {}, 0
+    for name, li, part, r, c in layout:
+        parts[(name, li, part)] = grads[off:off + r * c].view(r, c)
+        off += r * c
+    return _finish_bwd(weights, parts, d_lrow, d_trow, light, trans, e3)
+
+
 def st_field_bwd(feat, encpts, light, trans, weights, rows_per_img, g_rgb,
                  g_trans, compute_dtype=torch.bfloat16):
     """Gradients of the heads and latents → (head grads in
@@ -486,32 +547,14 @@ def st_field_bwd(feat, encpts, light, trans, weights, rows_per_img, g_rgb,
         return st_field_bwd_plain(feat, encpts, light, trans, weights,
                                   rows_per_img, g_rgb, g_trans,
                                   compute_dtype)
-    _check_cuda("st_field_bwd", feat, compute_dtype)
-    M, e3 = feat.shape[0], encpts.shape[1]
-    dev = feat.device
-    _check_rows("st_field_bwd", M, encpts, light, trans, rows_per_img)
-    if (feat.dtype != torch.bfloat16 or tuple(feat.shape) != (M, HIDDEN)
-            or tuple(g_rgb.shape) != (M, 3)
-            or tuple(g_trans.shape) != (M, 5)):
-        raise ValueError("st_field_bwd: expects a bf16 [M,256] residual and "
-                         f"[M,3]/[M,5] gradients, got {feat.dtype} "
-                         f"{tuple(feat.shape)}, {tuple(g_rgb.shape)}, "
-                         f"{tuple(g_trans.shape)}")
-    wh, bh, wT, ke = weights.kernel_buffers_bwd(e3)
-    if any(t.device != dev for t in (encpts, light, trans, g_rgb, g_trans,
-                                     wh)):
-        raise ValueError("st_field_bwd: inputs, gradients, latents and "
-                         f"weights must all lie on {dev}")
-    lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
-    ep = torch.zeros((M, ke), dtype=torch.bfloat16, device=dev)
-    ep[:, :e3] = encpts
-    lrow = lrow.float().contiguous()
-    trow = trow.float().contiguous()
-    layout = _grad_layout(weights, ke)
-    grads = torch.zeros(sum(r * c for *_, r, c in layout),
-                        dtype=torch.float32, device=dev)
-    d_lrow = torch.zeros_like(lrow)
-    d_trow = torch.zeros_like(trow)
+    M = feat.shape[0]
+    if tuple(g_rgb.shape) != (M, 3) or tuple(g_trans.shape) != (M, 5):
+        raise ValueError("st_field_bwd: expects [M,3]/[M,5] gradients, got "
+                         f"{tuple(g_rgb.shape)}, {tuple(g_trans.shape)}")
+    (wh, bh, wT, ke, ep, lrow, trow, layout, grads, d_lrow,
+     d_trow) = bwd_inputs("st_field_bwd", feat, encpts, light, trans,
+                          weights, rows_per_img, compute_dtype,
+                          (g_rgb, g_trans))
     g_rgb = g_rgb.float().contiguous()
     g_trans = g_trans.float().contiguous()
     feat = feat.contiguous()
@@ -521,14 +564,11 @@ def st_field_bwd(feat, encpts, light, trans, weights, rows_per_img, g_rgb,
         wh.data_ptr(), bh.data_ptr(), wT.data_ptr(), lrow.data_ptr(),
         trow.data_ptr(), grads.data_ptr(), d_lrow.data_ptr(),
         d_trow.data_ptr(), M, ke, int(rows_per_img), lrow.shape[0],
-        len(weights.rgb), len(weights.trans), _build.stream_ptr(dev))
+        len(weights.rgb), len(weights.trans), _build.stream_ptr(feat.device))
     _build.check(err, "st_field_bwd")
     st_field_bwd.launches += 1
-    parts, off = {}, 0
-    for name, li, part, r, c in layout:
-        parts[(name, li, part)] = grads[off:off + r * c].view(r, c)
-        off += r * c
-    return _finish_bwd(weights, parts, d_lrow, d_trow, light, trans, e3)
+    return finish_flat(weights, layout, grads, d_lrow, d_trow, light, trans,
+                       encpts.shape[1])
 
 
 st_field_bwd.launches = 0

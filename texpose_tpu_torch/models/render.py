@@ -22,9 +22,9 @@ from ..geometry.rays import cam2world, convert_NDC, img2cam, pixel_grid, to_hom
 from ..kernels.composite import fused_composite_coarse, fused_composite_st
 from ..nn.fields import (forward_coarse_render, forward_samples_nerf,
                          forward_samples_nerf_raw, forward_samples_nerf_st,
-                         forward_samples_nerf_st_raw,
+                         forward_samples_nerf_st_raw, forward_st_render,
                          use_fused_coarse_mega, use_fused_coarse_render,
-                         use_fused_render)
+                         use_fused_render, use_fused_st_render)
 from ..ops.render import (composite, composite_static_transient,
                           sample_depth, sample_depth_from_pdf,
                           union_sorted_depths)
@@ -149,13 +149,20 @@ def render_st_core(nerf, cfg, center, ray, near, far, latent_trans,
     """Samples → field → dual composite.  depth_rand [B,R,N,1] uniforms
     make the samples stratified (training), else mid-bin; density_noise
     [B,R,N] is the training density noise's standard normal draw (plain
-    route only: the gate sends noisy configs there).  The kernel route
-    (use_fused_render) returns the composite dict with the scalar
+    route only: the gates send noisy configs there).  Routes, as the JAX
+    package's: the render kernels (``use_fused_st_render``: field and
+    composite in one kernel per direction), the two-kernel route
+    (``use_fused_render``: field kernel → composite kernel), the plain
+    route.  The kernel routes return the composite dict with the scalar
     'trans_density_mean'; the plain route adds the per-sample leaves."""
     N = int(cfg.nerf.sample_intvs)
     depth_samples = sample_depth(near, far, N, param=cfg.nerf.depth.param,
                                  rand=depth_rand)
     min_uncert = cfg.nerf.get("min_uncert", 0.05)
+    if use_fused_st_render(cfg, nerf, N):
+        return forward_st_render(nerf, cfg, center, ray, depth_samples,
+                                 latent_trans, latent_light, min_uncert,
+                                 progress, compute_dtype)
     if use_fused_render(cfg, nerf):
         rgb_raw, dens_raw, trans_raw = forward_samples_nerf_st_raw(
             nerf, cfg, center, ray, depth_samples, latent_trans,

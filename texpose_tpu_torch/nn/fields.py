@@ -24,21 +24,26 @@ static/transient/light field.
 ``NerfST`` holds the frozen 8×256 trunk (``mlp_feat``), the light-latent
 RGB head (``mlp_rgb``) and the transient head (``mlp_trans``) as
 ``Dense`` layers with weights stored [in, out], so the checkpoint bridge
-maps the JAX npz leaves onto it one to one.  Two forward routes, as in
+maps the JAX npz leaves onto it one to one.  Three forward routes, as in
 the JAX package:
   * ``apply_nerf_st`` — plain PyTorch heads, activated outputs, the trunk
     through ``run_trunk``;
   * ``apply_nerf_st_raw`` — raw head outputs through the ST-field kernel
     wrapper (kernels/st_field.py), the input of the composite kernel; with
     grad enabled it goes through the autograd Function ``st_field``, whose
-    backward is the field's backward kernel.
-In the texture stage the trunk is frozen: neither route lets a gradient
-reach it.  The training-only density noise (``nerf.density_noise_reg``)
+    backward is the field's backward kernel;
+  * ``forward_st_render`` — field and composite in one kernel per
+    direction (kernels/st_render.py), where ``use_fused_st_render`` picks
+    it (``kernels.st_mega``), as JAX's mega route.
+In the texture stage the trunk is frozen: no route lets a gradient reach
+it.  The training-only density noise (``nerf.density_noise_reg``)
 takes the plain route, as in the JAX package; the noise is an explicit
 standard-normal input drawn by the caller.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
@@ -48,6 +53,7 @@ from ..kernels.coarse_field import (ROW_TILE, CoarseFieldWeights,
                                     coarse_render, coarse_render_fwd)
 from ..kernels.st_field import (STFieldWeights, TrunkWeights, make_xext,
                                 st_field, st_field_fwd)
+from ..kernels.st_render import fused_st_render
 from ..kernels.trunk import trunk_fwd
 from ..ops.posenc import c2f_band_weights, posenc_with_identity
 from ..ops.render import _dists, composite
@@ -532,14 +538,14 @@ def forward_samples_nerf_st_raw(nerf, cfg, center, ray, depth_samples,
 
 
 def use_fused_render(cfg, nerf):
-    """Whether rendering takes the kernel route (ST-field kernel → composite
-    kernel on raw outputs): the JAX gate's contract (softplus density,
-    view-dependent posenc, a transient head, ≥2-layer heads, no training
-    density noise, the ``kernels.fused_st`` / ``kernels.fused_composite``
-    switches).  The compute dtype is not part of the gate: on the card the
-    field kernel computes in bf16 only and its wrapper raises for anything
-    else.  Where the JAX package would take its ST mega kernel instead
-    (``kernels.st_mega`` on), this raises: that kernel is not ported."""
+    """Whether rendering takes a kernel route (ST-field kernel → composite
+    kernel on raw outputs, or the render kernels when
+    ``use_fused_st_render`` also holds): the JAX gate's contract (softplus
+    density, view-dependent posenc, a transient head, ≥2-layer heads, no
+    training density noise, the ``kernels.fused_st`` /
+    ``kernels.fused_composite`` switches).  The compute dtype is not part
+    of the gate: on the card the field kernels compute in bf16 only and
+    their wrappers raise for anything else."""
     kcfg = cfg.get("kernels") or {}
     if not (kcfg.get("fused_st", True) and kcfg.get("fused_composite", True)):
         return False
@@ -550,12 +556,55 @@ def use_fused_render(cfg, nerf):
     if not (cfg.arch.get("posenc") and cfg.arch.posenc.get("L_view")
             and cfg.nerf.view_dep):
         return False
-    if len(nerf.mlp_rgb) < 2 or len(nerf.mlp_trans) < 2:
+    return len(nerf.mlp_rgb) >= 2 and len(nerf.mlp_trans) >= 2
+
+
+def use_fused_st_render(cfg, nerf, N):
+    """Whether rendering takes the render kernels (field + composite in one
+    kernel per direction, kernels/st_render.py): JAX's gate of the same
+    name.  The knob is ``kernels.st_mega``, or TEXPOSE_ST_MEGA=1 where that
+    key is null (off by default); then ``use_fused_render`` must hold, and
+    the route falls back to the two-kernel route on each of JAX's clauses:
+    a posenc mode other than xext, split heads off, the trunk fullblock /
+    ILP experiments, the TEXPOSE_ST_BWD_FULLBLOCK / _HEADS_FULLBLOCK
+    switches (each read as JAX reads it; they pick the route only, the
+    math is the same).  JAX's layout clause (``mega_layout_ok``: whole
+    rays in every 512-row TPU subtile) is TPU tiling; in its place stands
+    the CUDA kernels' own contract, whole rays in every 64-row tile (N
+    divides 64), as ``use_fused_coarse_mega``'s."""
+    kcfg = cfg.get("kernels") or {}
+    knob = kcfg.get("st_mega")
+    if knob is None:
+        knob = os.environ.get("TEXPOSE_ST_MEGA", "0") == "1"
+    if not knob or not use_fused_render(cfg, nerf):
         return False
-    if kcfg.get("st_mega"):
-        raise NotImplementedError(
-            "kernels.st_mega: the ST field + composite mega kernel "
-            "(texpose_tpu/kernels/fused_st_render.py) is not ported to "
-            "texpose_tpu_torch yet (ROADMAP.md, Queue 2 row 6); leave "
-            "kernels.st_mega off for the two-kernel route")
-    return True
+    enc_mode = kcfg.get("st_posenc") or os.environ.get("TEXPOSE_ST_POSENC",
+                                                       "xext")
+    split = kcfg.get("st_split_heads")
+    if split is None:
+        split = os.environ.get("TEXPOSE_ST_SPLIT_HEADS", "1") == "1"
+    if enc_mode != "xext" or not split:
+        return False
+    if kcfg.get("st_trunk_fullblock") or kcfg.get("st_trunk_ilp"):
+        return False
+    if (os.environ.get("TEXPOSE_ST_BWD_FULLBLOCK", "0") == "1"
+            or os.environ.get("TEXPOSE_ST_HEADS_FULLBLOCK", "0") == "1"):
+        return False
+    return ROW_TILE % int(N) == 0
+
+
+def forward_st_render(nerf, cfg, center, ray, depth_samples, latent_trans,
+                      latent_light, min_uncert, progress=None,
+                      compute_dtype=None):
+    """Render-kernel route (JAX's function of this name): the field's row
+    inputs as ``forward_samples_nerf_st_raw`` builds them (per-ray view
+    encodings broadcast over the samples), then ``fused_st_render`` → the
+    composite dict with the scalar 'trans_density_mean'.  With grad enabled
+    the heads and latents differentiate through its autograd Function."""
+    pts = center[..., None, :] + ray[..., None, :] * depth_samples
+    B, R, N, _ = pts.shape
+    ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+    xext, encpts = st_field_inputs(cfg, pts, ray_unit, progress)
+    return fused_st_render(xext, encpts, latent_light, latent_trans,
+                           depth_samples, ray, nerf.kernel_weights(), R * N,
+                           compute_dtype or torch.bfloat16, min_uncert)

@@ -10,7 +10,9 @@ pretrain's fine field, 393,216 rows = 2048 rays × (64 + 128) samples.
 
 The bound is chip_smoke.py's: the larger of the bytes the function must
 move (each input read once, each output written once) over 3.35 TB/s and
-its operations over 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32).
+its operations over 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32;
+the render kernels of rows 6f/6b add their composite's f32 operations to
+their bf16 ones).
 A field function's input is its points (the last columns of its enc⊕pts
 rows, or [M,3] for the trunk alone), not the posenc rows derived from them.
 Pure arithmetic on the shapes: no card is needed, and for the ported
@@ -71,13 +73,20 @@ def main():
         ("4 composite_st bwd", cs.nbytes(t(M, 9), t(BR, N), t(BR, 16),
                                          t(M, 8)),
          cs.COMPOSITE_ST_BWD_OPS * M, cs.PEAK_F32),
-        ("6 st mega fwd", cs.nbytes(enc_st, *lat, *planes(N),
-                                    t(BR, 16), *st_params), st_fwd,
-         cs.PEAK_BF16),
-        ("6 st mega bwd", cs.nbytes(t(M, 256, dtype=torch.bfloat16), enc_st,
-                                    *lat, t(M, 9), *planes(N), t(BR, 16),
-                                    *st.head_params(), *head_grads, *lat),
-         st_bwd, cs.PEAK_BF16),
+        ("6f st render fwd, eval", cs.nbytes(enc_st, t(1, 48), t(1, 16),
+                                             *planes(N), t(BR, 16),
+                                             *st_params), st_fwd,
+         cs.PEAK_BF16, cs.COMPOSITE_ST_FWD_OPS * M),
+        ("6f st render fwd, training", cs.nbytes(
+            enc_st, *lat, *planes(N), t(BR, 16), t(M, 9),
+            t(M, 256, dtype=torch.bfloat16), *st_params), st_fwd,
+         cs.PEAK_BF16, cs.COMPOSITE_ST_FWD_OPS * M),
+        ("6b st render bwd", cs.nbytes(t(M, 256, dtype=torch.bfloat16),
+                                       enc_st, *lat, t(M, 1), t(BR, N),
+                                       t(BR, 16), *st.head_params(),
+                                       *head_grads, *lat),
+         2 * cs.mega_bwd_macs(st, e3_st) * M, cs.PEAK_BF16,
+         cs.COMPOSITE_ST_BWD_OPS * M),
     ]
     for what, m in (("coarse", M), ("fine", MF)):
         e = t(m, e3_co)
@@ -112,8 +121,8 @@ def main():
         t(M, 3), t(M, 256, dtype=torch.bfloat16), t(M), *trunk_params),
         trunk_ops, cs.PEAK_BF16))
     print(f"{'row':32s} {'MB':>10s} {'GFLOP':>10s} {'bound ms':>10s}  by")
-    for name, n_bytes, ops, peak in rows:
-        ms, by = cs.bound(n_bytes, ops, peak)
+    for name, n_bytes, ops, peak, *f32_ops in rows:
+        ms, by = cs.bound(n_bytes, ops, peak, *f32_ops)
         print(f"{name:32s} {n_bytes / 1e6:10.2f} {ops / 1e9:10.2f} "
               f"{ms:10.4f}  {by}")
     print("(row 5 is rows 3/4 on the flat layout; row 9c is rows 9a/9b on "

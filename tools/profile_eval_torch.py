@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_eval_torch.py [--frames 12] [--trace out.json]
     python3 tools/profile_eval_torch.py --train [--steps 30] [--trace ...]
+    python3 tools/profile_eval_torch.py [--train] --st-mega [--steps 30]
     python3 tools/profile_eval_torch.py --pretrain [--steps 30] [--trace ...]
     python3 tools/profile_eval_torch.py --pretrain --fine [--steps 30]
 
@@ -43,6 +44,10 @@ cold, then prints:
   train_device_ops / train_cpu_ops: the op tables, as above;
   train_pack:    ms to repack the field's weights after an update (the
                  head packs rebuild on every step), host clock.
+With --st-mega the frames and steps render through the render kernels
+(--kernels.st_mega=true: the render forward; in a step the hybrid backward
+or, with TEXPOSE_MEGA_FULLBWD=1 in the environment, the fused one); the
+train lines then take the prefix ``train_st_mega``.
 
 --pretrain builds chip_smoke.py's pretrain fixture (``pretrain_argv``: 16
 train images at 128x128, the full width of configs/nerf_lm_pretrain.yaml,
@@ -307,6 +312,10 @@ def main_train(args):
         elif args.pretrain:
             argv, _ = pretrain_argv(HERE, tmp, dev, 5)
             key = "pretrain"
+        elif args.st_mega:
+            argv, _ = train_argv(HERE, tmp, dev, 5,
+                                 extra=("--kernels.st_mega=true",))
+            key = "train_st_mega"
         else:
             argv, _ = train_argv(HERE, tmp, dev, 5)
         eng = train.main(argv)
@@ -326,6 +335,8 @@ def main():
                     help="profile warm geometry-pretrain steps instead")
     ap.add_argument("--fine", action="store_true",
                     help="with --pretrain: the hierarchical pretrain")
+    ap.add_argument("--st-mega", action="store_true",
+                    help="render through the render kernels (st_mega)")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace", default=None,
                     help="write the profiled run as a Chrome trace here")
@@ -343,7 +354,10 @@ def main():
     dev = torch.device("cuda", 0)
     tmp = tempfile.mkdtemp(prefix="texpose_profile_")
     try:
-        engine = evaluate.main(fixture_argv(HERE, tmp, dev, args.frames))
+        argv = fixture_argv(HERE, tmp, dev, args.frames)
+        if args.st_mega:
+            argv.append("--kernels.st_mega=true")
+        engine = evaluate.main(argv)
         torch.cuda.synchronize()
         profile(engine, args.frames, args.trace)
         frame_times(engine)

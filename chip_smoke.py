@@ -6,9 +6,12 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero and no result line is printed:
-  1. build: the five kernel sources compiled from csrc/ by nvcc (sm_90a),
-     in parallel;
-  2. kernels: each of the twelve kernels against its plain-PyTorch twin on
+  1. build: the six kernel sources compiled from csrc/ by nvcc (sm_90a),
+     in parallel with the measurement builds of the one-kernel field
+     backwards (coarse_field.cu and st_field.cu with
+     -DFIELD_BWD_ONE_KERNEL, tools/probe_field_bwd_atomics.py), which
+     nothing but the comparison below runs;
+  2. kernels: each of the fourteen kernels against its plain-PyTorch twin on
      the card at the main paths' shapes — ST field forward on one
      2048-ray × 64-sample chunk (131,072 rows, full width, bf16), its
      backward on the train step's 8 images × 16,384 rows, the dual
@@ -22,7 +25,15 @@ Phases; any failure exits non-zero and no result line is printed:
      samples per ray, its backward at 192 and the field backward at
      393,216 rows — checked against the bounds
      below, timed with CUDA events (median of repeats) and set beside the
-     least time the card could take (``bound``);
+     least time the card could take (``bound``).  The two field backwards
+     (rows 7b and 2) run split: a dX-chain kernel, then the grouped dW
+     GEMM and its reduction (csrc/dw_gemm.cu).  At each of their three
+     shapes the GEMM and the reduction are held against the direct f32
+     products of the planes the dX chain wrote, each phase is timed alone
+     beside the GEMM's yardstick (one torch.matmul per segment), and the
+     one-kernel form they replaced (f32 dW atomics, from the measurement
+     build) is held against the twin and timed against the split form in
+     turns (old, new, new, old);
   3. eval: ``texpose_tpu_torch.evaluate`` (the CLI entry) on a generated
      480×640 fixture at the full width of configs/nerf_lm_adapt_gan.yaml,
      weights from the port's seeded init saved as a JAX-format npz and
@@ -35,13 +46,17 @@ Phases; any failure exits non-zero and no result line is printed:
      steps on a 128×128 fixture of 16 train images at the same full width
      (batch 8 of 16×16 patches, 64 samples, VGG + GAN + R1 losses), the
      trunk from a seeded JAX-format pretrain_model.ckpt via
-     --resume_pretrain.  All four texture kernels' launch counters are
+     --resume_pretrain.  All four texture kernels' launch counters (and
+     the dW GEMM's and its reduction's) are
      zeroed just before and must be > 0 after it; every logged loss must be
      finite, the trunk unchanged and the heads moved, model.ckpt must hold
      the JAX package's train-state keypaths, and the port's evaluate must
      reload it.  Then, from one state and one set of draws, the kernel
-     route's losses and gradients must agree with the plain route's, and
-     warm steps/s and rays/s (2048 rays per step) are timed;
+     route's losses and gradients must agree with the plain route's; one
+     step with kernels.fused_composite=false must launch the field kernels
+     (and the dW GEMM) once each and no composite kernel, and agree with
+     the two-kernel route; warm steps/s and rays/s (2048 rays per step)
+     are timed;
   5. trunk: the evaluate CLI on 2 generated 480×640 frames with the model
      trained in phase 4 and --nerf.density_noise_reg=1, where the ST
      kernels' gate is off and the trunk kernel runs under plain heads: its
@@ -51,7 +66,8 @@ Phases; any failure exits non-zero and no result line is printed:
      PRETRAIN_STEPS steps at the full width of configs/nerf_lm_pretrain.yaml
      (8×256 trunk, skip at 4, RGB head 256-256-256-3, bf16, 64 samples,
      2048 rays) on a 128×128 fixture of 16 train images.  The three coarse
-     kernels' counters are zeroed just before and must be > 0 after it;
+     kernels' counters and the dW GEMM's and its reduction's are zeroed
+     just before and must be > 0 after it;
      the losses must be finite, the trunk and the head both moved,
      model.ckpt must hold the JAX package's keypaths and the port's
      evaluate --resume must reload it; the kernel route must agree with the
@@ -62,7 +78,8 @@ Phases; any failure exits non-zero and no result line is printed:
   7. hierarchical: the same CLI with --nerf.fine_sampling=true
      --nerf.sample_intvs_fine=128 --loss_weight.render_fine=0 for
      HIER_STEPS steps (both fields through the field forward and backward
-     kernels: each counter exactly 2 per step), finite losses with
+     kernels, the dW GEMM and its reduction: each counter exactly 2 per
+     step), finite losses with
      render_fine, both fields' leaves moved, the route check against the
      plain route, warm steps/s, rays/s and the step's peak device memory;
   8. two-kernel: the pretrain CLI with --kernels.coarse_mega=false for
@@ -124,6 +141,12 @@ FIELD_BWD_MAX = 5e-2
 # composite backward — float32 on both sides; the suffix sums' order
 # differs: 1e-4 of the largest magnitude.
 COMPOSITE_BWD_REL = 1e-4
+# grouped dW GEMM (phase b of the split field backwards) vs the direct f32
+# products of the same bf16 planes: the products are exact in f32 on both
+# sides, only the order of the f32 sums differs (k-steps, split partials):
+# 1e-4 of each block's norm and largest magnitude; its reduction vs the
+# twin's sum of the same partials, 1e-4 absolute (f32 adds, gradients ≲ 1).
+DW_REL = 1e-4
 # train step, kernel route vs plain route from one state and one set of
 # draws, both rounding every matmul operand to bf16: the plain route
 # concatenates the heads' layer-0 input where the kernel splits it, and
@@ -209,12 +232,137 @@ def entry(err, ms, plain_ms, bnd, **extra):
             **extra}
 
 
+def split_bwd(module, split, one_kernel, twin_grads, a_reads, writes_h,
+              what):
+    """The split field backward (rows 7b and 2: the dX-chain kernel, the
+    grouped dW GEMM, the reduction) against the one-kernel form it replaced
+    and phase by phase, on the inputs that ``split()`` (the wrapper, which
+    sends its planes through ``module.dw_grads``) runs on.
+    ``one_kernel()`` runs the one-kernel form (the measurement build's
+    entry, not the package's); ``twin_grads`` are the plain twin's
+    gradients; ``a_reads`` are the tensors phase (a) reads, and with
+    ``writes_h`` it also writes the A planes phase (b) reads (row 2's
+    recomputed hidden activations).  Returns (the split form's extra
+    numbers, dw_gemm's entry, dw_reduce's entry)."""
+    import torch
+    from texpose_tpu_torch.kernels import dw_gemm as dw
+
+    real = module.dw_grads
+    seen = {}
+
+    def capture(*args):
+        seen["args"] = args
+        return real(*args)
+
+    module.dw_grads = capture
+    try:
+        split()
+        torch.cuda.synchronize()
+        srcs, g_wide, g_narrow, segs, grads = seen["args"]
+        module.dw_grads = lambda *args: args[-1]
+        dx_ms = time_ms(split)                   # phase (a) and the staging
+    finally:
+        module.dw_grads = real
+
+    # the old one-kernel form against the twin, and in turns with the split
+    # form (old, new, new, old)
+    old = one_kernel()
+    torch.cuda.synchronize()
+    old_norm = max(rel_norm(a, b) for a, b in zip(old, twin_grads))
+    ab = [time_ms(f) for f in (one_kernel, split, split, one_kernel)]
+
+    # phase (b): the GEMM kernel and the reduction on phase (a)'s planes,
+    # against the segments' direct f32 products of the same planes
+    total = grads.numel()
+    partial, prob = dw.dw_gemm(srcs, g_wide, g_narrow, segs)
+    got = dw.dw_reduce(partial, prob, torch.zeros(total, device=grads.device))
+    want = dw.dw_plain(srcs, g_wide, g_narrow, segs,
+                       torch.zeros(total, device=grads.device))
+    red_want = dw.dw_reduce_plain(partial, prob, torch.zeros_like(got))
+    torch.cuda.synchronize()
+    blocks = [(got[s.out:s.out + s.k_in * s.n], want[s.out:s.out + s.k_in * s.n])
+              for s in segs]
+    dw_norm = max(rel_norm(a, b) for a, b in blocks)
+    dw_peak = max(rel_max(a, b) for a, b in blocks)
+    dw_abs = max(float((a - b).abs().max()) for a, b in blocks)
+    red_abs = float((got - red_want).abs().max())
+    gemm_ms = time_ms(lambda: dw.dw_gemm(srcs, g_wide, g_narrow, segs))
+    per, splits = dw.split_rows(g_wide.shape[1], prob.shape[0],
+                                torch.cuda.get_device_properties(
+                                    grads.device).multi_processor_count)
+    gemm_plain = time_ms(lambda: dw.dw_gemm_plain(
+        srcs, g_wide, g_narrow, prob.tolist(), per, splits), reps=3)
+    red_ms = time_ms(lambda: dw.dw_reduce(partial, prob, got), reps=20)
+    red_plain = time_ms(lambda: dw.dw_reduce_plain(partial, prob, got),
+                        reps=3)
+    # the yardsticks: one torch.matmul per segment on the same planes, and
+    # one sum over the splits
+    views = [(dw._planes(srcs[s.a])[s.a_plane][:, s.a_col:s.a_col + s.k_in],
+              (g_wide[s.b_plane] if s.b == dw.WIDE else g_narrow)[
+                  :, s.b_col:s.b_col + s.n]) for s in segs]
+    lib_ms = time_ms(lambda: [torch.matmul(h.t(), g) for h, g in views])
+    red_lib = time_ms(lambda: partial.sum(1), reps=20)
+
+    M = g_wide.shape[1]
+    used = {(s.a, s.a_plane) for s in segs}
+    h_bytes = sum(dw._planes(srcs[a])[p].numel() * 2 for a, p in used)
+    g_bytes = nbytes(g_wide, g_narrow)
+    out_bytes = 4 * sum(s.k_in * s.n for s in segs)
+    dw_ops = 2 * M * sum(s.k_in * s.n for s in segs)
+    valid = 4 * sum(r[3] * r[7] for r in prob.tolist())   # bytes a split
+    gemm_bound = bound(h_bytes + g_bytes + valid * splits, dw_ops, PEAK_BF16)
+    red_bound = bound(valid * splits + out_bytes, valid * splits // 4,
+                      PEAK_F32)
+    # the split design's byte floor: phase (a) reads its inputs and writes
+    # the planes, phase (b) reads the planes and the inputs it shares
+    a_bytes = nbytes(*a_reads) + g_bytes + (nbytes(srcs[0]) if writes_h
+                                            else 0)
+    floor_ms = (a_bytes + h_bytes + g_bytes) / PEAK_BYTES * 1e3
+    tflops = dw_ops / (gemm_ms * 1e-3) / 1e12
+    print(f"kernel {what} split: M={M} dX chain (phase a, staging included) "
+          f"{dx_ms:.4f} ms; dw_gemm {gemm_ms:.4f} ms vs plain {gemm_plain:.4f}"
+          f" ms, torch.matmul of the same segments {lib_ms:.4f} ms (bound "
+          f"{gemm_bound[0]:.4f} ms, {gemm_bound[1]}; {tflops:.1f} TFLOP/s), "
+          f"dW vs the direct products worst block "
+          f"‖err‖/‖ref‖={dw_norm:.3g} max|err|/max|ref|={dw_peak:.3g} (bound "
+          f"{DW_REL}); dw_reduce {red_ms:.4f} ms vs plain {red_plain:.4f} ms, "
+          f"sum over splits {red_lib:.4f} ms (bound {red_bound[0]:.4f} ms, "
+          f"{red_bound[1]}) max|err|={red_abs:.3g}; byte floor of the split "
+          f"design {floor_ms:.4f} ms; one-kernel form vs twin worst "
+          f"‖err‖/‖ref‖={old_norm:.3g}; A/B old {ab[0]:.4f} / new {ab[1]:.4f}"
+          f" / new {ab[2]:.4f} / old {ab[3]:.4f} ms", flush=True)
+    if not (dw_norm <= DW_REL and dw_peak <= DW_REL and red_abs <= DW_REL
+            and old_norm <= FIELD_BWD_NORM):
+        fail(f"{what}: the dW GEMM or its reduction disagrees with the "
+             "direct products, or the one-kernel form with the twin")
+    extra = dict(dx_ms=dx_ms, dw_gemm_ms=gemm_ms, dw_reduce_ms=red_ms,
+                 one_kernel_ms=[ab[0], ab[3]],
+                 split_ms=[ab[1], ab[2]], one_kernel_rel_norm=old_norm)
+    gemm = dict(entry(dw_abs, gemm_ms, gemm_plain, gemm_bound,
+                      rel_norm=dw_norm), library_ms=lib_ms)
+    red = dict(entry(red_abs, red_ms, red_plain, red_bound),
+               library_ms=red_lib)
+    return extra, gemm, red
+
+
 # f32 operations per sample of the composites, counted from the kernels'
 # arithmetic (a transcendental counted as one): far below their bytes
 COMPOSITE_ST_FWD_OPS = 60
 COMPOSITE_ST_BWD_OPS = 110
 COMPOSITE_COARSE_FWD_OPS = 30
 COMPOSITE_COARSE_BWD_OPS = 40
+
+
+def load_probe(here):
+    """tools/probe_field_bwd_atomics.py as a module: the one-kernel field
+    backwards' measurement build and launchers."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "probe_field_bwd_atomics",
+        os.path.join(here, "tools", "probe_field_bwd_atomics.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def load_cfg(here):
@@ -259,14 +407,16 @@ def eval_chunk(cfg, dev, seed):
             trans)
 
 
-def kernel_phase(cfg, dev):
+def kernel_phase(cfg, dev, one_kernel):
     """Each kernel against its twin on one eval chunk; returns the
-    measured numbers per kernel."""
+    measured numbers per kernel.  ``one_kernel["st_field"]`` runs the ST
+    heads' one-kernel backward (the measurement build)."""
     import torch
     from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
                                                      composite_st_bwd_plain,
                                                      composite_st_fwd,
                                                      composite_st_plain)
+    from texpose_tpu_torch.kernels import st_field as sf_module
     from texpose_tpu_torch.kernels.st_field import (st_field_bwd,
                                                     st_field_bwd_plain,
                                                     st_field_fwd,
@@ -382,10 +532,18 @@ def kernel_phase(cfg, dev):
               f"vs plain {fplain:.4f} ms", flush=True)
         if not (norm <= FIELD_BWD_NORM and peak <= FIELD_BWD_MAX):
             fail("st_field backward kernel disagrees with its plain twin")
+        extra, gemm, red = split_bwd(
+            sf_module, lambda: st_field_bwd(*gargs),
+            lambda: (lambda r: list(r[0]) + list(r[1:]))(
+                one_kernel["st_field"](*gargs)),
+            flat_want, (feat, g_rgb, g_tr, torch.empty(     # + staged ep
+                (M, -(-et.shape[1] // 16) * 16), dtype=torch.bfloat16,
+                device="meta")), True, "st_field_bwd")
         out["st_field_bwd"] = entry(fmax, fms, fplain, bound(
             nbytes(feat, et, lt, tt, g_rgb, g_tr, *weights.head_params(),
                    *flat_got),
-            2 * st_bwd_macs(weights, et.shape[1]) * M, PEAK_BF16))
+            2 * st_bwd_macs(weights, et.shape[1]) * M, PEAK_BF16), **extra)
+        out["_dw"] = {f"row 2, {M} rows": (gemm, red)}
 
         # the trunk forward on the eval chunk: the trunk of an evaluation
         # whose heads run plain (nerf.density_noise_reg)
@@ -621,14 +779,17 @@ def coarse_macs(weights, e3):
     return fwd, fwd + dx
 
 
-def coarse_kernel_phase(here, dev):
+def coarse_kernel_phase(here, dev, one_kernel):
     """The pretrain's three kernels against their twins at the pretrain
     step's shape, 2048 rays × 64 stratified samples (16 images × 128 rays)
-    at the full width of configs/nerf_lm_pretrain.yaml."""
+    at the full width of configs/nerf_lm_pretrain.yaml.
+    ``one_kernel["coarse_field"]`` runs the trunk-training one-kernel
+    backward (the measurement build)."""
     import torch
+    from texpose_tpu_torch.kernels import coarse_field as cf_module
     from texpose_tpu_torch.kernels.coarse_field import (
-        coarse_field_bwd, coarse_field_bwd_plain, coarse_render_fwd,
-        coarse_render_plain)
+        coarse_field_bwd, coarse_field_bwd_plain,
+        coarse_render_fwd, coarse_render_plain)
     from texpose_tpu_torch.kernels.composite import (
         composite_coarse_bwd, composite_coarse_bwd_plain)
     from texpose_tpu_torch.ops.render import union_sorted_depths
@@ -756,7 +917,12 @@ def coarse_kernel_phase(here, dev):
               flush=True)
         if not (norm <= FIELD_BWD_NORM and peak <= FIELD_BWD_MAX):
             fail("coarse_field_bwd kernel disagrees with its plain twin")
-        out["coarse_field_bwd"] = entry(fmax, fms, fplain, fb)
+        extra, gemm, red = split_bwd(
+            cf_module, lambda: coarse_field_bwd(*fargs),
+            lambda: one_kernel["coarse_field"](*fargs), fref, (acts, *cgot),
+            False, "coarse_field_bwd")
+        out["coarse_field_bwd"] = entry(fmax, fms, fplain, fb, **extra)
+        out["_dw"] = {f"row 7b, {M} rows": (gemm, red)}
 
         # the field forward with raw outputs (row 7a) on the coarse field's
         # rows and on the fine field's: the coarse samples plus 128 more
@@ -832,8 +998,13 @@ def coarse_kernel_phase(here, dev):
         if not (norm <= FIELD_BWD_NORM and peak <= FIELD_BWD_MAX):
             fail(f"coarse_field_bwd kernel disagrees with its plain twin at "
                  f"{MF} rows")
+        extra, gemm, red = split_bwd(
+            cf_module, lambda: coarse_field_bwd(*fargs),
+            lambda: one_kernel["coarse_field"](*fargs), fref,
+            (f_res[1], *cgot), False, "coarse_field_bwd")
         out["coarse_field_bwd"]["variants"] = {str(MF): entry(
-            fmax, fms, fplain, fb)}
+            fmax, fms, fplain, fb, **extra)}
+        out["_dw"][f"row 7b, {MF} rows"] = (gemm, red)
     return out
 
 
@@ -1027,15 +1198,17 @@ def slice_phase(here, tmp, dev):
 
 _FIXTURES = {}          # generated fixtures by (scratch directory, kind)
 
+# the split field backwards' phase (b), launched by rows 7b and 2
+DW_KERNELS = ("dw_gemm", "dw_reduce")
 TEXTURE_KERNELS = ("st_field_fwd", "st_field_bwd", "composite_st_fwd",
-                   "composite_st_bwd")
+                   "composite_st_bwd") + DW_KERNELS
 PRETRAIN_KERNELS = ("coarse_render_fwd", "composite_coarse_bwd",
-                    "coarse_field_bwd")
+                    "coarse_field_bwd") + DW_KERNELS
 
 
-FIELD_KERNELS = ("coarse_field_fwd", "coarse_field_bwd")
+FIELD_KERNELS = ("coarse_field_fwd", "coarse_field_bwd") + DW_KERNELS
 TWO_KERNELS = ("coarse_field_fwd", "composite_coarse_fwd",
-               "composite_coarse_bwd", "coarse_field_bwd")
+               "composite_coarse_bwd", "coarse_field_bwd") + DW_KERNELS
 
 
 def _launch_wrappers():
@@ -1050,11 +1223,12 @@ def _launch_wrappers():
     from texpose_tpu_torch.kernels.st_render import (st_render_bwd,
                                                      st_render_fwd)
     from texpose_tpu_torch.kernels.trunk import trunk_fwd
+    from texpose_tpu_torch.kernels.dw_gemm import dw_gemm, dw_reduce
     return {f.__name__: f for f in (
         st_field_fwd, st_field_bwd, composite_st_fwd, composite_st_bwd,
         coarse_render_fwd, composite_coarse_bwd, coarse_field_bwd,
         coarse_field_fwd, composite_coarse_fwd, trunk_fwd, st_render_fwd,
-        st_render_bwd)}
+        st_render_bwd, dw_gemm, dw_reduce)}
 
 
 def zero_launches():
@@ -1186,6 +1360,25 @@ def train_phase(here, tmp, dev):
           f"PSNR {[float(r[1]) for r in q]}", flush=True)
 
     route_check(eng, "fused_st", lambda: gan_grads(eng), "train")
+
+    # kernels.fused_composite off: the field kernels (rows 1 and 2) under
+    # the plain composite, as JAX's apply_nerf_st takes them
+    eng.cfg.kernels.fused_composite = False
+    zero_launches()
+    eng.train_step(eng.make_draws(eng.it))
+    torch.cuda.synchronize()
+    plain_comp = read_launches()
+    want = dict(st_field_fwd=1, st_field_bwd=1, dw_gemm=1, dw_reduce=1,
+                composite_st_fwd=0, composite_st_bwd=0)
+    print(f"train: one step with kernels.fused_composite=false, launches "
+          f"{ {k: plain_comp[k] for k in want} }", flush=True)
+    if any(plain_comp[k] != v for k, v in want.items()):
+        fail(f"train: with fused_composite off the step launched "
+             f"{plain_comp}, expected {want}")
+    route_check(eng, "fused_composite", lambda: gan_grads(eng),
+                "train (fused_composite off)", ref=True,
+                ref_name="two-kernel")
+    eng.cfg.kernels.fused_composite = True
     gan_warm_rate(eng, "train")
     return launches, os.path.join(cfg.output_path, "model.ckpt")
 
@@ -1543,7 +1736,7 @@ def trunk_phase(here, tmp, dev, ckpt):
 
 MEGA_KERNELS = ("st_render_fwd", "st_render_bwd")
 TWO_KERNEL_ST = ("st_field_fwd", "composite_st_fwd", "composite_st_bwd",
-                 "st_field_bwd")
+                 "st_field_bwd") + DW_KERNELS
 
 
 def _with_env(name, value, fn):
@@ -1601,7 +1794,8 @@ def st_mega_phase(here, tmp, dev):
     torch.cuda.synchronize()
     hyb = read_launches()
     want = dict(st_render_fwd=HYBRID_STEPS, composite_st_bwd=HYBRID_STEPS,
-                st_field_bwd=HYBRID_STEPS, st_render_bwd=0, st_field_fwd=0,
+                st_field_bwd=HYBRID_STEPS, dw_gemm=HYBRID_STEPS,
+                dw_reduce=HYBRID_STEPS, st_render_bwd=0, st_field_fwd=0,
                 composite_st_fwd=0)
     print(f"st_mega: {HYBRID_STEPS} hybrid-backward steps, launches "
           f"{ {k: hyb[k] for k in want} }", flush=True)
@@ -1723,21 +1917,45 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     from texpose_tpu_torch.kernels import _build
+    probe = load_probe(here)
     t0 = time.perf_counter()
     sources = ("st_field", "composite", "coarse_field", "trunk_fwd",
-               "st_render")
-    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
-        list(pool.map(_build.build, sources))
-    print(f"build: {len(sources)} kernel sources in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+               "st_render", "dw_gemm")
+    copies = ("coarse_field", "st_field")
+    with ThreadPoolExecutor(len(sources) + len(copies)) as pool:
+        # one nvcc per source and per measurement build
+        built = [pool.submit(_build.build, name) for name in sources]
+        libs = {name: pool.submit(probe.build_copy, name, probe.ONE_KERNEL)
+                for name in copies}
+        for job in built:
+            job.result()
+        libs = {name: probe.load_one_kernel(job.result(), name)
+                for name, job in libs.items()}
+    print(f"build: {len(sources)} kernel sources and {len(copies)} "
+          f"measurement builds in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    one_kernel = {
+        "coarse_field": lambda *a: probe.coarse_one_kernel(
+            libs["coarse_field"], *a),
+        "st_field": lambda *a: probe.st_one_kernel(libs["st_field"], *a)}
 
-    measured = kernel_phase(load_cfg(here), dev)
-    measured.update(coarse_kernel_phase(here, dev))
-    measured.update(st_mega_kernel_phase(load_cfg(here), dev))
+    measured, dw_runs = {}, {}
+    for part in (kernel_phase(load_cfg(here), dev, one_kernel),
+                 coarse_kernel_phase(here, dev, one_kernel),
+                 st_mega_kernel_phase(load_cfg(here), dev)):
+        dw_runs.update(part.pop("_dw", {}))
+        measured.update(part)
+    # the grouped dW GEMM and its reduction serve rows 7b and 2: the
+    # pretrain step's launch first, the other shapes as variants
+    first = next(k for k in dw_runs if k.startswith("row 7b"))
+    for i, name in enumerate(("dw_gemm", "dw_reduce")):
+        measured[name] = dict(dw_runs[first][i], variants={
+            k: v[i] for k, v in dw_runs.items() if k != first})
     tmp = tempfile.mkdtemp(prefix="texpose_chip_smoke_")
     try:
         slice_phase(here, tmp, dev)
         launches, gan_ckpt = train_phase(here, tmp, dev)
+        gan_launches = dict(launches)
         trunk_launches = trunk_phase(here, tmp, dev, gan_ckpt)
         pre_launches, _ = pretrain_phase(here, tmp, dev)
         hier_launches = hierarchical_phase(here, tmp, dev)
@@ -1751,6 +1969,13 @@ def main():
     launches["composite_coarse_fwd"] = two_launches["composite_coarse_fwd"]
     launches["trunk_fwd"] = trunk_launches["trunk_fwd"]
     launches.update({k: mega_launches[k] for k in MEGA_KERNELS})
+    by_path = {"pretrain": pre_launches, "hierarchical": hier_launches,
+               "two_kernel": two_launches, "gan": gan_launches}
+    for k in DW_KERNELS:
+        launches[k] = pre_launches[k]
+        measured[k]["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
+        print(f"{k}: launches by path {measured[k]['launches_by_path']}",
+              flush=True)
 
     src = {"st_field_fwd": ("texpose_tpu_torch/csrc/st_field.cu",
                             "texpose_tpu/kernels/fused_st_field.py:922"),
@@ -1780,7 +2005,13 @@ def main():
            "st_render_fwd": ("texpose_tpu_torch/csrc/st_render.cu",
                              "texpose_tpu/kernels/fused_st_render.py:198"),
            "st_render_bwd": ("texpose_tpu_torch/csrc/st_render.cu",
-                             "texpose_tpu/kernels/fused_st_render.py:314")}
+                             "texpose_tpu/kernels/fused_st_render.py:314"),
+           "dw_gemm": ("texpose_tpu_torch/csrc/dw_gemm.cu",
+                       "texpose_tpu/kernels/fused_coarse_field.py:449, "
+                       "texpose_tpu/kernels/fused_st_field.py:1000"),
+           "dw_reduce": ("texpose_tpu_torch/csrc/dw_gemm.cu",
+                         "texpose_tpu/kernels/fused_coarse_field.py:449, "
+                         "texpose_tpu/kernels/fused_st_field.py:1000")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 **numbers} for name, numbers in measured.items()]

@@ -160,7 +160,7 @@ def test_two_kernel_route_matches_mega_route(root, tmp_path):
         assert _rel(gt[k].numpy(), gm[k].numpy()) <= 1e-4, k
 
 
-def test_st_mega_gate_refuses_until_ported(tmp_path, monkeypatch):
+def test_st_mega_gate_picks_the_render_kernels(tmp_path, monkeypatch):
     """kernels.st_mega on, where the JAX package takes its ST mega kernel
     (row 6, now ported), no longer raises: the render kernels' gate picks
     that route; unset or off, the two-kernel route's gate alone holds, and

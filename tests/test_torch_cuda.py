@@ -329,10 +329,15 @@ def test_composite_coarse_bwd_kernel_matches_plain(cuda, BR, N):
 
 
 @pytest.mark.parametrize("BR,N,view_dep", [(2048, 64, False),
+                                           (2048, 192, False),
                                            (301, 32, True)])
 def test_coarse_field_bwd_kernel_matches_plain(cuda, BR, N, view_dep):
+    """The pretrain step's 131,072 rows (residuals from the render
+    forward), the hierarchical step's fine field (393,216 rows, residuals
+    from the field forward, row 7a) and a ragged view-dependent case."""
     from texpose_tpu_torch.kernels.coarse_field import (
-        coarse_field_bwd, coarse_field_bwd_plain, coarse_render_fwd)
+        coarse_field_bwd, coarse_field_bwd_plain, coarse_field_fwd,
+        coarse_render_fwd)
     w = _coarse_weights(cuda, view_dep)
     xext, ep, dist, depth = _coarse_inputs(cuda, BR, N, view_dep, 3)
     M = BR * N
@@ -340,8 +345,11 @@ def test_coarse_field_bwd_kernel_matches_plain(cuda, BR, N, view_dep):
     g_rgb = (torch.randn(M, 3, generator=g) / M).to(cuda)
     g_dens = (torch.randn(M, 1, generator=g) / M).to(cuda)
     with torch.no_grad():
-        _, _, _, (xe, acts) = coarse_render_fwd(xext, ep, dist, depth, w,
-                                                want_res=True)
+        if N > 64:                                # the fine field (7a)
+            _, _, (xe, acts) = coarse_field_fwd(xext, ep, w, want_res=True)
+        else:
+            _, _, _, (xe, acts) = coarse_render_fwd(xext, ep, dist, depth, w,
+                                                    want_res=True)
         n0 = coarse_field_bwd.launches
         got = coarse_field_bwd(xext, ep, xe, acts, w, g_rgb, g_dens)
         torch.cuda.synchronize()
@@ -657,3 +665,159 @@ def test_st_render_wrappers_raise_on_unsupported_input(cuda):
     with pytest.raises(ValueError, match="64"):
         st_render_bwd(feat, e48, l48, t48, torch.zeros(192, 1, device=cuda),
                       d48, torch.zeros(4, 16, device=cuda), w, 192)
+
+
+# ------------------------- the split backwards' grouped dW GEMM (7b and 2)
+#
+# dw_gemm against dw_plain on the same bf16 planes: the products are exact
+# in f32 on both sides and only the order of the f32 sums differs (wgmma's
+# k-steps and the split partials vs one matmul), so the result agrees to
+# DW_REL of the block's norm and largest magnitude.  The split partials are
+# summed in a fixed order, so two launches give the same bits.
+
+DW_REL = 1e-4
+
+
+def _dw_case(device, M, seed):
+    """Planes and segments covering every kind of block the two backwards
+    list: 256-row hidden blocks (two 128-row tiles), a 64-column xext block,
+    a 16-column block inside a ragged 80-column source, the narrow 8-column
+    output / density blocks at both column offsets."""
+    from texpose_tpu_torch.kernels import dw_gemm as dw
+    g = torch.Generator().manual_seed(seed)
+
+    def plane(*shape):
+        return torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+
+    acts = plane(3, M, 256)
+    xe = plane(M, 80)
+    g_wide = plane(3, M, 256)
+    g_narrow = plane(M, dw.NARROW_COLS)
+    S, W, N = dw.Segment, dw.WIDE, dw.NARROW
+    segs, at = [], 0
+    for a, a_plane, a_col, k_in, b, b_plane, b_col, n in (
+            (0, 0, 0, 256, W, 1, 0, 256), (0, 2, 0, 256, W, 2, 0, 256),
+            (1, 0, 0, 64, W, 0, 0, 256), (1, 0, 64, 16, W, 1, 0, 256),
+            (0, 1, 0, 256, N, 0, 0, 8), (0, 2, 0, 256, N, 0, 8, 8)):
+        segs.append(S(a, a_plane, a_col, k_in, b, b_plane, b_col, n, at))
+        at += k_in * n
+    return [acts, xe], g_wide, g_narrow, segs, at
+
+
+@pytest.mark.parametrize("M", [131072, 4096, 999])
+def test_dw_gemm_matches_plain(cuda, M):
+    from texpose_tpu_torch.kernels import dw_gemm as dw
+    srcs, g_wide, g_narrow, segs, total = _dw_case(cuda, M, M)
+    n0 = (dw.dw_gemm.launches, dw.dw_reduce.launches)
+    got = dw.dw_grads(srcs, g_wide, g_narrow, segs,
+                      torch.full((total,), float("nan"), device=cuda))
+    again = dw.dw_grads(srcs, g_wide, g_narrow, segs,
+                        torch.zeros(total, device=cuda))
+    torch.cuda.synchronize()
+    assert (dw.dw_gemm.launches, dw.dw_reduce.launches) == (n0[0] + 2,
+                                                            n0[1] + 2)
+    want = dw.dw_plain(srcs, g_wide, g_narrow, segs,
+                       torch.zeros(total, device=cuda))
+    assert torch.equal(got, again)
+    for s in segs:
+        a, b = got[s.out:s.out + s.k_in * s.n], want[s.out:s.out + s.k_in * s.n]
+        print(s, f"{_norm_err(a, b):.1e} {_rel_err(a, b):.1e}")
+        assert _norm_err(a, b) <= DW_REL and _rel_err(a, b) <= DW_REL, s
+
+
+def test_dw_reduce_matches_plain(cuda):
+    from texpose_tpu_torch.kernels import dw_gemm as dw
+    segs = [dw.Segment(0, 0, 0, 48, dw.WIDE, 0, 0, 256, 0),
+            dw.Segment(0, 0, 0, 256, dw.NARROW, 0, 8, 8, 48 * 256)]
+    prob = torch.tensor(dw.problems(segs), dtype=torch.int32, device=cuda)
+    g = torch.Generator().manual_seed(5)
+    partial = torch.randn(prob.shape[0], 7, dw.TILE_I, dw.TILE_N,
+                          generator=g).to(cuda)
+    total = 48 * 256 + 256 * 8
+    n0 = dw.dw_reduce.launches
+    got = dw.dw_reduce(partial, prob, torch.full((total + 3,), 7.0,
+                                                 device=cuda))
+    torch.cuda.synchronize()
+    assert dw.dw_reduce.launches == n0 + 1
+    want = dw.dw_reduce_plain(partial, prob, torch.full((total + 3,), 7.0,
+                                                        device=cuda))
+    assert float((got - want).abs().max()) <= 1e-5
+    assert (got[-3:] == 7.0).all()
+
+
+def test_field_bwds_launch_the_split_kernels(cuda):
+    """Both field backwards on the card: the dX-chain kernel, then the
+    grouped dW GEMM and its reduction, once each per call."""
+    from texpose_tpu_torch.kernels import dw_gemm as dw
+    from texpose_tpu_torch.kernels.coarse_field import (coarse_field_bwd,
+                                                        coarse_render_fwd)
+    fns = (coarse_field_bwd, st_field_bwd, dw.dw_gemm, dw.dw_reduce)
+    w = _coarse_weights(cuda, True)
+    xext, ep, dist, depth = _coarse_inputs(cuda, 64, 64, True, 8)
+    M = xext.shape[0]
+    counts = [f.launches for f in fns]
+    with torch.no_grad():
+        _, _, _, (xe, acts) = coarse_render_fwd(xext, ep, dist, depth, w,
+                                                want_res=True)
+        coarse_field_bwd(xext, ep, xe, acts, w, torch.ones(M, 3, device=cuda),
+                         torch.ones(M, 1, device=cuda))
+        sw = _weights(cuda)
+        x2, e2, l2, t2 = _field_inputs(cuda, 2, 2048, 3)
+        *_, feat = st_field_fwd(x2, e2, l2, t2, sw, 2048, want_feat=True)
+        st_field_bwd(feat, e2, l2, t2, sw, 2048,
+                     torch.ones(4096, 3, device=cuda),
+                     torch.ones(4096, 5, device=cuda))
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(fns, counts)] == [1, 1, 2, 2]
+
+
+@pytest.mark.parametrize("over", [{"kernels.fused_composite": False},
+                                  {"arch.density_activ": "relu"}],
+                         ids=["fused_composite_off", "density_relu"])
+def test_field_kernel_route_launches_under_plain_composite(cuda, over):
+    """The texture model's render under grad at the full width of
+    configs/nerf_lm_adapt_gan.yaml where the composite kernel's gate is off
+    but the field kernels' holds (JAX's apply_nerf_st → apply_nerf_st_fused):
+    rows 1 and 2 (with the grouped dW GEMM) launch once each, no composite
+    kernel, and the heads and latents get finite gradients."""
+    import os
+    from texpose_tpu_torch.kernels import composite as comp
+    from texpose_tpu_torch.kernels import dw_gemm as dw
+    from texpose_tpu_torch.kernels import st_field as sf
+    from texpose_tpu_torch.models.render import render_st_core
+    from texpose_tpu_torch.nn.fields import init_nerf_st, use_fused_st
+    from texpose_tpu_torch.utils.config import load_yaml, process_options
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = process_options(load_yaml(os.path.join(
+        root, "configs", "nerf_lm_adapt_gan.yaml")))
+    cfg.kernels = {"st_mega": False}
+    for key, value in over.items():
+        part, name = key.split(".")
+        cfg[part][name] = value
+    nerf = init_nerf_st(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    assert use_fused_st(cfg, nerf)
+    B, R = 2, 64
+    g = torch.Generator().manual_seed(1)
+    center = torch.zeros(B, R, 3)
+    center[..., 2] = -4.0
+    ray = torch.randn(B, R, 3, generator=g) * 0.05
+    ray[..., 2] = 1.0
+    near = torch.full((B, R), 3.4)
+    lt = torch.randn(B, int(cfg.nerf.N_latent_trans), generator=g)
+    ll = torch.randn(B, int(cfg.nerf.N_latent_light), generator=g)
+    center, ray, near, lt, ll = (t.to(cuda) for t in (center, ray, near, lt,
+                                                      ll))
+    lt.requires_grad_(True)
+    ll.requires_grad_(True)
+    fns = (sf.st_field_fwd, sf.st_field_bwd, dw.dw_gemm,
+           comp.composite_st_fwd, comp.composite_st_bwd)
+    counts = [f.launches for f in fns]
+    out = render_st_core(nerf, cfg, center, ray, near, near + 1.2, lt, ll,
+                         progress=1.0, training=True)
+    (out["rgb"].square().mean() + out["trans_density_mean"]).backward()
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(fns, counts)] == [1, 1, 1, 0, 0]
+    heads = list(nerf.mlp_rgb.parameters()) + list(nerf.mlp_trans.parameters())
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in heads + [lt, ll])
+    assert all(p.grad is None for p in nerf.mlp_feat.parameters())

@@ -101,15 +101,23 @@ def test_apply_nerf_st_raw_matches_jax_kernel(setup, progress):
 
 def test_apply_nerf_st_matches_jax_plain(setup):
     """Plain route (activated outputs) against JAX apply_nerf_st, and the
-    kernel route's activations against the same reference."""
+    kernel route's activations against the same reference.  JAX's CPU run
+    takes its plain route (its field-kernel gate needs a TPU or interpret
+    mode); the port's gate has no backend clause, so the port's plain route
+    is asked for with kernels.fused_st off (the field-kernel route of
+    apply_nerf_st is held against JAX's in tests/test_torch_st_routes.py)."""
+    import copy
     cfg, jparams, nerf, (pts, ray, lt, ll) = setup
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.kernels.fused_st = False
+    assert not tfields.use_fused_st(plain_cfg, nerf)
     ray_s = np.broadcast_to(ray[:, :, None], pts.shape)
     ref = jfields.apply_nerf_st(jparams, cfg, jnp.asarray(pts),
                                 jnp.asarray(ray_s), jnp.asarray(lt),
                                 jnp.asarray(ll), progress=jnp.asarray(0.4))
     with torch.no_grad():
         rgb, dens, unc = tfields.apply_nerf_st(
-            nerf, cfg, *_t(pts, ray_s, lt, ll), progress=0.4)
+            nerf, plain_cfg, *_t(pts, ray_s, lt, ll), progress=0.4)
         rgb_raw, dens_raw, trans_raw = tfields.apply_nerf_st_raw(
             nerf, cfg, *_t(pts, ray, lt, ll), progress=0.4,
             compute_dtype=torch.float32)

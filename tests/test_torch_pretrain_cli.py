@@ -274,3 +274,21 @@ def test_cli_refuses_unported_options(root, tmp_path):
     rows = open(os.path.join(cfg.output_path, "quant.txt")).read().split(
         "\n")[1:]
     assert len([r for r in rows if r.strip()]) == len(ev.eval_data)
+
+
+def test_profile_flag_writes_a_trace(root, tmp_path):
+    """--profile: a 2-step run leaves a torch.profiler chrome trace in
+    <output_path>/profile, the directory of the JAX loop's jax.profiler
+    trace, with the steps' host events in it."""
+    cfg = pre_cfg(root, tmp_path)
+    cfg.max_iter = 2
+    eng = _train(_yaml(cfg, tmp_path / "pre.yaml"), "--profile=true")
+    assert eng.it == 2
+    prof_dir = os.path.join(cfg.output_path, "profile")
+    files = os.listdir(prof_dir)
+    assert files == ["trace.json"]
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        trace = json.load(f)
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert any(str(n).startswith("step/") for n in names), sorted(
+        str(n) for n in names)[:20]

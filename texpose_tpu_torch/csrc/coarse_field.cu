@@ -33,28 +33,47 @@
 // memory at most (three 64x264 activation buffers + the xext|enc⊕pts tile)
 // lets two blocks share an SM.
 //
-// BACKWARD (coarse_bwd_kernel).  The pretrain trains the trunk, so the
-// backward walks all 12 layers down.  Walking down needs every layer's
-// input: 12 x 64 x 264 x 2 B ≈ 405 KB per tile, more than a block's 227 KB
-// of shared memory, and a recompute per tile would repeat the forward's 1.4
-// MFLOP/row.  So the forward's residuals come back from device memory one
-// layer at a time.  Per 64-row tile, for each layer l from the top:
-//   dW_l += bf16(h_{l-1})ᵀ · bf16(g_l)             (ldmatrix.trans)
+// BACKWARD (coarse_bwd_kernel<true> + dw_gemm.cu: row 7b).  The pretrain
+// trains the trunk, so the backward walks all 12 layers down.  Walking down
+// needs every layer's input: 12 x 64 x 264 x 2 B ≈ 405 KB per tile, more
+// than a block's 227 KB of shared memory, and a recompute per tile would
+// repeat the forward's 1.4 MFLOP/row.  So the forward's residuals come back
+// from device memory one layer at a time.  Per 64-row tile, for each layer
+// l from the top:
 //   db_l += Σ_rows g_l                               (f32, before rounding)
 //   g_{l-1} = (bf16(g_l) · W_lᵀ) ⊙ [h_{l-1} > 0]    (W_lᵀ packed on the host)
 // bf16(relu(z)) > 0 ⇔ z > 0, so the stored activation is also the ReLU mask.
-// g_{l-1} overwrites h_{l-1} in place once dW_l has read it: two 64x280
-// buffers ping-pong (280 = 256 features + the trunk's density tile + pad).
-// The RGB head's layer 0 passes back only its feature rows; the trunk's
-// last layer takes [g_dens | g_feat ⊙ (feat > 0)] as one K = 272 operand;
-// the skip layer passes back only its activation block; layer 0 takes no
-// dX, and no gradient reaches the points (poses are fixed in the pretrain).
-// Cross-tile reduction: every tile adds its dW/db partials to the zeroed f32
-// output with atomicAdd — ≈ 0.70 M adds per tile, 1.4 G per 131,072-row
-// step, into a 2.8 MB buffer that stays in L2.  The summation order varies
-// from run to run.  What bounds it: dW 1.38 + dX 1.31 MFLOP per row
-// (352 GFLOP per step, tensor cores), 0.74 GB of residual reads, and the
-// atomics; 88,064 B of shared memory at most (two blocks per SM).
+// g_{l-1} overwrites h_{l-1} in place: two 64x280 buffers ping-pong (280 =
+// 256 features + the trunk's density tile + pad).  The RGB head's layer 0
+// passes back only its feature rows; the trunk's last layer takes [g_dens |
+// g_feat ⊙ (feat > 0)] as one K = 272 operand; the skip layer passes back
+// only its activation block; layer 0 takes no dX, and no gradient reaches
+// the points (poses are fixed in the pretrain).
+// The weight gradients dW_l = bf16(h_{l-1})ᵀ · bf16(g_l) are a reduction
+// over all M rows.  The TPU kernel sums them in VMEM scratch over its
+// sequential grid; Hopper's blocks run in parallel, and the one-kernel form
+// (coarse_bwd_kernel<false>, entry coarse_bwd_atomic, compiled only in the
+// measurement build -DFIELD_BWD_ONE_KERNEL that chip_smoke.py and
+// tools/probe_field_bwd_atomics.py time against this one) added every
+// tile's partials with f32 atomics: ≈ 0.70 M adds per tile, 1.4 G per
+// 131,072-row step, 6.3 ms per step on the H100.  So the backward is split:
+// this kernel is the dX chain alone and stores each bf16 g_l tile to a
+// device plane (11 × 64 MB at 131,072 rows) and the output / density
+// gradients to a narrow [M, 16] plane; dw_gemm.cu then forms every dW with
+// wgmma over all rows, TMA-fed, and sums its split partials in a fixed
+// order, so dW is the same from run to run.  db stays an f32 column sum
+// taken before the bf16 rounding, added across tiles with f32 atomics (256
+// per layer per tile; their order, and so db's last bits, vary run to
+// run).  What bounds the split form: bytes — this kernel reads the 0.74 GB
+// of residuals and writes 0.74 GB of gradient planes, dw_gemm.cu reads
+// both again (≈2.98 GB with the inputs and the narrow plane, 0.89 ms at
+// 3.35 TB/s, tools/kernel_bounds.py; the function's own bound is 0.36 ms
+// of dW 1.38 + dX 1.31 MFLOP per row on the tensor cores).  Why split: on
+// the H100 the one-kernel form spent 5.2 of its 6.3 ms at 131,072 rows in
+// the dW products and their atomics (1.4 ms the atomics alone) and ran in
+// 1.0 ms without them (tools/probe_field_bwd_atomics.py).  This kernel
+// keeps the one-kernel form's tile (mma.sync, 88,064 B of shared memory at
+// most, two blocks per SM) for its 1.31 MFLOP per row of dX.
 
 #include "trunk.cuh"
 #include "composite_coarse.cuh"
@@ -164,6 +183,8 @@ struct BwdParams {
   const uint2* wT;         // W_lᵀ packs in backward walk order
   float* grads;            // zeroed f32
   const int* offs;         // per layer {dW, dW2, db, db2} offsets into grads
+  bf16* gplanes;           // split form: [n_res, M, 256] layer output grads
+  bf16* gnarrow;           // split form: [M, 16] d rgb_raw | d dens_raw
   int M, kx, ke, n_trunk, n_rgb;
   unsigned skip_mask;
 };
@@ -209,17 +230,22 @@ __device__ __forceinline__ void store_grad(
 
 // A [M, ncols] f32 gradient's tile as bf16 into shared columns col0..col0+15
 // (zero past ncols and M), its f32 column sums added to db (warp c < ncols
-// sums column c).
+// sums column c); with gn (the split form) also into the narrow plane's
+// columns gcol..gcol+7.
 __device__ __forceinline__ void stage_out_grad(bf16* dst, int stride,
                                                const float* g, int ncols,
                                                float* db, int row0, int M,
-                                               int warp, int lane) {
+                                               int warp, int lane,
+                                               bf16* gn = nullptr,
+                                               int gcol = 0) {
   for (int i = threadIdx.x; i < kTile * 16; i += kThreads) {
     const int r = i >> 4, c = i & 15;
     float x = 0.f;
     if (c < ncols && row0 + r < M) x = __ldg(g + (size_t)(row0 + r) * ncols + c);
     dst[r * stride + c] = __float2bfloat16_rn(x);
   }
+  if (gn != nullptr)
+    store_narrow(gn, gcol, g + (size_t)row0 * ncols, ncols, row0, M);
   if (warp < ncols) {
     float s = 0.f;
     for (int r = lane; r < kTile; r += 32)
@@ -239,6 +265,15 @@ __device__ __forceinline__ void dw_rows(const bf16* H, int sh, int k,
                               nt0 * 8, dW, kHidden, lane);
 }
 
+// kSplit (the shipped form, entry coarse_bwd_dx): the dX chain alone —
+// every layer's bf16 output gradient goes to its plane of p.gplanes (plane
+// j = the gradient of the layer whose output is residual plane j; the
+// output and density gradients to p.gnarrow), db to grads; dw_gemm.cu
+// forms dW.  Without it (entry coarse_bwd_atomic, built only with
+// -DFIELD_BWD_ONE_KERNEL for the in-call comparison and the attribution
+// probe): the one-kernel form it replaced, each tile's dW partials added to
+// grads with atomics.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, 2)
     coarse_bwd_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -255,25 +290,32 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* const gw = p.grads;
   const int* const o = p.offs;                     // layer l: o[4l..4l+3]
   const uint2* wT = p.wT;
+  // split form: a layer's output gradient, now in `buf`, to plane j
+  auto keep = [&](int j, const bf16* buf) {
+    if constexpr (kSplit) store_tile(p.gplanes + j * plane, buf, row0, p.M, kBw);
+  };
 
-  load_rows(xe, xes, p.xe, p.kx + p.ke, row0, p.M);
+  if constexpr (!kSplit) load_rows(xe, xes, p.xe, p.kx + p.ke, row0, p.M);
   stage_out_grad(gout, kOutStride, p.g_rgb, 3, gw + o[4 * (nf + nr - 1) + 2],
-                 row0, p.M, warp, lane);
+                 row0, p.M, warp, lane, kSplit ? p.gnarrow : nullptr, 0);
   load_rows(B[0], kBw, p.acts + (nf + nr - 2) * plane, kHidden, row0, p.M);
   __syncthreads();
 
   // ---- RGB output layer: input r_{nr-2} in B[0], gradient in gout ----
-  warp_dw<2, 1>(B[0], kBw, warp * 32, 2, gout, kOutStride, 0,
-                gw + o[4 * (nf + nr - 1)], 8, lane);
-  __syncthreads();
+  if constexpr (!kSplit) {
+    warp_dw<2, 1>(B[0], kBw, warp * 32, 2, gout, kOutStride, 0,
+                  gw + o[4 * (nf + nr - 1)], 8, lane);
+    __syncthreads();
+  }
   {
     float acc[4][kTilesPerWarp][4];
-    warp_gemm<kTilesPerWarp>(acc, Seg{gout, kOutStride, kOutPad}, none, wT,
-                             nt0, lane);
+    dx_gemm<kTilesPerWarp>(acc, Seg{gout, kOutStride, kOutPad}, none, wT,
+                           nt0, lane);
     store_grad(acc, B[0], gw + o[4 * (nf + nr - 2) + 2], nt0, lane);
   }
   wT += (size_t)(kOutPad >> 4) * (kHidden / 8) * 32;
   __syncthreads();
+  keep(nf + nr - 2, B[0]);
   int cur = 0;                                     // B[cur] = this layer's g
 
   // ---- RGB hidden layers nr-2 .. 1 ----
@@ -281,14 +323,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     bf16* const A = B[1 - cur];
     load_rows(A, kBw, p.acts + (nf + li - 1) * plane, kHidden, row0, p.M);
     __syncthreads();
-    dw_rows(A, kBw, kHidden, B[cur], gw + o[4 * (nf + li)], nt0, lane);
-    __syncthreads();
+    if constexpr (!kSplit) {
+      dw_rows(A, kBw, kHidden, B[cur], gw + o[4 * (nf + li)], nt0, lane);
+      __syncthreads();
+    }
     float acc[4][kTilesPerWarp][4];
-    warp_gemm<kTilesPerWarp>(acc, Seg{B[cur], kBw, kHidden}, none, wT, nt0,
-                             lane);
+    dx_gemm<kTilesPerWarp>(acc, Seg{B[cur], kBw, kHidden}, none, wT, nt0,
+                           lane);
     wT += (size_t)(kHidden >> 4) * (kHidden / 8) * 32;
     store_grad(acc, A, gw + o[4 * (nf + li - 1) + 2], nt0, lane);
     __syncthreads();
+    keep(nf + li - 1, A);
     cur = 1 - cur;
   }
 
@@ -297,18 +342,21 @@ __global__ void __launch_bounds__(kThreads, 2)
     bf16* const A = B[1 - cur];
     load_rows(A, kBw, p.acts + (nf - 1) * plane, kHidden, row0, p.M);
     __syncthreads();
-    dw_rows(A, kBw, kHidden, B[cur], gw + o[4 * nf], nt0, lane);
-    dw_rows(xe + p.kx, xes, p.ke, B[cur], gw + o[4 * nf + 1], nt0, lane);
-    __syncthreads();
+    if constexpr (!kSplit) {
+      dw_rows(A, kBw, kHidden, B[cur], gw + o[4 * nf], nt0, lane);
+      dw_rows(xe + p.kx, xes, p.ke, B[cur], gw + o[4 * nf + 1], nt0, lane);
+      __syncthreads();
+    }
     float acc[4][kTilesPerWarp][4];
-    warp_gemm<kTilesPerWarp>(acc, Seg{B[cur], kBw, kHidden}, none, wT, nt0,
-                             lane);
+    dx_gemm<kTilesPerWarp>(acc, Seg{B[cur], kBw, kHidden}, none, wT, nt0,
+                           lane);
     wT += (size_t)(kHidden >> 4) * (kHidden / 8) * 32;
     // g_feat ⊙ (feat > 0) in place; the trunk's density gradient beside it
     store_grad(acc, A, gw + o[4 * (nf - 1) + 2], nt0, lane);
     stage_out_grad(A + kHidden, kBw, p.g_dens, 1, gw + o[4 * (nf - 1) + 3],
-                   row0, p.M, warp, lane);
+                   row0, p.M, warp, lane, kSplit ? p.gnarrow : nullptr, 8);
     __syncthreads();
+    keep(nf - 1, A);
     cur = 1 - cur;
   }
 
@@ -317,29 +365,31 @@ __global__ void __launch_bounds__(kThreads, 2)
     bf16* const A = B[1 - cur];
     load_rows(A, kBw, p.acts + (li - 1) * plane, kHidden, row0, p.M);
     __syncthreads();
-    dw_rows(A, kBw, kHidden, B[cur], gw + o[4 * li], nt0, lane);
-    if (li == nf - 1)                              // the density tile
-      warp_dw<2, 1>(A, kBw, warp * 32, 2, B[cur] + kHidden, kBw, 0,
-                    gw + o[4 * li + 1], 8, lane);
-    else if ((p.skip_mask >> li) & 1u)             // the skip's xext block
-      dw_rows(xe, xes, p.kx, B[cur], gw + o[4 * li + 1], nt0, lane);
-    __syncthreads();
+    if constexpr (!kSplit) {
+      dw_rows(A, kBw, kHidden, B[cur], gw + o[4 * li], nt0, lane);
+      if (li == nf - 1)                            // the density tile
+        warp_dw<2, 1>(A, kBw, warp * 32, 2, B[cur] + kHidden, kBw, 0,
+                      gw + o[4 * li + 1], 8, lane);
+      else if ((p.skip_mask >> li) & 1u)           // the skip's xext block
+        dw_rows(xe, xes, p.kx, B[cur], gw + o[4 * li + 1], nt0, lane);
+      __syncthreads();
+    }
     const int K = li == nf - 1 ? kHidden + 16 : kHidden;
     float acc[4][kTilesPerWarp][4];
-    warp_gemm<kTilesPerWarp>(acc, Seg{B[cur], kBw, K}, none, wT, nt0, lane);
+    dx_gemm<kTilesPerWarp>(acc, Seg{B[cur], kBw, K}, none, wT, nt0, lane);
     wT += (size_t)(K >> 4) * (kHidden / 8) * 32;
     store_grad(acc, A, gw + o[4 * (li - 1) + 2], nt0, lane);
     __syncthreads();
+    keep(li - 1, A);
     cur = 1 - cur;
   }
 
   // ---- trunk layer 0: input xext, no dX ----
-  dw_rows(xe, xes, p.kx, B[cur], gw + o[0], nt0, lane);
+  if constexpr (!kSplit) dw_rows(xe, xes, p.kx, B[cur], gw + o[0], nt0, lane);
 }
 
 int g_smem_limit_fwd[kMaxDevices];
 int g_smem_limit_field[kMaxDevices];
-int g_smem_limit_bwd[kMaxDevices];
 
 // The forward's parameters shared by both entries (the composite's stay
 // null/0 for the field forward).
@@ -423,19 +473,22 @@ extern "C" int coarse_field_fwd(const void* xe, const void* wpack,
   return launch_fwd<false>(p, g_smem_limit_field, stream);
 }
 
-// Launches the field backward on `stream`; grads must be zeroed by the
-// caller (the kernel adds into it).  Returns cudaGetLastError().
-extern "C" int coarse_bwd(const void* xe, const void* acts, const void* g_rgb,
-                          const void* g_dens, const void* wT, void* grads,
-                          const void* offs, int M, int kx, int ke,
-                          int n_trunk, int n_rgb, int skip_mask,
-                          void* stream) {
+namespace {
+
+// The backward entries' shared checks and launch: kSplit the dX chain,
+// else the one-kernel form (measurement build only).
+template <bool kSplit>
+int launch_bwd(const void* xe, const void* acts, const void* g_rgb,
+               const void* g_dens, const void* wT, void* grads,
+               const void* offs, void* gplanes, void* gnarrow, int M, int kx,
+               int ke, int n_trunk, int n_rgb, int skip_mask, void* stream) {
+  static int limits[kMaxDevices];
   if (M <= 0) return 0;
   if (kx % 16 || ke % 16 || kx <= 0 || ke <= 0 || kx + ke > 256 ||
       n_trunk < 2 || n_rgb < 2 || (skip_mask & 1) ||
       ((skip_mask >> (n_trunk - 1)) & 1))
     return (int)cudaErrorInvalidValue;
-  BwdParams p;
+  BwdParams p = {};
   p.xe = static_cast<const bf16*>(xe);
   p.acts = static_cast<const bf16*>(acts);
   p.g_rgb = static_cast<const float*>(g_rgb);
@@ -443,6 +496,8 @@ extern "C" int coarse_bwd(const void* xe, const void* acts, const void* g_rgb,
   p.wT = static_cast<const uint2*>(wT);
   p.grads = static_cast<float*>(grads);
   p.offs = static_cast<const int*>(offs);
+  p.gplanes = static_cast<bf16*>(gplanes);
+  p.gnarrow = static_cast<bf16*>(gnarrow);
   p.M = M;
   p.kx = kx;
   p.ke = ke;
@@ -452,10 +507,42 @@ extern "C" int coarse_bwd(const void* xe, const void* acts, const void* g_rgb,
   const int smem =
       (kTile * (kx + ke + 8) + 2 * kTile * kBw + kTile * kOutStride) *
       (int)sizeof(bf16);
-  cudaError_t e = ensure_smem(coarse_bwd_kernel, smem, g_smem_limit_bwd);
+  cudaError_t e = ensure_smem(coarse_bwd_kernel<kSplit>, smem, limits);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((M + kTile - 1) / kTile);
-  coarse_bwd_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(p);
+  coarse_bwd_kernel<kSplit><<<(M + kTile - 1) / kTile, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// Launches the backward's dX chain (phase (a) of the split form) on
+// `stream`: db into grads (zeroed by the caller), every layer's output
+// gradient into gplanes [n_trunk + n_rgb - 1, M, 256] bf16 and the output /
+// density gradients into gnarrow [M, 16] bf16 (columns 0-2 / 8).  dW comes
+// from dw_gemm.cu.  Returns cudaGetLastError().
+extern "C" int coarse_bwd_dx(const void* acts, const void* g_rgb,
+                             const void* g_dens, const void* wT, void* grads,
+                             const void* offs, void* gplanes, void* gnarrow,
+                             int M, int kx, int ke, int n_trunk, int n_rgb,
+                             int skip_mask, void* stream) {
+  return launch_bwd<true>(nullptr, acts, g_rgb, g_dens, wT, grads, offs,
+                          gplanes, gnarrow, M, kx, ke, n_trunk, n_rgb,
+                          skip_mask, stream);
+}
+
+#ifdef FIELD_BWD_ONE_KERNEL
+// Measurement build only.  Launches the one-kernel backward (dW partials as
+// f32 atomics) on `stream`; grads must be zeroed by the caller.  Returns
+// cudaGetLastError().
+extern "C" int coarse_bwd_atomic(const void* xe, const void* acts,
+                                 const void* g_rgb, const void* g_dens,
+                                 const void* wT, void* grads,
+                                 const void* offs, int M, int kx, int ke,
+                                 int n_trunk, int n_rgb, int skip_mask,
+                                 void* stream) {
+  return launch_bwd<false>(xe, acts, g_rgb, g_dens, wT, grads, offs, nullptr,
+                           nullptr, M, kx, ke, n_trunk, n_rgb, skip_mask,
+                           stream);
+}
+#endif

@@ -34,29 +34,44 @@
 // tiling contract; the latent row of each row is indexed by
 // row / rows_per_img.
 //
-// BACKWARD (st_field_bwd_kernel).  The trunk is frozen, so only the heads
-// differentiate.  Per 64-row tile and per head: recompute the head's hidden
-// activations from the feat residual exactly as the forward does (same
-// packs, same rounding points), then walk the layers down:
-//   dW_l += h_{l-1}ᵀ · bf16(g_l)        (ldmatrix.trans of both operands)
+// BACKWARD (st_field_bwd_kernel<true> + dw_gemm.cu: row 2).  The trunk is
+// frozen, so only the heads differentiate.  Per 64-row tile and per head:
+// recompute the head's hidden activations from the feat residual exactly
+// as the forward does (same packs, same rounding points), then walk the
+// layers down:
 //   g_{l-1} = (bf16(g_l) · W_lᵀ) ⊙ [h_{l-1} > 0]   (W_lᵀ packed on the host)
 //   db_l += Σ_rows g_l                   (f32, before the bf16 rounding)
-// g_{l-1} overwrites h_{l-1} in place once dW_l has read it, so a head needs
-// no gradient buffer beyond its activations.  Layer 0 takes no dX (nothing
-// upstream trains): its dW is featᵀ·g0 (and enc⊕ptsᵀ·g0 for RGB), and the
-// latents' gradient is the per-image row sum of g0 (d_lrow / d_trow), which
-// the wrapper finishes in f32 (lightᵀ·d_lrow, d_lrow·W_lᵀ).  The output
-// layers (N = 3 and 5) are padded to one n8 tile on both sides.
-// Cross-tile reduction: every tile adds its dW/db partials to the zeroed f32
-// output with atomicAdd (no second pass; ~400 K adds per tile land in the
-// 1.8 MB gradient buffer, which stays in L2).  The summation order therefore
-// varies from run to run; each sum is over M f32 terms.  Per-image sums use
-// one add per column when the tile lies in one image and per-row adds when
-// it straddles an image boundary, so images never mix.
-// What bounds it: ~2.1 MFLOP per row (forward recompute 0.8, dW 0.8, dX
-// 0.5; 280 GFLOP per 131,072 rows — tensor cores) plus the atomics;
-// 143,360 B of shared memory (feat, three hidden buffers, enc⊕pts and the
-// padded output gradient) allow one block per SM.
+// g_{l-1} overwrites h_{l-1} in place, so a head needs no gradient buffer
+// beyond its activations.  Layer 0 takes no dX (nothing upstream trains);
+// the latents' gradient is the per-image row sum of g0 (d_lrow / d_trow),
+// which the wrapper finishes in f32 (lightᵀ·d_lrow, d_lrow·W_lᵀ).  The
+// output layers (N = 3 and 5) are padded to one n8 tile on both sides.
+// The weight gradients dW_l = bf16(h_{l-1})ᵀ · bf16(g_l) (layer 0: featᵀ·g0
+// and enc⊕ptsᵀ·g0) sum over all M rows.  The one-kernel form
+// (st_field_bwd_kernel<false>, entry st_field_bwd_atomic, compiled only in
+// the measurement build -DFIELD_BWD_ONE_KERNEL that chip_smoke.py and
+// tools/probe_field_bwd_atomics.py time against this one; the render
+// backward st_render.cu still runs its head_bwd) adds every tile's
+// partials with f32 atomics, ~400 K per tile, 5.6 ms per 131,072 rows on
+// the H100, on one block per SM.  The split form stores each head's
+// recomputed hidden activations and layer gradients (bf16, 6 + 6 planes of
+// 64 MB at 131,072 rows) and the output gradients (a narrow [M, 16] plane)
+// to device memory instead, and dw_gemm.cu forms every dW with wgmma over
+// all rows and a fixed-order sum of its split partials: no dW atomics, dW
+// the same from run to run.  db and the per-image latent sums stay f32
+// sums taken before the bf16 rounding, added across tiles with f32 atomics
+// (per column when the tile lies in one image, per row when it straddles
+// an image boundary, so images never mix); their order varies run to run.
+// What bounds the split form: bytes — ≈0.8 GB of planes written here and
+// read again by dw_gemm.cu with the feat residual (≈1.77 GB, 0.53 ms at
+// 3.35 TB/s, tools/kernel_bounds.py); the function's own bound is 0.28 ms
+// of ~2.1 MFLOP per row (recompute 0.8, dW 0.8, dX 0.5) on the tensor
+// cores.  Why split: on the H100 the one-kernel form spent 4.2 of its 5.3
+// ms at 131,072 rows in the dW products and their atomics (1.4 ms the
+// atomics alone) and ran in 1.1 ms without them
+// (tools/probe_field_bwd_atomics.py).  This kernel keeps the one-kernel
+// form's tile (143,360 B of shared memory: feat, three hidden buffers,
+// enc⊕pts and the padded output gradient; one block per SM).
 
 #include "st_heads.cuh"
 
@@ -68,8 +83,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   st_field_tile(p, smem);
 }
 
+// kSplit (the shipped form, entry st_field_bwd_dx): the dX chain alone —
+// both heads' recomputed hidden activations, every layer's gradient and the
+// output gradients to the planes of `so` (dw_gemm.cu forms dW), db and the
+// latent sums to grads / d_lrow / d_trow.  Without it (entry
+// st_field_bwd_atomic, built only with -DFIELD_BWD_ONE_KERNEL for the
+// in-call comparison and the attribution probe): the one-kernel form, dW
+// partials added with atomics.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
-    st_field_bwd_kernel(const BwdParams p) {
+    st_field_bwd_kernel(const BwdParams p, const SplitOut so_rgb,
+                        const SplitOut so_trans) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_max = max(p.n_rgb, p.n_trans);
   bf16* const feat = reinterpret_cast<bf16*>(smem);
@@ -92,16 +116,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* b = p.bias_heads;
   const uint2* wT = p.wpackT;
   float* gw = p.grads;
-  head_bwd(p.n_rgb, true, true, p, fseg, eseg, h, gout, w, b, wT, gw, p.lrow,
-           p.d_lrow, p.g_rgb + (size_t)row0 * 3, 3, row0, warp, lane);
-  head_bwd(p.n_trans, false, true, p, fseg, eseg, h, gout, w, b, wT, gw,
-           p.trow, p.d_trow, p.g_trans + (size_t)row0 * 5, 5, row0, warp,
-           lane);
+  head_bwd<kSplit>(p.n_rgb, true, true, p, fseg, eseg, h, gout, w, b, wT, gw,
+                   p.lrow, p.d_lrow, p.g_rgb + (size_t)row0 * 3, 3, row0,
+                   warp, lane, so_rgb);
+  head_bwd<kSplit>(p.n_trans, false, true, p, fseg, eseg, h, gout, w, b, wT,
+                   gw, p.trow, p.d_trow, p.g_trans + (size_t)row0 * 5, 5,
+                   row0, warp, lane, so_trans);
 }
 
 // The kernels' dynamic shared-memory limits as already set on each device.
 int g_smem_limit_fwd[kMaxDevices];
-int g_smem_limit_bwd[kMaxDevices];
 
 }  // namespace
 
@@ -131,16 +155,19 @@ extern "C" int st_field_fwd(const void* xe, const void* wpack,
   return (int)cudaGetLastError();
 }
 
-// Launches the heads' backward on `stream`; grads, d_lrow and d_trow must
-// be zeroed by the caller (the kernel adds into them).  Returns
-// cudaGetLastError() (0 = launched).
-extern "C" int st_field_bwd(const void* feat, const void* ep,
-                            const void* g_rgb, const void* g_trans,
-                            const void* wpack_heads, const void* bias_heads,
-                            const void* wpackT, const void* lrow,
-                            const void* trow, void* grads, void* d_lrow,
-                            void* d_trow, int M, int ke, int rows_per_img,
-                            int n_img, int n_rgb, int n_trans, void* stream) {
+namespace {
+
+// The backward entries' shared checks and launch: kSplit the dX chain,
+// else the one-kernel form (measurement build only).
+template <bool kSplit>
+int launch_bwd(const void* feat, const void* ep, const void* g_rgb,
+               const void* g_trans, const void* wpack_heads,
+               const void* bias_heads, const void* wpackT, const void* lrow,
+               const void* trow, void* grads, void* d_lrow, void* d_trow,
+               void* hplanes, void* gplanes, void* gnarrow, int M, int ke,
+               int rows_per_img, int n_img, int n_rgb, int n_trans,
+               void* stream) {
+  static int limits[kMaxDevices];
   if (M <= 0) return 0;
   if (bad_bwd_shape(ke, rows_per_img, n_img, n_rgb, n_trans))
     return (int)cudaErrorInvalidValue;
@@ -149,11 +176,63 @@ extern "C" int st_field_bwd(const void* feat, const void* ep,
                            n_img, n_rgb, n_trans);
   p.g_rgb = static_cast<const float*>(g_rgb);
   p.g_trans = static_cast<const float*>(g_trans);
+  // the transient head's planes follow the RGB head's n_rgb - 1
+  const size_t skip = (size_t)(n_rgb - 1) * M * kHidden;
+  bf16* const hp = static_cast<bf16*>(hplanes);
+  bf16* const gp = static_cast<bf16*>(gplanes);
+  bf16* const gn = static_cast<bf16*>(gnarrow);
+  const SplitOut so_rgb = {hp, gp, gn, 0};
+  const SplitOut so_trans = {hp ? hp + skip : nullptr,
+                             gp ? gp + skip : nullptr, gn, 8};
   const int smem = heads_bwd_smem(ke, n_rgb, n_trans);
-  cudaError_t e = ensure_smem(st_field_bwd_kernel, smem, g_smem_limit_bwd);
+  cudaError_t e = ensure_smem(st_field_bwd_kernel<kSplit>, smem, limits);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((M + kTile - 1) / kTile);
-  st_field_bwd_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  st_field_bwd_kernel<kSplit><<<(M + kTile - 1) / kTile, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      p, so_rgb, so_trans);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// Launches the heads' backward dX chain (phase (a) of the split form) on
+// `stream`: db into grads and the latent row sums into d_lrow / d_trow
+// (all zeroed by the caller); both heads' hidden activations and layer
+// gradients into hplanes / gplanes [n_rgb - 1 + n_trans - 1, M, 256] bf16
+// (RGB head first) and the output gradients into gnarrow [M, 16] bf16
+// (RGB columns 0-2, transient 8-12).  dW comes from dw_gemm.cu.  Returns
+// cudaGetLastError() (0 = launched).
+extern "C" int st_field_bwd_dx(const void* feat, const void* ep,
+                               const void* g_rgb, const void* g_trans,
+                               const void* wpack_heads,
+                               const void* bias_heads, const void* wpackT,
+                               const void* lrow, const void* trow,
+                               void* grads, void* d_lrow, void* d_trow,
+                               void* hplanes, void* gplanes, void* gnarrow,
+                               int M, int ke, int rows_per_img, int n_img,
+                               int n_rgb, int n_trans, void* stream) {
+  return launch_bwd<true>(feat, ep, g_rgb, g_trans, wpack_heads, bias_heads,
+                          wpackT, lrow, trow, grads, d_lrow, d_trow, hplanes,
+                          gplanes, gnarrow, M, ke, rows_per_img, n_img, n_rgb,
+                          n_trans, stream);
+}
+
+#ifdef FIELD_BWD_ONE_KERNEL
+// Measurement build only.  Launches the one-kernel heads' backward (dW
+// partials as f32 atomics) on `stream`; grads, d_lrow and d_trow must be
+// zeroed by the caller.  Returns cudaGetLastError() (0 = launched).
+extern "C" int st_field_bwd_atomic(const void* feat, const void* ep,
+                                   const void* g_rgb, const void* g_trans,
+                                   const void* wpack_heads,
+                                   const void* bias_heads,
+                                   const void* wpackT, const void* lrow,
+                                   const void* trow, void* grads,
+                                   void* d_lrow, void* d_trow, int M, int ke,
+                                   int rows_per_img, int n_img, int n_rgb,
+                                   int n_trans, void* stream) {
+  return launch_bwd<false>(feat, ep, g_rgb, g_trans, wpack_heads, bias_heads,
+                           wpackT, lrow, trow, grads, d_lrow, d_trow, nullptr,
+                           nullptr, nullptr, M, ke, rows_per_img, n_img,
+                           n_rgb, n_trans, stream);
+}
+#endif

@@ -307,6 +307,17 @@ __device__ __forceinline__ void skip_head(int n, int k0, const uint2*& w,
   b += 8;
 }
 
+// The split backward's planes for one head (dw_gemm.cu reads them): its
+// recomputed hidden activations h and their gradients g, [n-1, M, 256]
+// bf16 each (this head's first plane), and the narrow [M, 16] plane whose
+// columns col..col+7 take the output gradient.
+struct SplitOut {
+  bf16* h;
+  bf16* g;
+  bf16* gn;
+  int col;
+};
+
 // Backward of one head for the block's tile, from the forward recompute of
 // its hidden layers (or, with recompute false, from hidden activations
 // already in h, as head_forward leaves them).
@@ -314,12 +325,18 @@ __device__ __forceinline__ void skip_head(int n, int k0, const uint2*& w,
 //   gout: [64][kOutStride] bf16 output gradient (columns ≥ ncols zero)
 //   g_in: the tile's f32 output gradient, row r at g_in[r*ncols] (device or
 //         shared memory; rows past M are not read)
+// kSplit (row 2's dX chain): no dW here — the hidden activations, each
+// layer's gradient and the output gradient go to the planes of `so`, and
+// dw_gemm.cu forms dW; db and the latent sums are added as in the one-kernel
+// form (which the render backward, st_render.cu, runs).
+template <bool kSplit = false>
 __device__ void head_bwd(int n, bool rgb, bool recompute, const BwdParams& p,
                          const Seg& feat, const Seg& ep, bf16* const* h,
                          bf16* gout, const uint2*& w, const float*& b,
                          const uint2*& wT, float*& gw, const float* lat_rows,
                          float* dlat, const float* g_in, int ncols, int row0,
-                         int warp, int lane) {
+                         int warp, int lane, const SplitOut& so = SplitOut{}) {
+  const size_t plane = (size_t)p.M * kHidden;
   const int nt0 = warp * kTilesPerWarp;
   const Seg none = {ep.base, ep.stride, 0};
   const uint2* wTl[kMaxHeadLayers];
@@ -333,6 +350,9 @@ __device__ void head_bwd(int n, bool rgb, bool recompute, const BwdParams& p,
                  warp, lane);
   else
     skip_head(n, rgb ? kHidden + p.ke : kHidden, w, b);
+  if constexpr (kSplit)
+    for (int li = 0; li < n - 1; ++li)
+      store_tile(so.h + li * plane, h[li], row0, p.M);
 
   // ---- this head's slices of the gradient output and the Wᵀ packs ----
   for (int li = 0; li < n; ++li) {
@@ -363,6 +383,7 @@ __device__ void head_bwd(int n, bool rgb, bool recompute, const BwdParams& p,
     if (c < ncols && row0 + r < p.M) x = g_in[(size_t)r * ncols + c];
     gout[r * kOutStride + c] = __float2bfloat16_rn(x);
   }
+  if constexpr (kSplit) store_narrow(so.gn, so.col, g_in, ncols, row0, p.M);
   if (warp < ncols) {
     float s = 0.f;
     for (int r = lane; r < kTile; r += 32)
@@ -377,33 +398,38 @@ __device__ void head_bwd(int n, bool rgb, bool recompute, const BwdParams& p,
   for (int li = n - 1; li >= 1; --li) {
     const bf16* gl = li == n - 1 ? gout : h[li];
     const int sg = li == n - 1 ? kOutStride : kActStride;
-    if (li == n - 1)
-      warp_dw<2, 1>(h[li - 1], kActStride, warp * 32, 2, gl, sg, 0, dWl[li],
-                    8, lane);
-    else
-      for (int i0 = 0; i0 < kHidden; i0 += 64)
-        warp_dw<4, kTilesPerWarp>(h[li - 1], kActStride, i0, 4, gl, sg,
-                                  nt0 * 8, dWl[li], kHidden, lane);
+    if constexpr (!kSplit) {
+      if (li == n - 1)
+        warp_dw<2, 1>(h[li - 1], kActStride, warp * 32, 2, gl, sg, 0,
+                      dWl[li], 8, lane);
+      else
+        for (int i0 = 0; i0 < kHidden; i0 += 64)
+          warp_dw<4, kTilesPerWarp>(h[li - 1], kActStride, i0, 4, gl, sg,
+                                    nt0 * 8, dWl[li], kHidden, lane);
+    }
     __syncthreads();
     {
       const Seg a1 = {gl, sg, li == n - 1 ? kOutPad : kHidden};
       float acc[4][kTilesPerWarp][4];
-      warp_gemm<kTilesPerWarp>(acc, a1, none, wTl[li], nt0, lane);
+      dx_gemm<kTilesPerWarp>(acc, a1, none, wTl[li], nt0, lane);
       store_grad(acc, h[li - 1], dbl[li - 1], li == 1 ? dlat : nullptr, p,
                  row0, nt0, lane);
     }
     __syncthreads();
+    if constexpr (kSplit) store_tile(so.g + (li - 1) * plane, h[li - 1], row0, p.M);
   }
 
   // ---- layer 0: dW of the feat block (and of the enc⊕pts block) ----
-  for (int i0 = 0; i0 < kHidden; i0 += 64)
-    warp_dw<4, kTilesPerWarp>(feat.base, kActStride, i0, 4, h[0], kActStride,
-                              nt0 * 8, dWl[0], kHidden, lane);
-  if (rgb)
-    for (int i0 = 0; i0 < p.ke; i0 += 64)
-      warp_dw<4, kTilesPerWarp>(ep.base, ep.stride, i0,
-                                min(4, (p.ke - i0) >> 4), h[0], kActStride,
-                                nt0 * 8, dWep, kHidden, lane);
+  if constexpr (!kSplit) {
+    for (int i0 = 0; i0 < kHidden; i0 += 64)
+      warp_dw<4, kTilesPerWarp>(feat.base, kActStride, i0, 4, h[0],
+                                kActStride, nt0 * 8, dWl[0], kHidden, lane);
+    if (rgb)
+      for (int i0 = 0; i0 < p.ke; i0 += 64)
+        warp_dw<4, kTilesPerWarp>(ep.base, ep.stride, i0,
+                                  min(4, (p.ke - i0) >> 4), h[0], kActStride,
+                                  nt0 * 8, dWep, kHidden, lane);
+  }
   __syncthreads();
 }
 

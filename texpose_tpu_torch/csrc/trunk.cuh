@@ -14,9 +14,13 @@
 // Backward building blocks: ``warp_dw`` accumulates Hᵀ·G over the tile's rows
 // (ldmatrix.trans of both operands) and adds it to a global f32 gradient with
 // atomicAdd — blocks run in parallel, so the cross-tile sum is atomic.
-// Defining TRUNK_DW_PLAIN_STORES makes a measurement build that writes each
-// partial with a plain store instead (wrong sums, same products and bytes);
-// tools/probe_field_bwd_atomics.py times it against the shipped kernel.
+// Measurement builds (wrong results; tools/probe_field_bwd_atomics.py times
+// each, with -DFIELD_BWD_ONE_KERNEL, against the one-kernel field backwards
+// of coarse_field.cu and st_field.cu): TRUNK_DW_PLAIN_STORES writes
+// each dW partial with a plain store instead of atomicAdd (same products
+// and bytes); TRUNK_BWD_NO_DW skips ``warp_dw``; TRUNK_BWD_NO_DX skips the
+// backwards' dX products (``dx_gemm``); TRUNK_BWD_NO_LOADS stages zeros in
+// place of every row load (``load_rows``).
 
 #pragma once
 
@@ -132,6 +136,23 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[4][NT][4],
   }
 }
 
+// A backward's dX product, g · Wᵀ (warp_gemm over the packed Wᵀ).
+template <int NT>
+__device__ __forceinline__ void dx_gemm(float (&acc)[4][NT][4], const Seg& s1,
+                                        const Seg& s2, const uint2* w, int nt0,
+                                        int lane) {
+#ifdef TRUNK_BWD_NO_DX
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
+#else
+  warp_gemm<NT>(acc, s1, s2, w, nt0, lane);
+#endif
+}
+
 // Hidden-layer epilogue: + bias (+ the row's latent contribution), ReLU,
 // round to bf16 into the next shared activation buffer.
 template <int NT>
@@ -189,16 +210,34 @@ __device__ __forceinline__ void store_out(const float (&acc)[4][1][4],
   }
 }
 
-// Copy a shared [64][kActStride] activation tile to rows row0.. of a global
-// [M, 256] bf16 buffer (16-byte vectors; rows past M are not stored).
+// Copy a shared [64][stride] activation tile (256 columns) to rows row0..
+// of a global [M, 256] bf16 buffer (16-byte vectors; rows past M are not
+// stored).
 __device__ __forceinline__ void store_tile(bf16* dst, const bf16* src,
-                                           int row0, int M) {
+                                           int row0, int M,
+                                           int stride = kActStride) {
   constexpr int kVec = kHidden / 8;
   for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
     const int r = i / kVec, c = i - r * kVec;
     if (row0 + r < M)
       reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * kHidden)[c] =
-          *reinterpret_cast<const uint4*>(src + r * kActStride + c * 8);
+          *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
+  }
+}
+
+// The split backwards' narrow gradient plane [M, 16] bf16 (the output and
+// density layers' gradients, read by dw_gemm.cu): columns col0..col0+7 of
+// the tile's rows get bf16(g[r][c]) for c < ncols, zero beyond; g is the
+// tile's f32 [rows, ncols] gradient (row r at g[r*ncols]).
+constexpr int kNarrowCols = 16;
+__device__ __forceinline__ void store_narrow(bf16* gn, int col0,
+                                             const float* g, int ncols,
+                                             int row0, int M) {
+  for (int i = threadIdx.x; i < kTile * 8; i += kThreads) {
+    const int r = i >> 3, c = i & 7;
+    if (row0 + r < M)
+      gn[(size_t)(row0 + r) * kNarrowCols + col0 + c] =
+          __float2bfloat16_rn(c < ncols ? g[(size_t)r * ncols + c] : 0.f);
   }
 }
 
@@ -211,8 +250,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, int stride,
   for (int i = threadIdx.x; i < kTile * vec; i += kThreads) {
     const int r = i / vec, c = i - r * vec;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
+#ifndef TRUNK_BWD_NO_LOADS
     if (row0 + r < M)
       v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * width) + c);
+#endif
     *reinterpret_cast<uint4*>(dst + r * stride + c * 8) = v;
   }
 }
@@ -262,6 +303,9 @@ __device__ __forceinline__ void warp_dw(const bf16* H, int sh, int i0,
                                         int mt_valid, const bf16* G, int sg,
                                         int n0, float* dW, int ldw,
                                         int lane) {
+#ifdef TRUNK_BWD_NO_DW
+  return;
+#endif
   float acc[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)

@@ -10,6 +10,7 @@ missing ``nvcc`` raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -85,3 +86,10 @@ def check(err, what):
 
 def stream_ptr(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=64)
+def device_ints(values, device):
+    """A tuple of ints as an int32 tensor on ``device``, copied once: the
+    host tables the kernels read on every step.  Read-only."""
+    return torch.tensor(values, dtype=torch.int32, device=device)

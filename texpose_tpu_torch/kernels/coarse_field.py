@@ -42,6 +42,7 @@ import torch
 from ..nn.mlp import relu, round_to
 from . import _build
 from .composite import composite_coarse_bwd, composite_coarse_plain
+from .dw_gemm import NARROW, NARROW_COLS, WIDE, Segment, dw_grads
 from .st_field import (HIDDEN, ROW_TILE, TrunkWeights, _cat_packs, _ceil16,
                        _pack_layer, _OUT_TILE, check_trunk, pack_head,
                        stage_rows)
@@ -122,8 +123,9 @@ class CoarseFieldWeights(TrunkWeights):
         the per-layer offsets {dW, dW2, db, db2} (-1 = none) it writes to:
         trunk layers (layer 0's dW has kx rows; a skip layer adds its xext
         block, the last layer its density tile and bias), then the RGB head
-        (layer 0 adds its enc⊕pts block; the output layer is one n8 tile)."""
-        H = HIDDEN
+        (layer 0 adds its enc⊕pts block; the output layer is one n8 tile).
+        The blocks are the field's width (256 on the kernels' path)."""
+        H = self.feat_dim
         layout, offs, at = [], [], 0
 
         def add(key, rows, cols):
@@ -151,6 +153,47 @@ class CoarseFieldWeights(TrunkWeights):
             o[2] = add(("r", li, "b"), 1, cols)
             offs += o
         return layout, offs, at
+
+    def dw_segments(self, kx, ke):
+        """The dW blocks of ``grad_layout`` as the grouped GEMM's segments
+        (kernels/dw_gemm.py): A source 0 is the residual stack (plane j =
+        the output of trunk layer j, then of RGB hidden layer j - nf), A
+        source 1 the staged input [M, kx+ke] (xext | enc⊕pts); wide G plane
+        j is the gradient of the layer that outputs residual plane j, the
+        narrow plane holds d rgb_raw (columns 0-2) and d dens_raw (8)."""
+        layout, _, _ = self.grad_layout(kx, ke)
+        at, off = 0, {}
+        for key, rows, cols in layout:
+            off[key] = at
+            at += rows * cols
+        H, O = self.feat_dim, _OUT_TILE
+        nf, nr = len(self.trunk), len(self.rgb)
+        segs = []
+        for li in range(nf):
+            if li == 0:
+                segs.append(Segment(1, 0, 0, kx, WIDE, 0, 0, H,
+                                    off["t", 0, "w"]))
+                continue
+            segs.append(Segment(0, li - 1, 0, H, WIDE, li, 0, H,
+                                off["t", li, "w"]))
+            if li == nf - 1:
+                segs.append(Segment(0, li - 1, 0, H, NARROW, 0, 8, O,
+                                    off["t", li, "w_dens"]))
+            elif li in self.skip:
+                segs.append(Segment(1, 0, 0, kx, WIDE, li, 0, H,
+                                    off["t", li, "w_x"]))
+        for li in range(nr):
+            a_plane = nf - 1 if li == 0 else nf + li - 1
+            if li == nr - 1:
+                segs.append(Segment(0, a_plane, 0, H, NARROW, 0, 0, O,
+                                    off["r", li, "w"]))
+                continue
+            segs.append(Segment(0, a_plane, 0, H, WIDE, nf + li, 0, H,
+                                off["r", li, "w"]))
+            if li == 0:
+                segs.append(Segment(1, 0, kx, ke, WIDE, nf, 0, H,
+                                    off["r", 0, "w_ep"]))
+        return segs
 
     def finish_grads(self, parts, xw, e3):
         """The kernel's blocks → gradients in ``params()`` order."""
@@ -245,12 +288,63 @@ def coarse_field_bwd_plain(xext, ep, acts, weights, g_rgb, g_dens,
             + [("r", i) for i in range(nr)] for t in grads[key]]
 
 
+def coarse_field_bwd_dx_plain(xext, ep, acts, weights, g_rgb, g_dens,
+                              compute_dtype=torch.bfloat16):
+    """The dX-chain kernel's twin (phase (a) of the field backward): the
+    layers walked down as ``coarse_field_bwd_plain`` walks them, without
+    the dW products → (gplanes [n_res, M, 256]: plane j the gradient of the
+    layer that outputs residual plane j, rounded to compute_dtype;
+    gnarrow [M, 16]: d rgb_raw in columns 0-2 and d dens_raw in 8, rounded;
+    grads: the flat f32 buffer of ``grad_layout`` with every db block set
+    and every dW block zero).  ``dw_grads`` over ``dw_segments`` fills the
+    dW blocks from these planes."""
+    def c(x):
+        return round_to(x, compute_dtype)
+
+    H = weights.feat_dim
+    nf, nr = len(weights.trunk), len(weights.rgb)
+    M = xext.shape[0]
+    kx, ke = _ceil16(xext.shape[1]), _ceil16(ep.shape[1])
+    layout, _, total = weights.grad_layout(kx, ke)
+    at, off = 0, {}
+    for key, rows, cols in layout:
+        off[key] = at
+        at += rows * cols
+    grads = torch.zeros(total, dtype=torch.float32, device=xext.device)
+
+    def put(key, v):
+        grads[off[key]:off[key] + v.numel()] = v
+
+    h = [acts[i].float() for i in range(nf + nr - 1)]
+    gplanes = torch.zeros((nf + nr - 1, M, H), device=xext.device)
+    gnarrow = torch.zeros((M, NARROW_COLS), device=xext.device)
+    gnarrow[:, :3] = c(g_rgb.float())
+    gnarrow[:, 8] = c(g_dens.float()[:, 0])
+    g = g_rgb.float()
+    put(("r", nr - 1, "b"), g.sum(0))
+    for li in range(nr - 1, 0, -1):              # RGB layers nr-1 .. 1
+        g = (c(g) @ c(weights.rgb[li].w).t()) * (h[nf + li - 1] > 0)
+        gplanes[nf + li - 1] = c(g)
+        put(("r", li - 1, "b"), g.sum(0))
+    # RGB layer 0 passes back its feature rows; the density joins them
+    g = (c(g) @ c(weights.rgb[0].w[:H]).t()) * (h[nf - 1] > 0)
+    gplanes[nf - 1] = c(g)
+    put(("t", nf - 1, "b"), g.sum(0))
+    put(("t", nf - 1, "b_dens"), g_dens.float().sum(0))
+    g = torch.cat([g_dens.float(), g], -1)
+    for li in range(nf - 1, 0, -1):              # trunk layers nf-1 .. 1
+        g = (c(g) @ c(weights.trunk[li].w[:H]).t()) * (h[li - 1] > 0)
+        gplanes[li - 1] = c(g)
+        put(("t", li - 1, "b"), g.sum(0))
+    return gplanes, gnarrow, grads
+
+
 _ARGTYPES = {
     "coarse_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
     "coarse_field_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
-    "coarse_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    "coarse_bwd_dx": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 
@@ -358,18 +452,11 @@ def coarse_field_fwd(xext, ep, weights, compute_dtype=torch.bfloat16,
 coarse_field_fwd.launches = 0
 
 
-def coarse_field_bwd(xext, ep, xe, acts, weights, g_rgb, g_dens,
-                     compute_dtype=torch.bfloat16):
-    """Gradients of every trunk and RGB-head tensor, in ``weights.params()``
-    order, f32, from the forward's residuals (``xe`` and ``acts`` as
-    ``coarse_render_fwd`` returns them).
-
-    CPU tensors take ``coarse_field_bwd_plain``; CUDA tensors launch the
-    kernel (bf16 compute only) or raise."""
-    if xext.device.type == "cpu":
-        return coarse_field_bwd_plain(xext, ep, acts, weights, g_rgb, g_dens,
-                                      compute_dtype)
-    _check_cuda("coarse_field_bwd", xext, compute_dtype)
+def _bwd_inputs(what, xext, ep, xe, acts, weights, g_rgb, g_dens,
+                compute_dtype):
+    """The field backward kernels' checked inputs and zeroed flat gradient:
+    (M, kx, ke, layout, grads, offs, wT, g_rgb, g_dens) on the card."""
+    _check_cuda(what, xext, compute_dtype)
     M, xw = xext.shape
     e3 = ep.shape[1]
     dev = xext.device
@@ -380,33 +467,60 @@ def coarse_field_bwd(xext, ep, xe, acts, weights, g_rgb, g_dens,
             or acts.dtype != torch.bfloat16
             or tuple(g_rgb.shape) != (M, 3)
             or tuple(g_dens.shape) != (M, 1)):
-        raise ValueError("coarse_field_bwd: expects the kernel's staged "
+        raise ValueError(f"{what}: expects the kernel's staged "
                          f"[M,{kx + ke}] input and [{n_res},M,256] bf16 "
                          f"residuals and [M,3]/[M,1] gradients, got "
                          f"{tuple(acts.shape)}, {tuple(g_rgb.shape)}, "
                          f"{tuple(g_dens.shape)}")
     wT = weights.kernel_buffer_bwd(xw, e3)
     if any(t.device != dev for t in (xe, acts, g_rgb, g_dens, wT)):
-        raise ValueError("coarse_field_bwd: inputs, gradients and weights "
-                         f"must all lie on {dev}")
+        raise ValueError(f"{what}: inputs, gradients and weights must all "
+                         f"lie on {dev}")
     layout, offs, total = weights.grad_layout(kx, ke)
     grads = torch.zeros(total, dtype=torch.float32, device=dev)
-    offs = torch.tensor(offs, dtype=torch.int32, device=dev)
-    g_rgb = g_rgb.float().contiguous()
-    g_dens = g_dens.float().contiguous()
-    lib = _build.load("coarse_field", _ARGTYPES)
-    err = lib.coarse_bwd(
-        xe.data_ptr(), acts.data_ptr(), g_rgb.data_ptr(), g_dens.data_ptr(),
-        wT.data_ptr(), grads.data_ptr(), offs.data_ptr(), M, kx, ke,
-        len(weights.trunk), len(weights.rgb),
-        sum(1 << s for s in weights.skip), _build.stream_ptr(dev))
-    _build.check(err, "coarse_field_bwd")
-    coarse_field_bwd.launches += 1
+    offs = _build.device_ints(tuple(offs), dev)
+    return (M, kx, ke, layout, grads, offs, wT, g_rgb.float().contiguous(),
+            g_dens.float().contiguous())
+
+
+def _finish(weights, layout, grads, xw, e3):
+    """The flat f32 gradient → gradients in ``weights.params()`` order."""
     parts, at = {}, 0
     for key, rows, cols in layout:
         parts[key] = grads[at:at + rows * cols].view(rows, cols)
         at += rows * cols
     return weights.finish_grads(parts, xw, e3)
+
+
+def coarse_field_bwd(xext, ep, xe, acts, weights, g_rgb, g_dens,
+                     compute_dtype=torch.bfloat16):
+    """Gradients of every trunk and RGB-head tensor, in ``weights.params()``
+    order, f32, from the forward's residuals (``xe`` and ``acts`` as
+    ``coarse_render_fwd`` returns them).
+
+    CPU tensors take ``coarse_field_bwd_plain``; CUDA tensors launch the
+    dX-chain kernel (bf16 compute only; its launches counted here), then
+    the grouped dW GEMM and its reduction (``dw_grads``), or raise."""
+    if xext.device.type == "cpu":
+        return coarse_field_bwd_plain(xext, ep, acts, weights, g_rgb, g_dens,
+                                      compute_dtype)
+    M, kx, ke, layout, grads, offs, wT, g_rgb, g_dens = _bwd_inputs(
+        "coarse_field_bwd", xext, ep, xe, acts, weights, g_rgb, g_dens,
+        compute_dtype)
+    dev = xext.device
+    gplanes = torch.empty((acts.shape[0], M, HIDDEN), dtype=torch.bfloat16,
+                          device=dev)
+    gnarrow = torch.empty((M, NARROW_COLS), dtype=torch.bfloat16, device=dev)
+    lib = _build.load("coarse_field", _ARGTYPES)
+    err = lib.coarse_bwd_dx(
+        acts.data_ptr(), g_rgb.data_ptr(), g_dens.data_ptr(), wT.data_ptr(),
+        grads.data_ptr(), offs.data_ptr(), gplanes.data_ptr(),
+        gnarrow.data_ptr(), M, kx, ke, len(weights.trunk), len(weights.rgb),
+        sum(1 << s for s in weights.skip), _build.stream_ptr(dev))
+    _build.check(err, "coarse_field_bwd")
+    coarse_field_bwd.launches += 1
+    dw_grads([acts, xe], gplanes, gnarrow, weights.dw_segments(kx, ke), grads)
+    return _finish(weights, layout, grads, xext.shape[1], ep.shape[1])
 
 
 coarse_field_bwd.launches = 0

@@ -36,6 +36,7 @@ import torch
 
 from ..nn.mlp import relu, round_to
 from . import _build
+from .dw_gemm import NARROW, NARROW_COLS, WIDE, Segment, dw_grads
 
 HIDDEN = 256          # the CUDA kernel's layer width
 _OUT_TILE = 8         # output layers are padded to one mma n-tile
@@ -384,16 +385,104 @@ def _grad_layout(weights, ke):
     """[(head, layer, part, rows, cols)] of the backward kernel's flat f32
     output, in its walk order: per head and layer, dW (output layers padded
     to one 8-column tile), for RGB layer 0 also the enc⊕pts block [ke,256],
-    then db."""
+    then db.  The blocks are the heads' width (256 on the kernels' path)."""
     out = []
     for name, head in (("rgb", weights.rgb), ("trans", weights.trans)):
         for li, layer in enumerate(head):
-            cols = HIDDEN if li < len(head) - 1 else _OUT_TILE
-            out.append((name, li, "w", HIDDEN, cols))
+            cols = layer.w.shape[1] if li < len(head) - 1 else _OUT_TILE
+            rows = weights.feat_dim if li == 0 else layer.w.shape[0]
+            out.append((name, li, "w", rows, cols))
             if li == 0 and name == "rgb":
                 out.append((name, li, "w_ep", ke, cols))
             out.append((name, li, "b", 1, cols))
     return out
+
+
+def dw_segments(weights, ke):
+    """The dW blocks of ``_grad_layout`` as the grouped GEMM's segments
+    (kernels/dw_gemm.py): A source 0 is the stack of both heads' recomputed
+    hidden activations (RGB head first: plane j of a head = its hidden
+    layer j's output), A source 1 the feat residual, A source 2 enc⊕pts
+    [M, ke]; wide G plane j is the gradient of hidden activation plane j,
+    the narrow plane holds d rgb_raw (columns 0-2) and d trans_raw (8-12)."""
+    off, at = {}, 0
+    for name, li, part, r, c in _grad_layout(weights, ke):
+        off[name, li, part] = at
+        at += r * c
+    segs, base, F = [], 0, weights.feat_dim
+    for name, head, col in (("rgb", weights.rgb, 0),
+                            ("trans", weights.trans, 8)):
+        n, H = len(head), head[0].w.shape[1]
+        segs.append(Segment(1, 0, 0, F, WIDE, base, 0, H, off[name, 0, "w"]))
+        if name == "rgb":
+            segs.append(Segment(2, 0, 0, ke, WIDE, base, 0, H,
+                                off[name, 0, "w_ep"]))
+        for li in range(1, n - 1):
+            segs.append(Segment(0, base + li - 1, 0, H, WIDE, base + li, 0,
+                                H, off[name, li, "w"]))
+        segs.append(Segment(0, base + n - 2, 0, H, NARROW, 0, col, _OUT_TILE,
+                            off[name, n - 1, "w"]))
+        base += n - 1
+    return segs
+
+
+def st_field_bwd_dx_plain(feat, encpts, light, trans, weights, rows_per_img,
+                          g_rgb, g_trans, compute_dtype=torch.bfloat16):
+    """The dX-chain kernel's twin (phase (a) of the heads' backward): the
+    heads recomputed and walked down as ``st_field_bwd_plain`` does,
+    without the dW products → (hplanes, gplanes [n_rgb-1 + n_trans-1, M,
+    256]: each head's hidden activations and their gradients, RGB head
+    first, rounded to compute_dtype; gnarrow [M, 16]: d rgb_raw in columns
+    0-2 and d trans_raw in 8-12, rounded; grads: the flat f32 buffer of
+    ``_grad_layout`` with every db block set and every dW block zero;
+    d_lrow, d_trow: the per-image row sums of each head's layer-0
+    gradient).  ``dw_grads`` over ``dw_segments`` fills the dW blocks."""
+    def c(x):
+        return round_to(x, compute_dtype)
+
+    e3 = encpts.shape[1]
+    ke = _ceil16(e3)
+    lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
+    M = feat.shape[0]
+    img = _image_index(M, rows_per_img, lrow.shape[0], feat.device)
+    featc = c(feat.float())
+    ep = c(encpts.float())
+    layout = _grad_layout(weights, ke)
+    off, at = {}, 0
+    for name, li, part, r, cc in layout:
+        off[name, li, part] = at
+        at += r * cc
+    grads = torch.zeros(at, dtype=torch.float32, device=feat.device)
+    nh = len(weights.rgb) + len(weights.trans) - 2
+    hplanes = torch.zeros((nh, M, weights.rgb[0].w.shape[1]),
+                          device=feat.device)
+    gplanes = torch.zeros_like(hplanes)
+    gnarrow = torch.zeros((M, 16), device=feat.device)
+    gnarrow[:, :3] = c(g_rgb.float())
+    gnarrow[:, 8:13] = c(g_trans.float())
+    dlat, base = {}, 0
+    for name, layers, extra, lat, g_out in (
+            ("rgb", weights.rgb, ep, lrow, g_rgb),
+            ("trans", weights.trans, None, trow, g_trans)):
+        x0 = featc if extra is None else torch.cat([featc, extra], dim=-1)
+        hs = [relu(c(x0) @ c(layers[0].w[:x0.shape[1]]) + lat[img]
+                   + layers[0].b)]
+        for layer in layers[1:-1]:
+            hs.append(relu(c(hs[-1]) @ c(layer.w) + layer.b))
+        g = g_out.float()
+        b = off[name, len(layers) - 1, "b"]
+        grads[b:b + g.shape[1]] = g.sum(0)
+        for li in range(len(layers) - 1, 0, -1):
+            g = (c(g) @ c(layers[li].w).t()) * (hs[li - 1] > 0)
+            hplanes[base + li - 1] = c(hs[li - 1])
+            gplanes[base + li - 1] = c(g)
+            b = off[name, li - 1, "b"]
+            grads[b:b + g.shape[1]] = g.sum(0)
+        dlat[name] = torch.zeros((lat.shape[0], g.shape[1]),
+                                 dtype=torch.float32,
+                                 device=g.device).index_add_(0, img, g)
+        base += len(layers) - 1
+    return hplanes, gplanes, gnarrow, grads, dlat["rgb"], dlat["trans"]
 
 
 def _finish_bwd(weights, parts, d_lrow, d_trow, light, trans, e3):
@@ -423,7 +512,7 @@ def _finish_bwd(weights, parts, d_lrow, d_trow, light, trans, e3):
 _ARGTYPES = {
     "st_field_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
-    "st_field_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    "st_field_bwd_dx": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 
@@ -542,7 +631,8 @@ def st_field_bwd(feat, encpts, light, trans, weights, rows_per_img, g_rgb,
     ``weights.head_params()`` order, d_light [B,Dl], d_trans [B,Dt]), f32.
 
     CPU tensors take ``st_field_bwd_plain``; CUDA tensors launch the
-    kernel (bf16 compute only) or raise."""
+    dX-chain kernel (bf16 compute only; its launches counted here), then
+    the grouped dW GEMM and its reduction (``dw_grads``), or raise."""
     if feat.device.type == "cpu":
         return st_field_bwd_plain(feat, encpts, light, trans, weights,
                                   rows_per_img, g_rgb, g_trans,
@@ -558,15 +648,24 @@ def st_field_bwd(feat, encpts, light, trans, weights, rows_per_img, g_rgb,
     g_rgb = g_rgb.float().contiguous()
     g_trans = g_trans.float().contiguous()
     feat = feat.contiguous()
+    dev = feat.device
+    nh = len(weights.rgb) + len(weights.trans) - 2
+    hplanes = torch.empty((nh, M, HIDDEN), dtype=torch.bfloat16, device=dev)
+    gplanes = torch.empty_like(hplanes)
+    gnarrow = torch.empty((M, NARROW_COLS), dtype=torch.bfloat16,
+                          device=dev)
     lib = _build.load("st_field", _ARGTYPES)
-    err = lib.st_field_bwd(
+    err = lib.st_field_bwd_dx(
         feat.data_ptr(), ep.data_ptr(), g_rgb.data_ptr(), g_trans.data_ptr(),
         wh.data_ptr(), bh.data_ptr(), wT.data_ptr(), lrow.data_ptr(),
         trow.data_ptr(), grads.data_ptr(), d_lrow.data_ptr(),
-        d_trow.data_ptr(), M, ke, int(rows_per_img), lrow.shape[0],
-        len(weights.rgb), len(weights.trans), _build.stream_ptr(feat.device))
+        d_trow.data_ptr(), hplanes.data_ptr(), gplanes.data_ptr(),
+        gnarrow.data_ptr(), M, ke, int(rows_per_img), lrow.shape[0],
+        len(weights.rgb), len(weights.trans), _build.stream_ptr(dev))
     _build.check(err, "st_field_bwd")
     st_field_bwd.launches += 1
+    dw_grads([hplanes, feat, ep], gplanes, gnarrow, dw_segments(weights, ke),
+             grads)
     return finish_flat(weights, layout, grads, d_lrow, d_trow, light, trans,
                        encpts.shape[1])
 

@@ -220,6 +220,7 @@ class Engine:
                   f"{max_iter} steps)")
         if self.start_step == 0:
             self.validate(0)
+        prof = self._start_profiler() if cfg.get("profile") else None
         t_start = time.time()
         for it in range(self.start_step, max_iter):
             loss = self.train_step(self.make_draws(it))
@@ -233,10 +234,36 @@ class Engine:
                 self.validate(done)
             if cfg.freq.get("ckpt") and done % cfg.freq.ckpt == 0:
                 self.save_checkpoint(done)
+        if prof is not None:
+            self._stop_profiler(prof)
         self.save_checkpoint(max_iter)
         wall = time.time() - t_start
         rate = (max_iter - self.start_step) / max(wall, 1e-9)
         log.title(f"TRAINING DONE in {wall:.1f}s ({rate:.2f} it/s)")
+
+    def _start_profiler(self):
+        """--profile: a torch.profiler trace of the training loop (host,
+        and the card's kernels where the run is on one), as the JAX loop's
+        jax.profiler trace; written by ``_stop_profiler``."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof):
+        """Ends the trace and writes it as a chrome-trace JSON to
+        <output_path>/profile/trace.json (the JAX loop's trace directory)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        prof_dir = os.path.join(self.cfg.output_path, "profile")
+        os.makedirs(prof_dir, exist_ok=True)
+        fname = os.path.join(prof_dir, "trace.json")
+        prof.export_chrome_trace(fname)
+        log.info(f"torch.profiler trace → {fname}")
+        return fname
 
     def log_scalars(self, it, loss, split="train"):
         """Pull the step's losses to the host; a non-finite one raises."""

@@ -26,8 +26,9 @@ RGB head (``mlp_rgb``) and the transient head (``mlp_trans``) as
 ``Dense`` layers with weights stored [in, out], so the checkpoint bridge
 maps the JAX npz leaves onto it one to one.  Three forward routes, as in
 the JAX package:
-  * ``apply_nerf_st`` — plain PyTorch heads, activated outputs, the trunk
-    through ``run_trunk``;
+  * ``apply_nerf_st`` — activated outputs: through the field kernels
+    (``apply_nerf_st_fused``) where ``use_fused_st`` holds, as JAX's, else
+    plain PyTorch heads with the trunk through ``run_trunk``;
   * ``apply_nerf_st_raw`` — raw head outputs through the ST-field kernel
     wrapper (kernels/st_field.py), the input of the composite kernel; with
     grad enabled it goes through the autograd Function ``st_field``, whose
@@ -460,11 +461,16 @@ def composite_density(density_samples, depth_samples, ray):
 def apply_nerf_st(nerf, cfg, points, ray_unit, latent_trans, latent_light,
                   progress=None, compute_dtype=None, density_noise=None,
                   training=False):
-    """Plain route: points [B,R,N,3] → (rgb [B,R,N,3,2], density [B,R,N,2],
-    uncert [B,R,N,1]).  The trunk runs through ``run_trunk`` (its kernel
-    outside training); its outputs are detached (frozen geometry), as the
-    JAX package's stop_gradient."""
+    """points [B,R,N,3] → (rgb [B,R,N,3,2], density [B,R,N,2],
+    uncert [B,R,N,1]).  Where ``use_fused_st`` holds, the field kernels
+    compute the raw outputs (``apply_nerf_st_fused``), as JAX's route of
+    the same name; else the plain route: the trunk through ``run_trunk``
+    (its kernel outside training), its outputs detached (frozen geometry),
+    as the JAX package's stop_gradient, and plain PyTorch heads."""
     B, R, N, _ = points.shape
+    if use_fused_st(cfg, nerf):
+        return apply_nerf_st_fused(nerf, cfg, points, ray_unit, latent_trans,
+                                   latent_light, progress, compute_dtype)
     feat, density = run_trunk(nerf, cfg, points, progress, compute_dtype,
                               density_noise, training)
     feat, density = feat.detach(), density.detach()
@@ -515,6 +521,29 @@ def apply_nerf_st_raw(nerf, cfg, points, ray_unit, latent_trans,
               R * N, compute_dtype or torch.bfloat16)
 
 
+def apply_nerf_st_fused(nerf, cfg, points, ray_unit, latent_trans,
+                        latent_light, progress=None, compute_dtype=None):
+    """The field kernels' route with the plain activations after them
+    (JAX's function of this name): raw outputs from ``apply_nerf_st_raw``,
+    then sigmoid / ``density_activ`` / softplus → the outputs of
+    ``apply_nerf_st``.  The static density is frozen-trunk output and takes
+    no gradient."""
+    B, R, N, _ = points.shape
+    rgb_raw, dens_raw, trans_raw = apply_nerf_st_raw(
+        nerf, cfg, points, ray_unit, latent_trans, latent_light, progress,
+        compute_dtype)
+    density = DENSITY_ACTIVATIONS[cfg.arch.density_activ](
+        dens_raw[:, 0].detach())
+    sh = (B, R, N)
+    rgb_pair = torch.stack([torch.sigmoid(rgb_raw).reshape(*sh, 3),
+                            torch.sigmoid(trans_raw[:, :3]).reshape(*sh, 3)],
+                           dim=-1)
+    density_pair = torch.stack([density.reshape(sh),
+                                softplus(trans_raw[:, 3]).reshape(sh)],
+                               dim=-1)
+    return rgb_pair, density_pair, softplus(trans_raw[:, 4:5]).reshape(*sh, 1)
+
+
 def forward_samples_nerf_st(nerf, cfg, center, ray, depth_samples,
                             latent_trans, latent_light, progress=None,
                             compute_dtype=None, density_noise=None,
@@ -537,26 +566,42 @@ def forward_samples_nerf_st_raw(nerf, cfg, center, ray, depth_samples,
                              latent_light, progress, compute_dtype)
 
 
-def use_fused_render(cfg, nerf):
-    """Whether rendering takes a kernel route (ST-field kernel → composite
-    kernel on raw outputs, or the render kernels when
-    ``use_fused_st_render`` also holds): the JAX gate's contract (softplus
-    density, view-dependent posenc, a transient head, ≥2-layer heads, no
-    training density noise, the ``kernels.fused_st`` /
-    ``kernels.fused_composite`` switches).  The compute dtype is not part
-    of the gate: on the card the field kernels compute in bf16 only and
-    their wrappers raise for anything else."""
+def use_fused_st(cfg, nerf):
+    """Whether the ST field takes its kernels (rows 1/2 through
+    ``apply_nerf_st_raw``): JAX's ``_use_fused_st`` — ``kernels.fused_st``,
+    view-dependent posenc, a transient head, no density noise.  JAX's
+    row-tile clause ((R·N) a multiple of 1024) is TPU tiling and is
+    dropped: the CUDA kernels mask a ragged last tile.  In its place stands
+    the CUDA kernels' own contract: both heads have at least two layers
+    (``STFieldWeights._check_heads``; the backward walks a hidden layer —
+    JAX's field kernel also runs 1-layer heads, so such heads take the plain
+    route here).  The compute dtype is not part of the gate: on the card
+    the field kernels compute in bf16 only and their wrappers raise for
+    anything else."""
     kcfg = cfg.get("kernels") or {}
-    if not (kcfg.get("fused_st", True) and kcfg.get("fused_composite", True)):
-        return False
-    if cfg.nerf.get("density_noise_reg"):
-        return False
-    if cfg.arch.density_activ != "softplus" or nerf.mlp_trans is None:
+    if not kcfg.get("fused_st", True) or nerf.mlp_trans is None:
         return False
     if not (cfg.arch.get("posenc") and cfg.arch.posenc.get("L_view")
             and cfg.nerf.view_dep):
         return False
+    if cfg.nerf.get("density_noise_reg"):
+        return False
     return len(nerf.mlp_rgb) >= 2 and len(nerf.mlp_trans) >= 2
+
+
+def use_fused_render(cfg, nerf):
+    """Whether rendering takes a kernel route (ST-field kernel → composite
+    kernel on raw outputs, or the render kernels when
+    ``use_fused_st_render`` also holds): JAX's gate — the
+    ``kernels.fused_composite`` switch, a softplus density (the composite
+    kernels' activation) and ``use_fused_st`` (with the port kernels'
+    ≥2-layer-heads contract in place of JAX's TPU tile clause)."""
+    kcfg = cfg.get("kernels") or {}
+    if not kcfg.get("fused_composite", True):
+        return False
+    if cfg.arch.density_activ != "softplus":
+        return False
+    return use_fused_st(cfg, nerf)
 
 
 def use_fused_st_render(cfg, nerf, N):

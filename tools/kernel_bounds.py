@@ -15,6 +15,12 @@ the render kernels of rows 6f/6b add their composite's f32 operations to
 their bf16 ones).
 A field function's input is its points (the last columns of its enc⊕pts
 rows, or [M,3] for the trunk alone), not the posenc rows derived from them.
+Rows 2 and 7b also print the byte floor of their split design (the dX-chain
+kernel, then the grouped dW GEMM, csrc/dw_gemm.cu): the bytes phase (a)
+reads and writes (its inputs; the bf16 gradient planes, and for row 2 the
+recomputed hidden activations) plus those phase (b) reads (the planes and
+the inputs it shares), over 3.35 TB/s — the least time that design could
+take, beside the function's own bound.
 Pure arithmetic on the shapes: no card is needed, and for the ported
 kernels it reproduces the ``bound_ms`` of chip_smoke.py's kernels line.
 """
@@ -61,13 +67,25 @@ def main():
     def acts(m):
         return t(11, m, 256, dtype=torch.bfloat16)
 
+    def floor(a_reads, a_writes, b_reads):
+        """The split design's bytes: phase (a) reads and writes, (b) reads."""
+        return cs.nbytes(*a_reads, *a_writes, *b_reads)
+
+    def bf(*shape):
+        return t(*shape, dtype=torch.bfloat16)
+
+    nh = len(st.rgb) + len(st.trans) - 2              # row 2's hidden planes
+    st_planes = (bf(nh, M, 256), bf(nh, M, 256), bf(M, 16))   # H, G, narrow
+    st_floor = floor((bf(M, 256), bf(M, 32), t(M, 8)), st_planes,
+                     (*st_planes, bf(M, 256), bf(M, 32)))
+
     rows = [
         ("1 st_field fwd", cs.nbytes(enc_st, *lat, t(M, 9),
                                      *st_params), st_fwd, cs.PEAK_BF16),
         ("2 st_field bwd", cs.nbytes(t(M, 256, dtype=torch.bfloat16), enc_st,
                                      *lat, t(M, 8), *st.head_params(),
                                      *head_grads, *lat), st_bwd,
-         cs.PEAK_BF16),
+         cs.PEAK_BF16, 0, st_floor),
         ("3 composite_st fwd", cs.nbytes(t(M, 9), *planes(N), t(BR, 16)),
          cs.COMPOSITE_ST_FWD_OPS * M, cs.PEAK_F32),
         ("4 composite_st bwd", cs.nbytes(t(M, 9), t(BR, N), t(BR, 16),
@@ -99,7 +117,9 @@ def main():
              2 * co_macs[0] * m, cs.PEAK_BF16),
             (f"7b {what} field bwd", cs.nbytes(
                 e, acts(m), t(m, 4),
-                *co.params(), *co_grads), 2 * co_macs[1] * m, cs.PEAK_BF16)]
+                *co.params(), *co_grads), 2 * co_macs[1] * m, cs.PEAK_BF16,
+             0, floor((acts(m), t(m, 4)), (acts(m), bf(m, 16)),
+                      (acts(m), bf(m, 80), acts(m), bf(m, 16))))]
     rows += [
         ("8 coarse render fwd, eval", cs.nbytes(t(M, e3_co),
                                                 *planes(N), t(BR, 8),
@@ -120,11 +140,14 @@ def main():
     rows.append(("10 trunk fwd", cs.nbytes(
         t(M, 3), t(M, 256, dtype=torch.bfloat16), t(M), *trunk_params),
         trunk_ops, cs.PEAK_BF16))
-    print(f"{'row':32s} {'MB':>10s} {'GFLOP':>10s} {'bound ms':>10s}  by")
-    for name, n_bytes, ops, peak, *f32_ops in rows:
-        ms, by = cs.bound(n_bytes, ops, peak, *f32_ops)
+    print(f"{'row':32s} {'MB':>10s} {'GFLOP':>10s} {'bound ms':>10s}  by"
+          f"{'split floor ms':>22s}")
+    for name, n_bytes, ops, peak, *more in rows:
+        ms, by = cs.bound(n_bytes, ops, peak, *more[:1])
+        split = (f"{more[1] / cs.PEAK_BYTES * 1e3:12.4f} "
+                 f"({more[1] / 1e9:.2f} GB)" if len(more) > 1 else "")
         print(f"{name:32s} {n_bytes / 1e6:10.2f} {ops / 1e9:10.2f} "
-              f"{ms:10.4f}  {by}")
+              f"{ms:10.4f}  {by:10s} {split}")
     print("(row 5 is rows 3/4 on the flat layout; row 9c is rows 9a/9b on "
           "it)")
 

@@ -1,20 +1,35 @@
 #!/usr/bin/env python3
-"""How much of the trunk-training backward kernel's time (csrc/coarse_field.cu
-``coarse_bwd_kernel``) its cross-tile f32 atomics take, on one GPU.
+"""Where the two field backward kernels' time went before their split, on
+one GPU: the trunk-training backward (row 7b, csrc/coarse_field.cu) and the
+ST heads' backward (row 2, csrc/st_field.cu), each in its one-kernel form
+with the cross-tile dW sums as f32 atomics.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/probe_field_bwd_atomics.py [--reps 20]
 
-Builds csrc/coarse_field.cu a second time into build/probe_atomics/, with
-TRUNK_DW_PLAIN_STORES defined: every dW partial of ``warp_dw``
-(csrc/trunk.cuh) is then written with a plain store instead of ``atomicAdd``
-— the sums come out wrong, the products, residual reads and bytes written
-stay — then times the shipped kernel and that build on the pretrain step's
-shape (131,072 rows, the full width of configs/nerf_lm_pretrain.yaml), in
-turns (shipped, copy, copy, shipped), CUDA-event medians.  Prints one line
-per run and the card's name and power limit.  The copy is a measurement
-device only: nothing in the package uses it.
+The package ships only the split form (the dX-chain kernel, then
+csrc/dw_gemm.cu).  The one-kernel form is compiled only in the measurement
+build -DFIELD_BWD_ONE_KERNEL (entries coarse_bwd_atomic,
+st_field_bwd_atomic), into build/probe_bwd/; ``build_copy``,
+``load_one_kernel``, ``coarse_one_kernel`` and ``st_one_kernel`` below
+build and launch it, and chip_smoke.py uses them for its in-call
+comparison of the two forms.  This script builds it once more per
+measurement switch of csrc/trunk.cuh (all nvcc runs in parallel):
+  plain stores  TRUNK_DW_PLAIN_STORES: every dW partial written with a plain
+                store instead of atomicAdd (same products and bytes);
+  no dW         TRUNK_BWD_NO_DW: the dW products and their adds skipped;
+  no dX         TRUNK_BWD_NO_DX: the dX products (g · Wᵀ) skipped;
+  zero loads    TRUNK_BWD_NO_LOADS: every staged row load (residuals,
+                inputs) replaced by a zero fill.
+Each switch's results are wrong; only the time means something.  Each is
+timed against the one-kernel build in turns (one-kernel, switch, switch,
+one-kernel), CUDA-event medians, on the main paths' shapes: 7b on the
+pretrain step's 131,072 rows at the full width of
+configs/nerf_lm_pretrain.yaml, row 2 on the GAN step's 8 images x 16,384
+rows at the full width of configs/nerf_lm_adapt_gan.yaml.  Prints one line
+per run and the card's name and power limit.  The copies are measurement
+devices only: nothing in the package uses them.
 """
 
 import argparse
@@ -23,43 +38,109 @@ import os
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT_DIR = os.path.join(HERE, "build", "probe_bwd")
+ONE_KERNEL = "FIELD_BWD_ONE_KERNEL"
+SWITCHES = {"plain stores": "TRUNK_DW_PLAIN_STORES",
+            "no dW": "TRUNK_BWD_NO_DW",
+            "no dX": "TRUNK_BWD_NO_DX",
+            "zero loads": "TRUNK_BWD_NO_LOADS"}
+# the one-kernel entries of the measurement build: (symbol, argtypes)
+ENTRIES = {"coarse_field": ("coarse_bwd_atomic", [ctypes.c_void_p] * 7
+                            + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+           "st_field": ("st_field_bwd_atomic", [ctypes.c_void_p] * 12
+                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])}
 
 
-def build_copy(out_dir):
-    """csrc/coarse_field.cu with warp_dw's atomics as plain stores → the
+def build_copy(source, *defines, out_dir=OUT_DIR):
+    """csrc/<source>.cu built with -D<define> for each of ``defines`` → the
     shared library's path."""
     from texpose_tpu_torch.kernels import _build
     os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "coarse_field_no_atomics.so")
+    so = os.path.join(out_dir, "-".join((source,) + defines) + ".so")
     subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
-                    "-DTRUNK_DW_PLAIN_STORES", "-o", so,
-                    os.path.join(_build.CSRC, "coarse_field.cu")], check=True)
+                    *[f"-D{d}" for d in defines], "-o", so,
+                    os.path.join(_build.CSRC, f"{source}.cu")], check=True)
     return so
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args()
+def load_one_kernel(so, source):
+    """The built copy of csrc/<source>.cu with its one-kernel entry typed."""
+    lib = ctypes.CDLL(so)
+    sym, argtypes = ENTRIES[source]
+    getattr(lib, sym).argtypes = argtypes
+    getattr(lib, sym).restype = ctypes.c_int
+    return lib
+
+
+def coarse_one_kernel(lib, xext, ep, xe, acts, weights, g_rgb, g_dens):
+    """``coarse_field_bwd``'s result from the one-kernel form in ``lib``
+    (a -DFIELD_BWD_ONE_KERNEL build of csrc/coarse_field.cu)."""
     import torch
-    if not torch.cuda.is_available():
-        sys.exit("probe_field_bwd_atomics: needs a CUDA device")
-    sys.modules["jax"] = None
-    sys.modules["texpose_tpu"] = None
-    sys.path.insert(0, HERE)
     from texpose_tpu_torch.kernels import _build, coarse_field as cf
+    M, kx, ke, layout, grads, offs, wT, g_rgb, g_dens = cf._bwd_inputs(
+        "coarse_bwd_atomic", xext, ep, xe, acts, weights, g_rgb, g_dens,
+        torch.bfloat16)
+    _build.check(lib.coarse_bwd_atomic(
+        xe.data_ptr(), acts.data_ptr(), g_rgb.data_ptr(), g_dens.data_ptr(),
+        wT.data_ptr(), grads.data_ptr(), offs.data_ptr(), M, kx, ke,
+        len(weights.trunk), len(weights.rgb),
+        sum(1 << s for s in weights.skip), _build.stream_ptr(xext.device)),
+        "coarse_bwd_atomic")
+    return cf._finish(weights, layout, grads, xext.shape[1], ep.shape[1])
+
+
+def st_one_kernel(lib, feat, encpts, light, trans, weights, rows_per_img,
+                  g_rgb, g_trans):
+    """``st_field_bwd``'s result from the one-kernel form in ``lib`` (a
+    -DFIELD_BWD_ONE_KERNEL build of csrc/st_field.cu)."""
+    import torch
+    from texpose_tpu_torch.kernels import _build, st_field as sf
+    (wh, bh, wT, ke, ep, lrow, trow, layout, grads, d_lrow,
+     d_trow) = sf.bwd_inputs("st_field_bwd_atomic", feat, encpts, light,
+                             trans, weights, rows_per_img, torch.bfloat16,
+                             (g_rgb, g_trans))
+    g_rgb = g_rgb.float().contiguous()
+    g_trans = g_trans.float().contiguous()
+    feat = feat.contiguous()
+    _build.check(lib.st_field_bwd_atomic(
+        feat.data_ptr(), ep.data_ptr(), g_rgb.data_ptr(), g_trans.data_ptr(),
+        wh.data_ptr(), bh.data_ptr(), wT.data_ptr(), lrow.data_ptr(),
+        trow.data_ptr(), grads.data_ptr(), d_lrow.data_ptr(),
+        d_trow.data_ptr(), feat.shape[0], ke, int(rows_per_img),
+        lrow.shape[0], len(weights.rgb), len(weights.trans),
+        _build.stream_ptr(feat.device)), "st_field_bwd_atomic")
+    return sf.finish_flat(weights, layout, grads, d_lrow, d_trow, light,
+                          trans, encpts.shape[1])
+
+
+def time_ms(launch, reps):
+    import torch
+    for _ in range(3):
+        launch()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def coarse_launcher(dev):
+    """The pretrain step's field backward inputs → launch(lib)."""
+    import torch
+    from texpose_tpu_torch.kernels import coarse_field as cf
     from texpose_tpu_torch.kernels.st_field import make_xext
     from texpose_tpu_torch.nn.fields import init_nerf
     from texpose_tpu_torch.ops.render import _dists
     from texpose_tpu_torch.utils.config import load_yaml, process_options
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
-    dev = torch.device("cuda", 0)
     cfg = process_options(load_yaml(os.path.join(
         HERE, "configs", "nerf_lm_pretrain.yaml")))
     w = init_nerf(cfg, torch.Generator().manual_seed(0)).to(dev) \
@@ -78,46 +159,81 @@ def main():
                                                    want_res=True)
     g_rgb = (torch.randn(M, 3, generator=g) / M).to(dev)
     g_dens = (torch.randn(M, 1, generator=g) / M).to(dev)
-    kx, ke = cf._ceil16(xext.shape[1]), cf._ceil16(pts.shape[1])
-    wT = w.kernel_buffer_bwd(xext.shape[1], 3)
-    _, offs, total = w.grad_layout(kx, ke)
-    offs = torch.tensor(offs, dtype=torch.int32, device=dev)
-    grads = torch.zeros(total, dtype=torch.float32, device=dev)
-    libs = {"shipped": _build.load("coarse_field", cf._ARGTYPES)}
-    copy = ctypes.CDLL(build_copy(os.path.join(HERE, "build",
-                                               "probe_atomics")))
-    copy.coarse_bwd.argtypes = cf._ARGTYPES["coarse_bwd"]
-    copy.coarse_bwd.restype = ctypes.c_int
-    libs["plain stores"] = copy
-    skip_mask = sum(1 << s for s in w.skip)
 
     def launch(lib):
-        grads.zero_()
-        _build.check(lib.coarse_bwd(
-            xe.data_ptr(), acts.data_ptr(), g_rgb.data_ptr(),
-            g_dens.data_ptr(), wT.data_ptr(), grads.data_ptr(),
-            offs.data_ptr(), M, kx, ke, len(w.trunk), len(w.rgb), skip_mask,
-            _build.stream_ptr(dev)), "coarse_bwd")
+        coarse_one_kernel(lib, xext, pts, xe, acts, w, g_rgb, g_dens)
 
-    def time_ms(lib):
-        for _ in range(3):
-            launch(lib)
-        out = []
-        for _ in range(args.reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            launch(lib)
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end))
-        return statistics.median(out)
+    return launch, M
 
-    for name in ("shipped", "plain stores", "plain stores", "shipped"):
-        print(f"probe: coarse_bwd_kernel ({name}) {time_ms(libs[name]):.4f} "
-              f"ms (M={M}, median of {args.reps}, incl. zeroing the 2.8 MB "
-              f"gradient)", flush=True)
 
+def st_launcher(dev):
+    """The GAN step's heads' backward inputs → launch(lib)."""
+    import torch
+    from texpose_tpu_torch.kernels import st_field as sf
+    from texpose_tpu_torch.nn.fields import init_nerf_st
+    from texpose_tpu_torch.utils.config import load_yaml, process_options
+
+    cfg = process_options(load_yaml(os.path.join(
+        HERE, "configs", "nerf_lm_adapt_gan.yaml")))
+    w = init_nerf_st(cfg, torch.Generator().manual_seed(0)).to(dev) \
+        .kernel_weights()
+    g = torch.Generator().manual_seed(2)
+    B, rpi = 8, 16 * 16 * 64
+    M = B * rpi
+    pts = (torch.randn(M, 3, generator=g) * 0.5).to(dev)
+    xext = sf.make_xext(pts, 10, torch.ones(10, device=dev))
+    e3 = 3 + 6 * 4 + 3
+    encpts = torch.cat([torch.rand(M, e3 - 3, generator=g).to(dev) * 2 - 1,
+                        pts], 1)
+    light = torch.randn(B, 48, generator=g).to(dev)
+    trans = torch.randn(B, 16, generator=g).to(dev)
+    with torch.no_grad():
+        *_, feat = sf.st_field_fwd(xext, encpts, light, trans, w, rpi,
+                                   want_feat=True)
+    g_rgb = (torch.randn(M, 3, generator=g) / M).to(dev)
+    g_tr = (torch.randn(M, 5, generator=g) / M).to(dev)
+
+    def launch(lib):
+        st_one_kernel(lib, feat, encpts, light, trans, w, rpi, g_rgb, g_tr)
+
+    return launch, M
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("probe_field_bwd_atomics: needs a CUDA device")
+    sys.modules["jax"] = None
+    sys.modules["texpose_tpu"] = None
+    sys.path.insert(0, HERE)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    kernels = {"coarse_field": ("coarse_bwd_kernel", coarse_launcher),
+               "st_field": ("st_field_bwd_kernel", st_launcher)}
+    jobs = [(src, ONE_KERNEL) + d for src in kernels
+            for d in [()] + [(d,) for d in SWITCHES.values()]]
+    with ThreadPoolExecutor(len(jobs)) as pool:        # one nvcc per copy
+        copies = dict(zip(jobs, pool.map(lambda job: build_copy(*job),
+                                         jobs)))
+    for src, (kname, make) in kernels.items():
+        libs = {"one-kernel": load_one_kernel(copies[src, ONE_KERNEL], src)}
+        for label, define in SWITCHES.items():
+            libs[label] = load_one_kernel(copies[src, ONE_KERNEL, define], src)
+        launch, M = make(dev)
+        for label in SWITCHES:
+            for name in ("one-kernel", label, label, "one-kernel"):
+                ms = time_ms(lambda: launch(libs[name]), args.reps)
+                print(f"probe: {kname} ({name}) {ms:.4f} ms (M={M}, median "
+                      f"of {args.reps}, incl. the wrapper's staging)",
+                      flush=True)
+        del launch
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

@@ -7,10 +7,15 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 Phases; any failure exits non-zero and no result line is printed:
   1. build: the six kernel sources compiled from csrc/ by nvcc (sm_90a),
-     in parallel with the measurement builds of the one-kernel field
-     backwards (coarse_field.cu and st_field.cu with
-     -DFIELD_BWD_ONE_KERNEL, tools/probe_field_bwd_atomics.py), which
-     nothing but the comparison below runs;
+     in parallel with the measurement builds that nothing but the
+     comparisons below runs: the one-kernel field backwards
+     (coarse_field.cu and st_field.cu with -DFIELD_BWD_ONE_KERNEL,
+     tools/probe_field_bwd_atomics.py), the mma.sync field forwards
+     (st_field.cu, coarse_field.cu and st_render.cu with
+     -DFIELD_FWD_MMA_SYNC, tools/probe_field_fwd.py) and those forwards'
+     measurement switches (csrc/trunk.cuh TRUNK_FWD_*), which the "step 1"
+     lines time against the mma.sync build in turns (where the replaced
+     forwards' time went: weight loads, residual stores, epilogue);
   2. kernels: each of the fourteen kernels against its plain-PyTorch twin on
      the card at the main paths' shapes — ST field forward on one
      2048-ray × 64-sample chunk (131,072 rows, full width, bf16), its
@@ -33,7 +38,11 @@ Phases; any failure exits non-zero and no result line is printed:
      beside the GEMM's yardstick (one torch.matmul per segment), and the
      one-kernel form they replaced (f32 dW atomics, from the measurement
      build) is held against the twin and timed against the split form in
-     turns (old, new, new, old);
+     turns (old, new, new, old).  The four wgmma + TMA field forwards (rows
+     1, 6f, 7a, 8) are timed the same way against the mma.sync forms they
+     replaced (held against the twins too), each beside the L2 weight
+     bytes of both designs; the render backward's (6b) mma.sync recompute
+     of the heads' raw outputs is held against the wgmma forward's;
   3. eval: ``texpose_tpu_torch.evaluate`` (the CLI entry) on a generated
      480×640 fixture at the full width of configs/nerf_lm_adapt_gan.yaml,
      weights from the port's seeded init saved as a JAX-format npz and
@@ -353,16 +362,36 @@ COMPOSITE_COARSE_FWD_OPS = 30
 COMPOSITE_COARSE_BWD_OPS = 40
 
 
-def load_probe(here):
-    """tools/probe_field_bwd_atomics.py as a module: the one-kernel field
-    backwards' measurement build and launchers."""
+def load_probe(here, name="probe_field_bwd_atomics"):
+    """tools/<name>.py as a module: the measurement builds and launchers of
+    the one-kernel field backwards (probe_field_bwd_atomics) or of the
+    mma.sync field forwards (probe_field_fwd)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "probe_field_bwd_atomics",
-        os.path.join(here, "tools", "probe_field_bwd_atomics.py"))
+        name, os.path.join(here, "tools", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def fwd_ab(new, old, reps=10):
+    """A field forward's mma.sync form (old, the measurement build
+    -DFIELD_FWD_MMA_SYNC) and its shipped wgmma + TMA form (new) in turns:
+    [old, new, new, old] ms."""
+    return [time_ms(f, reps=reps) for f in (old, new, new, old)]
+
+
+def ab_numbers(ab, old_err):
+    """The forward's A/B keys of its ``kernels`` entry (measured numbers
+    only: the L2 weight bytes, computed, are in ``ab_text``'s line)."""
+    return dict(mma_sync_ms=[ab[0], ab[3]], wgmma_ms=[ab[1], ab[2]],
+                mma_sync_max_abs_err=old_err)
+
+
+def ab_text(ab, l2):
+    return (f"A/B mma.sync / wgmma / wgmma / mma.sync {ab[0]:.4f} / "
+            f"{ab[1]:.4f} / {ab[2]:.4f} / {ab[3]:.4f} ms; L2 weight bytes "
+            f"{l2[0] / 1e9:.3f} GB (mma.sync form {l2[1] / 1e9:.3f} GB)")
 
 
 def load_cfg(here):
@@ -407,10 +436,11 @@ def eval_chunk(cfg, dev, seed):
             trans)
 
 
-def kernel_phase(cfg, dev, one_kernel):
+def kernel_phase(cfg, dev, one_kernel, mma):
     """Each kernel against its twin on one eval chunk; returns the
     measured numbers per kernel.  ``one_kernel["st_field"]`` runs the ST
-    heads' one-kernel backward (the measurement build)."""
+    heads' one-kernel backward, ``mma["st_field"]`` the ST field's mma.sync
+    forward (the measurement builds)."""
     import torch
     from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
                                                      composite_st_bwd_plain,
@@ -445,11 +475,23 @@ def kernel_phase(cfg, dev, one_kernel):
               f"{plain_ms:.4f} ms; {tflops:.1f} TFLOP/s", flush=True)
         if not (max_err <= FIELD_MAX_ERR and mean_err <= FIELD_MEAN_ERR):
             fail("st_field kernel disagrees with its plain twin")
+        old = mma["st_field"](*args[:6])
+        torch.cuda.synchronize()
+        old_err = max(float((a - b).abs().max()) for a, b in zip(old, ref))
+        ab = fwd_ab(lambda: st_field_fwd(*args),
+                    lambda: mma["st_field"](*args[:6]))
+        l2 = mma["l2_bytes"](weights, xext.shape[1], encpts.shape[1], R * N)
+        print(f"kernel st_field_fwd (row 1): mma.sync form max|err|="
+              f"{old_err:.3g} (bound {FIELD_MAX_ERR}); {ab_text(ab, l2)}",
+              flush=True)
+        if not old_err <= FIELD_MAX_ERR:
+            fail("st_field mma.sync form disagrees with its plain twin")
         out["st_field_fwd"] = entry(max_err, ms, plain_ms, bound(
             nbytes(encpts, light, trans, *got,
                    *[t for layer in weights.trunk for t in (layer.w, layer.b)],
                    *weights.head_params()),
-            2 * weights_macs(weights, encpts.shape[1]) * R * N, PEAK_BF16))
+            2 * weights_macs(weights, encpts.shape[1]) * R * N, PEAK_BF16),
+            **ab_numbers(ab, old_err))
 
         rgb_raw, dens_raw, trans_raw = got
         d = depth.reshape(R, N)
@@ -620,12 +662,15 @@ def mega_bwd_macs(weights, e3):
             + weights.trans[-1].w.numel())
 
 
-def st_mega_kernel_phase(cfg, dev):
+def st_mega_kernel_phase(cfg, dev, mma):
     """The render kernels against their twins at full width (rows 6f/6b):
     the forward's evaluation launch on one eval chunk (one image, 2048
     rays × 64 samples = 131,072 rows), its training launch and the fused
     backward on the train step's 8 images × 16,384 rows (the chunk's rays
-    repeated); returns the measured numbers per kernel."""
+    repeated); returns the measured numbers per kernel.
+    ``mma["st_render"]`` runs the forward's mma.sync form and
+    ``mma["recompute"]`` the fused backward's mma.sync recompute of the
+    heads' raw outputs (the measurement build)."""
     import torch
     from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
                                                      composite_st_plain)
@@ -690,7 +735,7 @@ def st_mega_kernel_phase(cfg, dev):
         ferr = (feat.float() - feat_ref).abs()
         f_rel = float((ferr / feat_ref.abs().clamp(min=1.0)).max())
         f_mean = float(ferr.mean())
-        del kref, rgb_ref, dens_ref, tr_ref, feat_ref, ferr
+        del rgb_ref, dens_ref, tr_ref, feat_ref, ferr
         ms_res = time_ms(lambda: st_render_fwd(*targs, want_res=True),
                          reps=20)
         plain_res = time_ms(lambda: st_render_plain(*targs, want_res=True))
@@ -715,12 +760,47 @@ def st_mega_kernel_phase(cfg, dev):
                 and raw_mean <= FIELD_MEAN_ERR and f_rel <= FEAT_REL
                 and f_mean <= FIELD_MEAN_ERR):
             fail("st_render_fwd kernel disagrees with its plain twin")
+        # the fused backward (6b) recomputes the heads' raw outputs from the
+        # feature residual on mma.sync, summing in another order than this
+        # wgmma forward: the largest raw-output difference it sees
+        rec = mma["recompute"](feat, et, lt, tt, weights, rpi)
+        old = mma["st_render"](*targs[:8], mu, want_res=True)
+        old_eval = mma["st_render"](*eargs[:8], mu)
+        torch.cuda.synchronize()
+        rec_err = max(float((rec[0] - rgb).abs().max()),
+                      float((rec[1] - tr).abs().max()))
+        old_rel = max(float(((old[0] - kref).abs()
+                             / kref.abs().clamp(min=1.0)).max()),
+                      float(((old_eval - ref).abs()
+                             / ref.abs().clamp(min=1.0)).max()))
+        old_err = max(float((old[0] - kref).abs().max()),
+                      float((old_eval - ref).abs().max()))
+        del old, old_eval, rec, kref
+        ab = fwd_ab(lambda: st_render_fwd(*targs, want_res=True),
+                    lambda: mma["st_render"](*targs[:8], mu, want_res=True))
+        ab_eval = fwd_ab(lambda: st_render_fwd(*eargs),
+                         lambda: mma["st_render"](*eargs[:8], mu))
+        l2 = mma["l2_bytes"](weights, xt.shape[1], e3, MT)
+        print(f"kernel st_render_fwd (row 6f): 6b's mma.sync recompute vs "
+              f"this forward's raw outputs max|diff|={rec_err:.3g} (bound "
+              f"{FIELD_MAX_ERR}); mma.sync form packed max|err|/max(|ref|,1)="
+              f"{old_rel:.3g} (bound {RENDER_MAX_ERR}); training "
+              f"{ab_text(ab, l2)}; eval A/B {ab_eval[0]:.4f} / "
+              f"{ab_eval[1]:.4f} / {ab_eval[2]:.4f} / {ab_eval[3]:.4f} ms",
+              flush=True)
+        if not (rec_err <= FIELD_MAX_ERR and old_rel <= RENDER_MAX_ERR):
+            fail("st_render_fwd: the mma.sync recompute or form strays from "
+                 "the forward or the twin")
         out["st_render_fwd"] = entry(
             max(p_abs, raw_max), ms_res, plain_res, b_res,
             packed_rel_err=p_rel, epilogue_err=epi_err, feat_rel_err=f_rel,
             eval_ms=ms_eval, eval_plain_ms=plain_eval,
             eval_bound_ms=b_eval[0], eval_bound_by=b_eval[1],
-            eval_max_abs_err=e_abs, eval_packed_rel_err=e_rel)
+            eval_max_abs_err=e_abs, eval_packed_rel_err=e_rel,
+            recompute_max_abs_diff=rec_err,
+            eval_mma_sync_ms=[ab_eval[0], ab_eval[3]],
+            eval_wgmma_ms=[ab_eval[1], ab_eval[2]],
+            **ab_numbers(ab, old_err))
 
         # the fused backward from the training launch's residuals, against
         # its twin and against the hybrid backward (composite backward →
@@ -779,12 +859,13 @@ def coarse_macs(weights, e3):
     return fwd, fwd + dx
 
 
-def coarse_kernel_phase(here, dev, one_kernel):
+def coarse_kernel_phase(here, dev, one_kernel, mma):
     """The pretrain's three kernels against their twins at the pretrain
     step's shape, 2048 rays × 64 stratified samples (16 images × 128 rays)
     at the full width of configs/nerf_lm_pretrain.yaml.
     ``one_kernel["coarse_field"]`` runs the trunk-training one-kernel
-    backward (the measurement build)."""
+    backward, ``mma["coarse_render"]`` / ``mma["coarse_field"]`` the two
+    forwards' mma.sync forms (the measurement builds)."""
     import torch
     from texpose_tpu_torch.kernels import coarse_field as cf_module
     from texpose_tpu_torch.kernels.coarse_field import (
@@ -870,11 +951,33 @@ def coarse_kernel_phase(here, dev, one_kernel):
                 and raw_mean <= FIELD_MEAN_ERR and act_rel <= FEAT_REL
                 and act_mean <= FIELD_MEAN_ERR):
             fail("coarse_render_fwd kernel disagrees with its plain twin")
+        old = mma["coarse_render"](*args)
+        torch.cuda.synchronize()
+        old_err = float((old - ref).abs().max())
+        old_rel = float(((old - ref).abs() / ref.abs().clamp(min=1.0)).max())
+        del old
+        ab = fwd_ab(lambda: coarse_render_fwd(*args, want_res=True),
+                    lambda: mma["coarse_render"](*args, want_res=True))
+        ab_eval = fwd_ab(lambda: coarse_render_fwd(*args),
+                         lambda: mma["coarse_render"](*args))
+        l2 = mma["l2_bytes"](w, xext.shape[1], ep.shape[1], M)
+        print(f"kernel coarse_render_fwd (row 8): mma.sync form packed "
+              f"max|err|/max(|ref|,1)={old_rel:.3g} (bound {RENDER_MAX_ERR});"
+              f" with residuals {ab_text(ab, l2)}; eval A/B {ab_eval[0]:.4f} "
+              f"/ {ab_eval[1]:.4f} / {ab_eval[2]:.4f} / {ab_eval[3]:.4f} ms",
+              flush=True)
+        if not old_rel <= RENDER_MAX_ERR:
+            fail("coarse_render_fwd mma.sync form disagrees with its twin")
         # absolute errors of every output of the training launch; the
         # relative errors that the check holds under their own keys
         out["coarse_render_fwd"] = entry(
             max(pabs, raw_max, act_abs), ms_res, plain_res, b_res,
-            packed_rel_err=perr, act_rel_err=act_rel)
+            packed_rel_err=perr, act_rel_err=act_rel, eval_ms=ms,
+            eval_plain_ms=plain_ms, eval_bound_ms=b_eval[0],
+            eval_bound_by=b_eval[1],
+            eval_mma_sync_ms=[ab_eval[0], ab_eval[3]],
+            eval_wgmma_ms=[ab_eval[1], ab_eval[2]],
+            **ab_numbers(ab, old_err))
 
         cot = (torch.randn(BR, 8, generator=g) / BR).to(dev)
         cargs = (rgb, dens, dist, d, cot)
@@ -934,7 +1037,7 @@ def coarse_kernel_phase(here, dev, one_kernel):
         fx, fe = coarse_field_inputs(cfg, fine_pts, None, None)
         variants = {}
         for rows, (x_, e_) in ((M, (xext, ep)), (fx.shape[0], (fx, fe))):
-            variants[rows] = field_fwd_check(x_, e_, w, fwd_macs, rows)
+            variants[rows] = field_fwd_check(x_, e_, w, fwd_macs, rows, mma)
         f_out, f_raw, f_res = variants[fx.shape[0]]
         out["coarse_field_fwd"] = dict(f_out, variants={
             str(rows): v[0] for rows, v in variants.items()})
@@ -1008,10 +1111,13 @@ def coarse_kernel_phase(here, dev, one_kernel):
     return out
 
 
-def field_fwd_check(xext, ep, w, fwd_macs, rows):
+def field_fwd_check(xext, ep, w, fwd_macs, rows, mma):
     """coarse_field_fwd against coarse_field_plain, without and with the
-    training residuals → (the training launch's numbers with the eval
-    launch's under ``eval_*`` keys, its raw outputs, its residuals)."""
+    training residuals, and in turns with its mma.sync form
+    ``mma["coarse_field"]`` (the measurement build) → (the training
+    launch's numbers with the eval launch's under ``eval_*`` keys, its raw
+    outputs, its residuals)."""
+    old = mma["coarse_field"]
     import torch
     from texpose_tpu_torch.kernels.coarse_field import (coarse_field_fwd,
                                                         coarse_field_plain)
@@ -1055,9 +1161,28 @@ def field_fwd_check(xext, ep, w, fwd_macs, rows):
             and act_rel <= FEAT_REL and act_mean <= FIELD_MEAN_ERR):
         fail(f"coarse_field_fwd kernel disagrees with its plain twin at "
              f"{rows} rows")
+    o_rgb, o_dens = old(xext, ep, w)
+    torch.cuda.synchronize()
+    old_err = max(float((o_rgb - rgb_ref).abs().max()),
+                  float((o_dens - dens_ref).abs().max()))
+    ab = fwd_ab(lambda: coarse_field_fwd(xext, ep, w, want_res=True),
+                lambda: old(xext, ep, w, want_res=True), reps=reps)
+    ab_eval = fwd_ab(lambda: coarse_field_fwd(xext, ep, w),
+                     lambda: old(xext, ep, w), reps=reps)
+    l2 = mma["l2_bytes"](w, xext.shape[1], ep.shape[1], rows)
+    print(f"kernel coarse_field_fwd (row 7a): M={rows} mma.sync form raw "
+          f"max|err|={old_err:.3g} (bound {FIELD_MAX_ERR}); with residuals "
+          f"{ab_text(ab, l2)}; eval A/B {ab_eval[0]:.4f} / {ab_eval[1]:.4f} "
+          f"/ {ab_eval[2]:.4f} / {ab_eval[3]:.4f} ms", flush=True)
+    if not old_err <= FIELD_MAX_ERR:
+        fail(f"coarse_field_fwd mma.sync form disagrees with its twin at "
+             f"{rows} rows")
     numbers = entry(max(raw_max, act_abs), ms_res, plain_res, b_res,
                     act_rel_err=act_rel, eval_ms=ms, eval_plain_ms=plain_ms,
-                    eval_bound_ms=b_eval[0], eval_bound_by=b_eval[1])
+                    eval_bound_ms=b_eval[0], eval_bound_by=b_eval[1],
+                    eval_mma_sync_ms=[ab_eval[0], ab_eval[3]],
+                    eval_wgmma_ms=[ab_eval[1], ab_eval[2]],
+                    **ab_numbers(ab, old_err))
     return numbers, (rgb, dens), (xe, acts)
 
 
@@ -1915,36 +2040,63 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from concurrent.futures import ThreadPoolExecutor
+    from functools import partial
 
     from texpose_tpu_torch.kernels import _build
     probe = load_probe(here)
+    fwd = load_probe(here, "probe_field_fwd")
     t0 = time.perf_counter()
     sources = ("st_field", "composite", "coarse_field", "trunk_fwd",
                "st_render", "dw_gemm")
     copies = ("coarse_field", "st_field")
-    with ThreadPoolExecutor(len(sources) + len(copies)) as pool:
+    fwd_copies = [(s, None) for s in ("st_field", "coarse_field",
+                                      "st_render")] + fwd.switch_copies()
+    n_jobs = len(sources) + len(copies) + len(fwd_copies)
+    with ThreadPoolExecutor(n_jobs) as pool:
         # one nvcc per source and per measurement build
         built = [pool.submit(_build.build, name) for name in sources]
         libs = {name: pool.submit(probe.build_copy, name, probe.ONE_KERNEL)
                 for name in copies}
+        fwd_libs = {c: pool.submit(fwd.build_mma, *[d for d in c if d])
+                    for c in fwd_copies}
         for job in built:
             job.result()
         libs = {name: probe.load_one_kernel(job.result(), name)
                 for name, job in libs.items()}
-    print(f"build: {len(sources)} kernel sources and {len(copies)} "
-          f"measurement builds in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+        fwd_libs = {c: fwd.load_mma(job.result(), c[0])
+                    for c, job in fwd_libs.items()}
+    print(f"build: {len(sources)} kernel sources and "
+          f"{len(copies) + len(fwd_copies)} measurement "
+          "builds in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     one_kernel = {
         "coarse_field": lambda *a: probe.coarse_one_kernel(
             libs["coarse_field"], *a),
         "st_field": lambda *a: probe.st_one_kernel(libs["st_field"], *a)}
+    # the mma.sync forwards the wgmma forwards replaced, and the render
+    # backward's mma.sync recompute (measurement builds)
+    mma = {"st_field": partial(fwd.st_field_mma, fwd_libs["st_field", None]),
+           "st_render": partial(fwd.st_render_mma,
+                                fwd_libs["st_render", None]),
+           "recompute": partial(fwd.st_recompute_mma,
+                                fwd_libs["st_render", None]),
+           "coarse_render": partial(fwd.coarse_render_mma,
+                                    fwd_libs["coarse_field", None]),
+           "coarse_field": partial(fwd.coarse_field_mma,
+                                   fwd_libs["coarse_field", None]),
+           "l2_bytes": fwd.l2_bytes}
+    # step 1: where the mma.sync forwards' time went (measurement switches)
+    step1 = fwd.attribution(dev, fwd_libs)
 
     measured, dw_runs = {}, {}
-    for part in (kernel_phase(load_cfg(here), dev, one_kernel),
-                 coarse_kernel_phase(here, dev, one_kernel),
-                 st_mega_kernel_phase(load_cfg(here), dev)):
+    for part in (kernel_phase(load_cfg(here), dev, one_kernel, mma),
+                 coarse_kernel_phase(here, dev, one_kernel, mma),
+                 st_mega_kernel_phase(load_cfg(here), dev, mma)):
         dw_runs.update(part.pop("_dw", {}))
         measured.update(part)
+    measured["st_field_fwd"]["step1"] = step1["row 1, eval"]
+    measured["coarse_render_fwd"]["step1"] = {
+        k: v for k, v in step1.items() if k.startswith("row 8")}
     # the grouped dW GEMM and its reduction serve rows 7b and 2: the
     # pretrain step's launch first, the other shapes as variants
     first = next(k for k in dw_runs if k.startswith("row 7b"))

@@ -52,9 +52,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _weights(device, seed=0):
+def _weights(device, seed=0, n_head=4):
     """The shipped config's field: 8x256 trunk, skip at 4, L_3D=10,
-    L_view=4, 48/16-d latents."""
+    L_view=4, 48/16-d latents; heads of n_head layers (4 shipped)."""
     g = torch.Generator().manual_seed(seed)
 
     def layer(i, o, mode=None):
@@ -63,10 +63,11 @@ def _weights(device, seed=0):
     trunk = ([layer(63, 256)] + [layer(256, 256) for _ in range(3)]
              + [layer(256 + 63, 256)] + [layer(256, 256) for _ in range(2)]
              + [layer(256, 257, "first")])
-    rgb = [layer(256 + 27 + 3 + 48, 256), layer(256, 256), layer(256, 256),
-           layer(256, 3, "all")]
-    trans = [layer(256 + 16, 256), layer(256, 256), layer(256, 256),
-             layer(256, 5, "all")]
+    hidden = n_head - 2
+    rgb = ([layer(256 + 27 + 3 + 48, 256)]
+           + [layer(256, 256) for _ in range(hidden)] + [layer(256, 3, "all")])
+    trans = ([layer(256 + 16, 256)] + [layer(256, 256) for _ in range(hidden)]
+             + [layer(256, 5, "all")])
     return STFieldWeights(trunk, rgb, trans, [4])
 
 
@@ -244,9 +245,10 @@ def test_render_with_f32_compute_raises_on_card(cuda, tmp_path):
 # per tensor on the norm (atomics reorder its sums), as the ST backward.
 
 
-def _coarse_weights(device, view_dep, seed=0):
+def _coarse_weights(device, view_dep, seed=0, n_head=4):
     """The shipped pretrain field: 8x256 trunk with skip at 4, L_3D 10, RGB
-    head 256-256-256-3 on feat ⊕ (27-wide view encoding) ⊕ pts."""
+    head 256-256-256-3 (n_head layers) on feat ⊕ (27-wide view encoding) ⊕
+    pts."""
     from texpose_tpu_torch.kernels.coarse_field import CoarseFieldWeights
     g = torch.Generator().manual_seed(seed)
 
@@ -257,8 +259,9 @@ def _coarse_weights(device, view_dep, seed=0):
              + [layer(256 + 63, 256)] + [layer(256, 256) for _ in range(2)]
              + [layer(256, 257, "first")])
     e3 = 30 if view_dep else 3
-    rgb = [layer(256 + e3, 256), layer(256, 256), layer(256, 256),
-           layer(256, 3, "all")]
+    rgb = ([layer(256 + e3, 256)]
+           + [layer(256, 256) for _ in range(n_head - 2)]
+           + [layer(256, 3, "all")])
     return CoarseFieldWeights(trunk, rgb, [4])
 
 
@@ -821,3 +824,114 @@ def test_field_kernel_route_launches_under_plain_composite(cuda, over):
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in heads + [lt, ll])
     assert all(p.grad is None for p in nerf.mlp_feat.parameters())
+
+
+# ------------------ the wgmma + TMA field forwards' tile (rows 1, 6f, 7a, 8)
+#
+# A 128-row tile of two 64-row warpgroups: M below 128, M ≡ 64 (mod 128)
+# (the last tile's second warpgroup has no row in range), ragged tiles,
+# image boundaries inside one tile, 2-layer heads, the N = 32 and N = 64
+# composite epilogues.  Bounds as above.  The residual planes are ReLU
+# outputs in the backwards' [M, 256] layout: no negative value, and their
+# ReLU mask is the twin's except where a bf16 rounding at zero flips a unit
+# (|value| ≤ 2e-2 on both sides, at most 1e-4 of the units).
+
+
+def _mask_agrees(got, ref):
+    got = got.float()
+    assert float(got.min()) >= 0.0
+    flip = (got > 0) != (ref > 0)
+    assert float(flip.float().mean()) <= 1e-4
+    assert float((got.abs() * flip).max()) <= 2e-2
+    assert float((ref.abs() * flip).max()) <= 2e-2
+
+
+def _feat_close(got, ref):
+    e = (got.float() - ref).abs()
+    assert float((e / ref.abs().clamp(min=1.0)).max()) <= 3e-2
+    assert float(e.mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("B,rows_per_img,n_head", [
+    (1, 100, 4), (2, 96, 4), (5, 40, 4), (3, 333, 2)],
+    ids=["M<128", "M=64mod128", "images-in-one-tile", "ragged-2-layer"])
+def test_st_field_fwd_tile_edges(cuda, B, rows_per_img, n_head):
+    w = _weights(cuda, n_head=n_head)
+    args = (*_field_inputs(cuda, B, rows_per_img, B * rows_per_img), w,
+            rows_per_img)
+    with torch.inference_mode():
+        n0 = st_field_fwd.launches
+        out = st_field_fwd(*args, want_feat=True)
+        torch.cuda.synchronize()
+        assert st_field_fwd.launches == n0 + 1
+        ref = st_field_plain(*args, want_feat=True)
+    for a, b in zip(out[:3], ref[:3]):
+        assert a.shape == b.shape
+        err = (a - b).abs()
+        assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
+    assert out[3].shape == (B * rows_per_img, 256)
+    _feat_close(out[3], ref[3])
+    _mask_agrees(out[3], ref[3])
+
+
+@pytest.mark.parametrize("BR,N,n_head", [(37, 64, 2), (301, 32, 2),
+                                         (3, 32, 4)],
+                         ids=["N64-M=64mod128", "N32-ragged", "N32-M<128"])
+def test_coarse_fwd_tile_edges(cuda, BR, N, n_head):
+    """Rows 8 and 7a on one set of inputs: the composite epilogue at N = 64
+    and 32, the residual planes (n_trunk + n_rgb - 1 of them) against the
+    twin's activations and ReLU masks, one launch per call."""
+    from texpose_tpu_torch.kernels.coarse_field import (coarse_field_fwd,
+                                                        coarse_render_fwd,
+                                                        coarse_render_plain)
+    w = _coarse_weights(cuda, True, n_head=n_head)
+    xext, ep, dist, depth = _coarse_inputs(cuda, BR, N, True, BR * N)
+    with torch.no_grad():
+        n0, f0 = coarse_render_fwd.launches, coarse_field_fwd.launches
+        got, rgb, dens, (_, acts) = coarse_render_fwd(
+            xext, ep, dist, depth, w, want_res=True)
+        f_rgb, f_dens, (_, f_acts) = coarse_field_fwd(xext, ep, w,
+                                                      want_res=True)
+        torch.cuda.synchronize()
+        assert coarse_render_fwd.launches == n0 + 1
+        assert coarse_field_fwd.launches == f0 + 1
+        ref, rgb_ref, dens_ref, acts_ref = coarse_render_plain(
+            xext, ep, dist, depth, w, want_res=True)
+    assert acts.shape == (8 + n_head - 1, BR * N, 256)
+    assert torch.equal(rgb, f_rgb) and torch.equal(dens, f_dens)
+    assert torch.equal(acts, f_acts)
+    assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 2e-2
+    for a, b in ((rgb, rgb_ref), (dens, dens_ref)):
+        err = (a - b).abs()
+        assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
+    for a, b in zip(acts, acts_ref):
+        _feat_close(a, b)
+        _mask_agrees(a, b)
+
+
+@pytest.mark.parametrize("B,R,N,n_head", [(3, 3, 32, 2), (2, 3, 64, 4)],
+                         ids=["N32-2-layer", "N64"])
+def test_st_render_fwd_tile_edges(cuda, B, R, N, n_head):
+    """Row 6f with image boundaries inside a 128-row tile (96 and 192 rows
+    per image), a ragged last tile, 2-layer heads, N = 32 and 64."""
+    from texpose_tpu_torch.kernels.st_render import (st_render_fwd,
+                                                     st_render_plain)
+    w = _weights(cuda, n_head=n_head)
+    args = (*_render_inputs(cuda, B, R, N, B * R * N), w, R * N)
+    with torch.no_grad():
+        n0 = st_render_fwd.launches
+        got, rgb, dens, tr, feat = st_render_fwd(*args, want_res=True)
+        torch.cuda.synchronize()
+        assert st_render_fwd.launches == n0 + 1
+        ref, rgb_ref, dens_ref, tr_ref, feat_ref = st_render_plain(
+            *args, want_res=True)
+        epi = composite_st_plain(rgb, tr, dens, args[5], args[4], 0.05)
+    assert float((got - epi).abs().max()) <= 1e-4
+    assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= \
+        RENDER_REL
+    for a, b in ((rgb, rgb_ref), (dens, dens_ref), (tr, tr_ref)):
+        e = (a - b).abs()
+        assert float(e.max()) <= 3e-2 and float(e.mean()) <= 1e-3
+    _feat_close(feat, feat_ref)
+    _mask_agrees(feat, feat_ref)
+

@@ -8,30 +8,43 @@
 // forward with raw outputs, _fwd_kernel) and ::_run_bwd (the trunk-training
 // backward, _bwd_kernel).
 //
-// FORWARD (coarse_fwd_kernel<kComposite>).  Per 64-row tile, in shared
-// memory:
-//   xext [64,kx] -> 8x256 trunk (trunk.cuh; skip layers re-read xext)
-//        -> feat, raw density
-//   feat ⊕ enc⊕pts [64,256+ke] -> RGB head -> rgb_raw
-//   then, with kComposite (the mega forward, entry coarse_fwd), the
-//   composite of the tile's whole rays (64/N of them, N | 64): one warp per
-//   ray (composite_coarse.cuh) -> packed [BR,8] (rgb, depth, opacity).
-// Without it (the field forward, entry coarse_field_fwd) the epilogue is
-// compiled out and the rows need not form whole rays: any M, any N; the
-// composite kernel (composite.cu) or plain PyTorch takes the raw outputs.
-// rgb_raw [M,3] and dens_raw [M,1] (f32, no activation) go to global memory
-// in every mode: the epilogue reads them back (L2), and in training they are
-// the composite backward's residuals.  In training the kernel also stores
-// every hidden layer's bf16 ReLU output, [n_trunk + n_rgb - 1, M, 256]
-// (11 x 64 MB = 0.74 GB at M = 131,072, 2.21 GB at the fine field's
-// 393,216 rows): the field backward's residuals.
-// What bounds it: ~1.38 MFLOP per row (181 GFLOP per 131,072-row step) on
-// the tensor cores against ~0.2 KB of row input/output in eval; in training
-// the 0.74 GB of residual stores (0.22 ms at 3.35 TB/s) stay below the
-// math.  Design: as st_field.cu (activations in shared memory, fragment-
-// packed weights, every warp all 64 rows × 32 columns); 114,688 B of shared
-// memory at most (three 64x264 activation buffers + the xext|enc⊕pts tile)
-// lets two blocks share an SM.
+// FORWARD (field_fwd_kernel<EPI_COARSE> / <EPI_NONE>, field_fwd.cuh).  Per
+// 128-row tile:
+//   xext [128,kx] -> 8x256 trunk (skip layers re-read xext) -> feat, raw
+//        density
+//   feat ⊕ enc⊕pts [128,256+ke] -> RGB head -> rgb_raw
+//   then, with the composite epilogue (the mega forward, entry coarse_fwd,
+//   row 8), each warpgroup composites the whole rays of its 64-row halves
+//   (N | 64): one warp per ray (composite_coarse.cuh) -> packed [BR,8]
+//   (rgb, depth, opacity).
+// Without it (the field forward, entry coarse_field_fwd, row 7a) the rows
+// need not form whole rays: any M, any N; the composite kernel
+// (composite.cu) or plain PyTorch takes the raw outputs.  rgb_raw [M,3] and
+// dens_raw [M,1] (f32, no activation) go to global memory in every mode:
+// the epilogue reads them back (L2), and in training they are the composite
+// backward's residuals.  In training the kernel also stores every hidden
+// layer's bf16 ReLU output, [n_trunk + n_rgb - 1, M, 256] row-major (11 x
+// 64 MB = 0.74 GB at M = 131,072, 2.21 GB at the fine field's 393,216
+// rows): the field backward's residuals, layout unchanged.
+// What bounds it: ~1.38 MFLOP per row (181 GFLOP per 131,072-row step,
+// 0.183 ms at 989 TFLOP/s) on the tensor cores against ~0.2 KB of row
+// input/output in eval; in training the 0.74 GB of residual stores (0.22
+// ms at 3.35 TB/s) stay below the math.  The mma.sync form spent ≈ 0.6-0.8
+// ms of its 0.8 / 1.2 ms (eval / training) in its epilogues and ≈ 0.45 ms
+// of training in the synchronous residual stores
+// (tools/probe_field_fwd.py).  Design (field_fwd.cuh, as st_field.cu's):
+// one persistent block per SM, two warpgroups of 64 rows × 256 columns on
+// wgmma, the weights streamed once per 128 rows through a TMA + mbarrier
+// ring (≈1.45 GB of L2 reads per 131,072 rows against the mma.sync form's
+// 2.85 GB), activations in place in shared memory, and each residual plane
+// stored by TMA from the swizzled tile behind the next layer's products
+// (the bulk group is waited for only before that tile is overwritten).
+// Shared memory: one 64 KB activation buffer, the xext | enc⊕pts tiles (2
+// × 16 KB) and a 4-stage 32 KB ring.  The composite runs after the block's
+// last tile, from the raw outputs in L2.  The mma.sync form
+// (coarse_fwd_kernel<kComposite>, entries coarse_fwd_mma and
+// coarse_field_fwd_mma) is compiled only in the measurement build
+// -DFIELD_FWD_MMA_SYNC.
 //
 // BACKWARD (coarse_bwd_kernel<true> + dw_gemm.cu: row 7b).  The pretrain
 // trains the trunk, so the backward walks all 12 layers down.  Walking down
@@ -75,14 +88,15 @@
 // keeps the one-kernel form's tile (mma.sync, 88,064 B of shared memory at
 // most, two blocks per SM) for its 1.31 MFLOP per row of dX.
 
-#include "trunk.cuh"
-#include "composite_coarse.cuh"
+#include "field_fwd.cuh"
 
 namespace {
 
 constexpr int kBw = kHidden + 16 + 8;             // backward row stride
 
-struct FwdParams {
+#ifdef FIELD_FWD_MMA_SYNC
+// The mma.sync forward (measurement build only).
+struct CoarseMmaParams {
   const bf16* xe;          // [M, kx+ke] bf16: xext | enc⊕pts, zero padded
   const uint2* wpack;      // trunk layers in walk order, fragment packed
   const float* bias;
@@ -100,7 +114,7 @@ struct FwdParams {
 
 template <bool kComposite>
 __global__ void __launch_bounds__(kThreads, 2)
-    coarse_fwd_kernel(const FwdParams p) {
+    coarse_fwd_kernel(const CoarseMmaParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* const act[3] = {
       reinterpret_cast<bf16*>(smem),
@@ -143,8 +157,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       b += kHidden;
       __syncthreads();
       if (p.acts != nullptr)
-        store_tile(p.acts + (size_t)(p.n_trunk + li) * p.M * kHidden,
-                   act[nxt], row0, p.M);
+        store_residual(p.acts + (size_t)(p.n_trunk + li) * p.M * kHidden,
+                       act[nxt], row0, p.M);
       cur = nxt;
     } else {
       if (warp == 0) {
@@ -172,6 +186,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 }
+#endif  // FIELD_FWD_MMA_SYNC
 
 // ------------------------------------------------------------------ backward
 
@@ -391,13 +406,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 int g_smem_limit_fwd[kMaxDevices];
 int g_smem_limit_field[kMaxDevices];
 
+#ifdef FIELD_FWD_MMA_SYNC
+int g_smem_limit_mma[kMaxDevices];
+int g_smem_limit_mma_field[kMaxDevices];
+
 // The forward's parameters shared by both entries (the composite's stay
 // null/0 for the field forward).
-FwdParams fwd_params(const void* xe, const void* wpack, const void* bias,
-                     const void* wpack_rgb, const void* bias_rgb,
-                     void* rgb_raw, void* dens_raw, void* acts, int M, int kx,
-                     int ke, int n_trunk, int n_rgb, int skip_mask) {
-  FwdParams p = {};
+CoarseMmaParams fwd_params(const void* xe, const void* wpack,
+                           const void* bias, const void* wpack_rgb,
+                           const void* bias_rgb, void* rgb_raw,
+                           void* dens_raw, void* acts, int M, int kx, int ke,
+                           int n_trunk, int n_rgb, int skip_mask) {
+  CoarseMmaParams p = {};
   p.xe = static_cast<const bf16*>(xe);
   p.wpack = static_cast<const uint2*>(wpack);
   p.bias = static_cast<const float*>(bias);
@@ -421,7 +441,7 @@ bool bad_fwd_shape(int kx, int ke, int n_trunk, int n_rgb) {
 }
 
 template <bool kComposite>
-int launch_fwd(const FwdParams& p, int* limits, void* stream) {
+int launch_fwd(const CoarseMmaParams& p, int* limits, void* stream) {
   const int smem =
       (3 * kTile * kActStride + kTile * (p.kx + p.ke + 8)) * (int)sizeof(bf16);
   cudaError_t e = ensure_smem(coarse_fwd_kernel<kComposite>, smem, limits);
@@ -432,46 +452,71 @@ int launch_fwd(const FwdParams& p, int* limits, void* stream) {
   return (int)cudaGetLastError();
 }
 
+#endif  // FIELD_FWD_MMA_SYNC
+
 }  // namespace
 
-// Launches the mega forward (field + composite) on `stream`; returns
-// cudaGetLastError() (0 = launched).  acts may be null (no residuals:
-// evaluation).
-extern "C" int coarse_fwd(const void* xe, const void* wpack, const void* bias,
-                          const void* wpack_rgb, const void* bias_rgb,
-                          const void* dist, const void* depth, void* out,
-                          void* rgb_raw, void* dens_raw, void* acts, int M,
-                          int kx, int ke, int N, int n_trunk, int n_rgb,
-                          int skip_mask, void* stream) {
+// Launches the mega forward (field + composite, row 8) on `stream`: the flat
+// pointer and int arguments of field_fwd.cuh (FwdPtr, FwdInt; res: the
+// [n_res, M, 256] residual planes, or n_res 0 in evaluation) and the walk's
+// table.  Returns a cudaError_t (0 = launched).
+extern "C" int coarse_fwd(const long long* ptrs, const int* ints,
+                          const int* table, float min_uncert, void* stream) {
+  return launch_field_fwd<EPI_COARSE>(ptrs, ints, table, min_uncert, stream,
+                                      g_smem_limit_fwd);
+}
+
+// Launches the field forward (raw outputs, no composite, row 7a) on
+// `stream`: any M, the rows need not form whole rays.  Arguments as
+// coarse_fwd's.  Returns a cudaError_t.
+extern "C" int coarse_field_fwd(const long long* ptrs, const int* ints,
+                                const int* table, float min_uncert,
+                                void* stream) {
+  return launch_field_fwd<EPI_NONE>(ptrs, ints, table, min_uncert, stream,
+                                    g_smem_limit_field);
+}
+
+#ifdef FIELD_FWD_MMA_SYNC
+// Measurement build only.  Launches the mma.sync mega forward on `stream`;
+// returns cudaGetLastError() (0 = launched).  acts may be null (no
+// residuals: evaluation).
+extern "C" int coarse_fwd_mma(const void* xe, const void* wpack,
+                              const void* bias, const void* wpack_rgb,
+                              const void* bias_rgb, const void* dist,
+                              const void* depth, void* out, void* rgb_raw,
+                              void* dens_raw, void* acts, int M, int kx,
+                              int ke, int N, int n_trunk, int n_rgb,
+                              int skip_mask, void* stream) {
   if (M <= 0) return 0;
   if (bad_fwd_shape(kx, ke, n_trunk, n_rgb) || N <= 0 || kTile % N || M % N)
     return (int)cudaErrorInvalidValue;
-  FwdParams p = fwd_params(xe, wpack, bias, wpack_rgb, bias_rgb, rgb_raw,
-                           dens_raw, acts, M, kx, ke, n_trunk, n_rgb,
-                           skip_mask);
+  CoarseMmaParams p = fwd_params(xe, wpack, bias, wpack_rgb, bias_rgb,
+                                 rgb_raw, dens_raw, acts, M, kx, ke, n_trunk,
+                                 n_rgb, skip_mask);
   p.dist = static_cast<const float*>(dist);
   p.depth = static_cast<const float*>(depth);
   p.out = static_cast<float*>(out);
   p.N = N;
-  return launch_fwd<true>(p, g_smem_limit_fwd, stream);
+  return launch_fwd<true>(p, g_smem_limit_mma, stream);
 }
 
-// Launches the field forward (raw outputs, no composite) on `stream`: any M,
-// the rows need not form whole rays.  acts may be null (no residuals).
-// Returns cudaGetLastError().
-extern "C" int coarse_field_fwd(const void* xe, const void* wpack,
-                                const void* bias, const void* wpack_rgb,
-                                const void* bias_rgb, void* rgb_raw,
-                                void* dens_raw, void* acts, int M, int kx,
-                                int ke, int n_trunk, int n_rgb, int skip_mask,
-                                void* stream) {
+// Measurement build only.  Launches the mma.sync field forward on
+// `stream`: any M, the rows need not form whole rays.  acts may be null (no
+// residuals).  Returns cudaGetLastError().
+extern "C" int coarse_field_fwd_mma(const void* xe, const void* wpack,
+                                    const void* bias, const void* wpack_rgb,
+                                    const void* bias_rgb, void* rgb_raw,
+                                    void* dens_raw, void* acts, int M, int kx,
+                                    int ke, int n_trunk, int n_rgb,
+                                    int skip_mask, void* stream) {
   if (M <= 0) return 0;
   if (bad_fwd_shape(kx, ke, n_trunk, n_rgb)) return (int)cudaErrorInvalidValue;
-  const FwdParams p = fwd_params(xe, wpack, bias, wpack_rgb, bias_rgb,
-                                 rgb_raw, dens_raw, acts, M, kx, ke, n_trunk,
-                                 n_rgb, skip_mask);
-  return launch_fwd<false>(p, g_smem_limit_field, stream);
+  const CoarseMmaParams p = fwd_params(xe, wpack, bias, wpack_rgb,
+                                       bias_rgb, rgb_raw, dens_raw, acts, M,
+                                       kx, ke, n_trunk, n_rgb, skip_mask);
+  return launch_fwd<false>(p, g_smem_limit_mma_field, stream);
 }
+#endif  // FIELD_FWD_MMA_SYNC
 
 namespace {
 

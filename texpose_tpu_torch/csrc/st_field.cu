@@ -6,33 +6,44 @@
 // pallas_call) and ::_run_bwd (the heads-only backward pallas_call, split
 // mode: _bwd_kernel + _heads_bwd_subtile).
 //
-// FORWARD (st_field_fwd_kernel).  Per 64-row tile, entirely in shared memory:
-//   xext [64,kx]  -> 8x256 trunk (skip layers re-read xext) -> feat, density
-//   feat ⊕ enc⊕pts [64,256+ke] -> RGB head (+ light-latent row) -> rgb_raw
-//   feat            [64,256]    -> transient head (+ trans-latent row) -> trans_raw
-// Each layer is bf16 x bf16 -> f32 on the tensor cores (mma.sync m16n8k16),
-// then bias (+ latent row) in f32, ReLU, and one rounding to bf16 at the next
-// layer's input — the arithmetic of the JAX kernel at compute_dtype=bfloat16.
-// When the caller passes a `feat` buffer (training), the trunk's 256 ReLU'd
-// feature columns are also stored, in bf16, straight from shared memory: the
-// backward's residual.  Evaluation passes null and stores nothing more.
-//
+// FORWARD (field_fwd_kernel<EPI_NONE>, field_fwd.cuh; entry st_field_fwd).
+// Per 128-row tile:
+//   xext [128,kx] -> 8x256 trunk (skip layers re-read xext) -> feat, density
+//   feat ⊕ enc⊕pts [128,256+ke] -> RGB head (+ light-latent row) -> rgb_raw
+//   feat            [128,256]    -> transient head (+ trans-latent row) -> trans_raw
+// Each layer is bf16 x bf16 -> f32 on the tensor cores, then bias (+ latent
+// row) in f32, ReLU, and one rounding to bf16 at the next layer's input —
+// the arithmetic of the JAX kernel at compute_dtype=bfloat16.  When the
+// caller passes a `feat` buffer (training), the trunk's 256 ReLU'd feature
+// columns are also stored, in bf16, by TMA from shared memory: the
+// backward's residual, layout unchanged ([M,256] row-major).  Evaluation
+// passes none and stores nothing more.
 // What bounds it: ~1.79 MFLOP per row (234 GFLOP per 131,072-row eval
-// chunk) against ~0.1 KB of row input/output, so the card's tensor cores;
-// the ~1.8 MB of bf16 weights are re-read from L2 by every tile.
-// Design against that: activations never leave shared memory (three
-// 64x264 bf16 ping-pong buffers, rows padded so ldmatrix and the epilogue
-// stores are bank-conflict free); weights are packed once on the host in
-// mma fragment order so a warp fetches each 16x8 B tile with one coalesced
-// 256-byte load, prefetched one k-step ahead; every warp owns all 64 rows and
-// a disjoint 32-column slice, so each weight element is read once per tile.
-// 114,688 B of shared memory per block lets two blocks share an SM.
-// The trunk and the mma/ldmatrix building blocks are in trunk.cuh, shared
-// with the coarse field (coarse_field.cu); the tile bodies of both kernels
-// are in st_heads.cuh, shared with the render kernels (st_render.cu).
-// Rows past M are zero-filled on load and never stored, so M needs no
-// tiling contract; the latent row of each row is indexed by
-// row / rows_per_img.
+// chunk, 0.237 ms at 989 TFLOP/s) against ~0.1 KB of row input/output, so
+// the card's tensor cores.  The mma.sync form it replaced (64-row tiles,
+// fragment-packed weights fetched per warp with __ldg) spent most of its
+// time in its epilogues (bias, ReLU, bf16 stores between a warp's products,
+// behind block barriers: ≈ 0.8 of 1.1 ms), the rest in mma.sync issue and
+// the per-64-row weight re-reads from L2 (3.7 GB per chunk, ≈ 0.26 ms)
+// (tools/probe_field_fwd.py).  Design (field_fwd.cuh): one persistent
+// block per SM, two warpgroups of 64 rows × 256 columns on wgmma
+// m64n256k16 (the accumulator in 128 registers a thread), the weights
+// streamed as 64-row K slices through a TMA + mbarrier ring that both
+// warpgroups consume, so they are read from L2 once per 128 rows (≈ 1.86
+// GB per chunk); the epilogue folds ReLU into the bf16 conversion, stores
+// with stmatrix, and takes its biases from registers loaded under the
+// layer's last products.  Activations stay in shared memory in wgmma's
+// swizzled K-major layout and each layer's epilogue overwrites its own
+// input rows: feat in A, the RGB head's hidden layers in X (which held
+// xext | enc⊕pts until the RGB head's layer 0), the transient head's over
+// feat once the RGB head is done with it.  224 KB of shared memory: two 64
+// KB activation buffers and a 3-stage 32 KB weight ring.  The weights come
+// in plain bf16 [K, 256] and [K, 8] tiles (kernels/field_fwd.py), built on
+// the device.  Rows past M are zero-filled by TMA and never stored; the
+// latent row of each row is indexed by row / rows_per_img.  The mma.sync
+// form (st_field_fwd_kernel, entry st_field_fwd_mma) is compiled only in
+// the measurement build -DFIELD_FWD_MMA_SYNC (tools/probe_field_fwd.py,
+// chip_smoke.py's in-call comparison).
 //
 // BACKWARD (st_field_bwd_kernel<true> + dw_gemm.cu: row 2).  The trunk is
 // frozen, so only the heads differentiate.  Per 64-row tile and per head:
@@ -73,15 +84,18 @@
 // form's tile (143,360 B of shared memory: feat, three hidden buffers,
 // enc⊕pts and the padded output gradient; one block per SM).
 
+#include "field_fwd.cuh"
 #include "st_heads.cuh"
 
 namespace {
 
+#ifdef FIELD_FWD_MMA_SYNC
 __global__ void __launch_bounds__(kThreads, 2)
     st_field_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   st_field_tile(p, smem);
 }
+#endif
 
 // kSplit (the shipped form, entry st_field_bwd_dx): the dX chain alone —
 // both heads' recomputed hidden activations, every layer's gradient and the
@@ -129,16 +143,29 @@ int g_smem_limit_fwd[kMaxDevices];
 
 }  // namespace
 
-// Launches the forward on `stream`; returns cudaGetLastError() (0 =
-// launched).  feat may be null (no residual).
-extern "C" int st_field_fwd(const void* xe, const void* wpack,
-                            const void* bias, const void* wpack_heads,
-                            const void* bias_heads, const void* lrow,
-                            const void* trow, void* rgb, void* dens,
-                            void* trans, void* feat, int M, int kx, int ke,
-                            int rows_per_img, int n_img, int n_trunk,
-                            int n_rgb, int n_trans, int skip_mask,
+// Launches the forward on `stream`: the flat pointer and int arguments of
+// field_fwd.cuh (FwdPtr, FwdInt; res: the [1, M, 256] feature residual, or
+// n_res 0) and the walk's table.  Returns a cudaError_t (0 = launched).
+extern "C" int st_field_fwd(const long long* ptrs, const int* ints,
+                            const int* table, float min_uncert,
                             void* stream) {
+  return launch_field_fwd<EPI_NONE>(ptrs, ints, table, min_uncert, stream,
+                                    g_smem_limit_fwd);
+}
+
+#ifdef FIELD_FWD_MMA_SYNC
+// Measurement build only: launches the mma.sync forward on `stream`;
+// returns cudaGetLastError() (0 = launched).  feat may be null (no
+// residual).
+extern "C" int st_field_fwd_mma(const void* xe, const void* wpack,
+                                const void* bias, const void* wpack_heads,
+                                const void* bias_heads, const void* lrow,
+                                const void* trow, void* rgb, void* dens,
+                                void* trans, void* feat, int M, int kx,
+                                int ke, int rows_per_img, int n_img,
+                                int n_trunk, int n_rgb, int n_trans,
+                                int skip_mask, void* stream) {
+  static int limits[kMaxDevices];
   if (M <= 0) return 0;
   if (bad_field_shape(kx, ke, rows_per_img, n_img, n_trunk, n_rgb, n_trans))
     return (int)cudaErrorInvalidValue;
@@ -147,13 +174,14 @@ extern "C" int st_field_fwd(const void* xe, const void* wpack,
                                 rows_per_img, n_img, n_trunk, n_rgb, n_trans,
                                 skip_mask);
   const int smem = field_smem(kx, ke);
-  cudaError_t e = ensure_smem(st_field_fwd_kernel, smem, g_smem_limit_fwd);
+  cudaError_t e = ensure_smem(st_field_fwd_kernel, smem, limits);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((M + kTile - 1) / kTile);
   st_field_fwd_kernel<<<grid, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
+#endif
 
 namespace {
 

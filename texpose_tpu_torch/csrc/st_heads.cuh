@@ -1,9 +1,11 @@
-// The static/transient/light field's tile bodies, shared by the field kernels
-// (st_field.cu) and the render kernels (st_render.cu): the forward of one
-// 64-row tile (trunk → RGB head → transient head), the heads' forward
-// recompute from the feature residual, and the heads' backward.  The
-// arithmetic and the design are described in the header of st_field.cu;
-// the trunk and the mma/ldmatrix building blocks are in trunk.cuh.
+// The static/transient/light field's mma.sync tile bodies, shared by the
+// field kernels (st_field.cu) and the render kernels (st_render.cu): the
+// heads' forward recompute from the feature residual and the heads'
+// backward, and, in the measurement build -DFIELD_FWD_MMA_SYNC only, the
+// mma.sync forward of one 64-row tile (trunk → RGB head → transient head)
+// that field_fwd.cuh's wgmma tile replaced.  The arithmetic and the design
+// are described in the header of st_field.cu; the trunk and the
+// mma/ldmatrix building blocks are in trunk.cuh.
 
 #pragma once
 
@@ -13,6 +15,8 @@ namespace {
 
 constexpr int kMaxHeadLayers = 16;
 
+#ifdef FIELD_FWD_MMA_SYNC
+// The mma.sync forward (measurement build only).
 struct Params {
   const bf16* xe;        // [M, kx+ke] bf16: xext | enc⊕pts, zero padded
   const uint2* wpack;    // trunk layers in walk order, fragment packed
@@ -95,7 +99,7 @@ __device__ __forceinline__ void st_field_tile(const Params& p,
                                  p.skip_mask, p.dens, nullptr, row0, p.M,
                                  warp, lane);
   // the backward's residual: the feature tile as the heads read it
-  if (p.feat != nullptr) store_tile(p.feat, act[feat], row0, p.M);
+  if (p.feat != nullptr) store_residual(p.feat, act[feat], row0, p.M);
   const uint2* wh = p.wpack_heads;
   const float* bh = p.bias_heads;
   run_head(p.n_rgb, eseg, p.lrow, p.rgb, 3, act, feat, wh, bh, p, none, row0,
@@ -147,6 +151,7 @@ bool bad_field_shape(int kx, int ke, int rows_per_img, int n_img, int n_trunk,
 int field_smem(int kx, int ke) {
   return (3 * kTile * kActStride + kTile * (kx + ke + 8)) * (int)sizeof(bf16);
 }
+#endif  // FIELD_FWD_MMA_SYNC
 
 // ------------------------------------------------------------------ backward
 

@@ -1,14 +1,17 @@
-// The 8x256 NeRF trunk on Hopper tensor cores, shared by the field kernels
-// (st_field.cu, coarse_field.cu).
+// The mma.sync building blocks of the field kernels: the backwards' dX
+// chains (st_field.cu, coarse_field.cu, st_render.cu), the trunk kernel
+// (trunk_fwd.cu, row 10) and the field forwards' mma.sync form, which is
+// compiled only in the measurement build -DFIELD_FWD_MMA_SYNC (the shipped
+// forwards are field_fwd.cuh's wgmma + TMA tile).
 //
 // A block owns a 64-row tile with 8 warps; every warp owns all 64 rows and a
 // disjoint 32-column slice of each 256-wide layer, so each weight element is
-// read once per tile.  Activations live in shared memory as bf16 rows padded
-// to 264 (bank-conflict free for ldmatrix and the epilogue stores).  Weights
-// are packed once on the host in mma fragment order (kernels/st_field.py
-// ``_pack_layer``): a warp fetches each 16x8 B tile with one coalesced
-// 256-byte load, prefetched one k-step ahead.  Each layer is
-// bf16 x bf16 -> f32 (mma.sync m16n8k16), then bias in f32, ReLU, and one
+// read once per 64-row tile, from L2.  Activations live in shared memory as
+// bf16 rows padded to 264 (bank-conflict free for ldmatrix and the epilogue
+// stores).  Weights are packed once on the host in mma fragment order
+// (kernels/st_field.py ``_pack_layer``): a warp fetches each 16x8 B tile
+// with one coalesced 256-byte load, prefetched one k-step ahead.  Each layer
+// is bf16 x bf16 -> f32 (mma.sync m16n8k16), then bias in f32, ReLU, and one
 // rounding to bf16 at the next layer's input.
 //
 // Backward building blocks: ``warp_dw`` accumulates Hᵀ·G over the tile's rows
@@ -20,7 +23,13 @@
 // each dW partial with a plain store instead of atomicAdd (same products
 // and bytes); TRUNK_BWD_NO_DW skips ``warp_dw``; TRUNK_BWD_NO_DX skips the
 // backwards' dX products (``dx_gemm``); TRUNK_BWD_NO_LOADS stages zeros in
-// place of every row load (``load_rows``).
+// place of every row load (``load_rows``).  For the mma.sync forwards
+// (tools/probe_field_fwd.py, with -DFIELD_FWD_MMA_SYNC):
+// TRUNK_FWD_NO_WEIGHT_LOADS fetches each warp_gemm's first k-step of B
+// fragments and reuses them for every k-step (no L2 weight traffic past
+// the first); TRUNK_FWD_NO_RES_STORES drops the residual stores
+// (``store_residual``); TRUNK_FWD_NO_EPILOGUE drops the hidden layers'
+// epilogue (``store_hidden``: bias, ReLU, the bf16 stores to shared).
 
 #pragma once
 
@@ -116,7 +125,9 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[4][NT][4],
   uint32_t b[NT][2], bn[NT][2];
   load_b<NT>(b, w, kt_total, nt0, 0, lane);
   for (int kt = 0; kt < kt_total; ++kt) {
+#ifndef TRUNK_FWD_NO_WEIGHT_LOADS
     if (kt + 1 < kt_total) load_b<NT>(bn, w, kt_total, nt0, kt + 1, lane);
+#endif
     const bool first = kt < kt1;
     const bf16* a_base = first ? s1.base : s2.base;
     const int stride = first ? s1.stride : s2.stride;
@@ -128,11 +139,13 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[4][NT][4],
 #pragma unroll
       for (int t = 0; t < NT; ++t) mma_bf16(acc[i][t], a, b[t][0], b[t][1]);
     }
+#ifndef TRUNK_FWD_NO_WEIGHT_LOADS
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       b[t][0] = bn[t][0];
       b[t][1] = bn[t][1];
     }
+#endif
   }
 }
 
@@ -161,6 +174,9 @@ __device__ __forceinline__ void store_hidden(const float (&acc)[4][NT][4],
                                              const float* lat, int rows_per_img,
                                              int n_img, int row0, int nt0,
                                              int lane) {
+#ifdef TRUNK_FWD_NO_EPILOGUE
+  return;
+#endif
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -223,6 +239,15 @@ __device__ __forceinline__ void store_tile(bf16* dst, const bf16* src,
       reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * kHidden)[c] =
           *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
   }
+}
+
+// A forward's residual tile (store_tile), compiled out in the measurement
+// build TRUNK_FWD_NO_RES_STORES.
+__device__ __forceinline__ void store_residual(bf16* dst, const bf16* src,
+                                               int row0, int M) {
+#ifndef TRUNK_FWD_NO_RES_STORES
+  store_tile(dst, src, row0, M);
+#endif
 }
 
 // The split backwards' narrow gradient plane [M, 16] bf16 (the output and
@@ -289,7 +314,8 @@ __device__ __forceinline__ int trunk_forward(
       store_out(acc, dens, 1, b, row0, M, lane);
     }
     __syncthreads();
-    if (res != nullptr) store_tile(res + (size_t)li * M * kHidden, act[nxt], row0, M);
+    if (res != nullptr)
+      store_residual(res + (size_t)li * M * kHidden, act[nxt], row0, M);
     cur = nxt;
   }
   return cur;

@@ -40,12 +40,13 @@ import ctypes
 import torch
 
 from ..nn.mlp import relu, round_to
-from . import _build
+from . import _build, field_fwd
 from .composite import composite_coarse_bwd, composite_coarse_plain
 from .dw_gemm import NARROW, NARROW_COLS, WIDE, Segment, dw_grads
+from .field_fwd import (blocks, build_tiles, coarse_head_layers, make_walk,
+                        trunk_layers)
 from .st_field import (HIDDEN, ROW_TILE, TrunkWeights, _cat_packs, _ceil16,
-                       _pack_layer, _OUT_TILE, check_trunk, pack_head,
-                       stage_rows)
+                       _pack_layer, _OUT_TILE, check_trunk, stage_rows)
 from .trunk import trunk_forward_plain
 
 
@@ -78,19 +79,26 @@ class CoarseFieldWeights(TrunkWeights):
                 or any(s != (HIDDEN, HIDDEN) for s in shapes[1:-1])):
             self._bad(f"rgb head layers {shapes} (row input {e3} wide)")
 
-    def kernel_buffers(self, xw, e3):
-        """Forward: (trunk wpack, trunk bias, rgb wpack, rgb bias, kx, ke)."""
-        ke = _ceil16(e3)
+    def fwd_walk(self, xw, e3):
+        """The forward kernels' ``Walk`` (kernels/field_fwd.py): the trunk
+        and the RGB head in one set of tiles, rebuilt whenever a tensor
+        changed (every optimizer step)."""
+        kx, ke = _ceil16(xw), _ceil16(e3)
 
-        def build_rgb():
+        def build():
             self._check(xw, e3)
-            w, b = pack_head(self.rgb, [(0, HIDDEN, HIDDEN),
-                                        (HIDDEN, HIDDEN + e3, ke)])
-            return _cat_packs(w), _cat_packs(b, torch.float32)
+            layers = (trunk_layers(self.trunk, self.skip, xw, kx, self._bad)
+                      + coarse_head_layers(self.rgb, kx, ke, e3))
+            return make_walk(layers, build_tiles(layers, self.rgb[0].w.device),
+                             kx, ke, blocks(kx) + blocks(ke), self._bad)
 
-        wpack, bias, kx = self.trunk_buffers(xw)
-        rgb = self._cached("rgb", (xw, e3), self.rgb, build_rgb)
-        return (wpack, bias) + rgb + (kx, ke)
+        return self._cached("walk", (xw, e3), self.trunk + self.rgb, build)
+
+    def res_planes(self):
+        """The forward walk's residual planes in training: every hidden
+        layer's output, plane j = walk layer j (the trunk's, then the RGB
+        head's hidden layers)."""
+        return {j: j for j in range(len(self.trunk) + len(self.rgb) - 1)}
 
     def kernel_buffer_bwd(self, xw, e3):
         """Backward: the Wᵀ packs in the kernel's walk order — RGB output
@@ -340,10 +348,8 @@ def coarse_field_bwd_dx_plain(xext, ep, acts, weights, g_rgb, g_dens,
 
 
 _ARGTYPES = {
-    "coarse_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p],
-    "coarse_field_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p],
+    "coarse_fwd": field_fwd.ARGTYPES,
+    "coarse_field_fwd": field_fwd.ARGTYPES,
     "coarse_bwd_dx": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
@@ -355,6 +361,17 @@ def _check_cuda(what, x, compute_dtype):
     if compute_dtype != torch.bfloat16:
         raise ValueError("coarse_field CUDA kernel computes in bfloat16 "
                          f"only, got compute_dtype={compute_dtype}")
+
+
+def _staged(xext, ep, walk):
+    """(the backward's staged row input [M, kx+ke], xext and enc⊕pts each
+    16-padded; the forward kernel's, xext padded to whole 64-column blocks:
+    the same tensor when kx is a multiple of 64, as in the shipped
+    configs)."""
+    kx = _ceil16(xext.shape[1])
+    xe = stage_rows(xext, ep, kx, walk.ke)
+    return xe, (xe if walk.kx == kx else
+                stage_rows(xext, ep, walk.kx, walk.ke))
 
 
 def coarse_render_fwd(xext, ep, dist, depth, weights,
@@ -378,11 +395,11 @@ def coarse_render_fwd(xext, ep, dist, depth, weights,
             or ep.shape[0] != M):
         raise ValueError(f"coarse_render_fwd: {M} rows for {BR} rays x {N} "
                          f"samples (N must divide {ROW_TILE})")
-    wpack, bias, wr, br, kx, ke = weights.kernel_buffers(xw, e3)
-    if any(t.device != dev for t in (ep, dist, depth, wpack)):
+    walk = weights.fwd_walk(xw, e3)
+    if any(t.device != dev for t in (ep, dist, depth, walk.tiles.wide)):
         raise ValueError("coarse_render_fwd: inputs and weights must all "
                          f"lie on {dev}")
-    xe = stage_rows(xext, ep, kx, ke)
+    xe, xe_k = _staged(xext, ep, walk)
     dist = dist.float().contiguous()
     depth = depth.float().contiguous()
     out = torch.empty((BR, 8), dtype=torch.float32, device=dev)
@@ -392,14 +409,11 @@ def coarse_render_fwd(xext, ep, dist, depth, weights,
     acts = (torch.empty((n_res, M, HIDDEN), dtype=torch.bfloat16, device=dev)
             if want_res else None)
     lib = _build.load("coarse_field", _ARGTYPES)
-    skip_mask = sum(1 << s for s in weights.skip)
-    err = lib.coarse_fwd(
-        xe.data_ptr(), wpack.data_ptr(), bias.data_ptr(), wr.data_ptr(),
-        br.data_ptr(), dist.data_ptr(), depth.data_ptr(), out.data_ptr(),
-        rgb_raw.data_ptr(), dens_raw.data_ptr(),
-        acts.data_ptr() if acts is not None else None, M, kx, ke, N,
-        len(weights.trunk), len(weights.rgb), skip_mask,
-        _build.stream_ptr(dev))
+    err = field_fwd.launch(
+        lib.coarse_fwd, walk, xe_k, weights.res_planes() if want_res else {},
+        n_res=n_res if want_res else 0, N=N, stream=_build.stream_ptr(dev),
+        rgb=rgb_raw, dens=dens_raw, res=acts, dist=dist, depth=depth,
+        out=out)
     _build.check(err, "coarse_render_fwd")
     coarse_render_fwd.launches += 1
     return (out, rgb_raw, dens_raw, (xe, acts)) if want_res else out
@@ -426,23 +440,22 @@ def coarse_field_fwd(xext, ep, weights, compute_dtype=torch.bfloat16,
     if ep.shape[0] != M:
         raise ValueError(f"coarse_field_fwd: {M} xext rows, {ep.shape[0]} "
                          "enc⊕pts rows")
-    wpack, bias, wr, br, kx, ke = weights.kernel_buffers(xw, e3)
-    if any(t.device != dev for t in (ep, wpack)):
+    walk = weights.fwd_walk(xw, e3)
+    if any(t.device != dev for t in (ep, walk.tiles.wide)):
         raise ValueError("coarse_field_fwd: inputs and weights must all lie "
                          f"on {dev}")
-    xe = stage_rows(xext, ep, kx, ke)
+    xe, xe_k = _staged(xext, ep, walk)
     rgb_raw = torch.empty((M, 3), dtype=torch.float32, device=dev)
     dens_raw = torch.empty((M, 1), dtype=torch.float32, device=dev)
     n_res = len(weights.trunk) + len(weights.rgb) - 1
     acts = (torch.empty((n_res, M, HIDDEN), dtype=torch.bfloat16, device=dev)
             if want_res else None)
     lib = _build.load("coarse_field", _ARGTYPES)
-    err = lib.coarse_field_fwd(
-        xe.data_ptr(), wpack.data_ptr(), bias.data_ptr(), wr.data_ptr(),
-        br.data_ptr(), rgb_raw.data_ptr(), dens_raw.data_ptr(),
-        acts.data_ptr() if acts is not None else None, M, kx, ke,
-        len(weights.trunk), len(weights.rgb),
-        sum(1 << s for s in weights.skip), _build.stream_ptr(dev))
+    err = field_fwd.launch(
+        lib.coarse_field_fwd, walk, xe_k,
+        weights.res_planes() if want_res else {},
+        n_res=n_res if want_res else 0, stream=_build.stream_ptr(dev),
+        rgb=rgb_raw, dens=dens_raw, res=acts)
     _build.check(err, "coarse_field_fwd")
     coarse_field_fwd.launches += 1
     return (rgb_raw, dens_raw, (xe, acts)) if want_res else (rgb_raw,

@@ -35,13 +35,15 @@ import math
 import torch
 
 from ..nn.mlp import relu, round_to
-from . import _build
+from . import _build, field_fwd
 from .dw_gemm import NARROW, NARROW_COLS, WIDE, Segment, dw_grads
+from .field_fwd import (build_tiles, make_walk, st_head_layers, trunk_layers,
+                        write_tiles)
 
 HIDDEN = 256          # the CUDA kernel's layer width
 _OUT_TILE = 8         # output layers are padded to one mma n-tile
-ROW_TILE = 64         # the kernels' row tile (trunk.cuh): a kernel with a
-                      # composite epilogue needs whole rays in it
+ROW_TILE = 64         # a kernel with a composite epilogue needs whole rays
+                      # in each 64-row half of its row tile (field_fwd.cuh)
 
 
 def make_xext(pts, L, c2f_w):
@@ -68,7 +70,9 @@ def _ceil16(n):
 
 
 def _pack_layer(w, segs, n_out, n_pad):
-    """w [K,N] (JAX [in,out] layout) → mma fragment order, bf16, flat.
+    """w [K,N] (JAX [in,out] layout) → mma fragment order, bf16, flat: the
+    mma.sync kernels' packs (the backwards, the trunk kernel, and the
+    forwards' measurement build).
 
     segs: [(row_lo, row_hi, k_pad)] — where each input slice of w lands in
     the kernel's zero-padded K.  Tile (nt, kt) of the packed buffer holds,
@@ -109,10 +113,14 @@ class PackCache:
 
     _kind = "field"
 
+    @staticmethod
+    def _key(extra, layers):
+        return tuple(extra) + tuple((id(t), t._version, t.device)
+                                    for layer in layers
+                                    for t in (layer.w, layer.b))
+
     def _cached(self, name, extra, layers, build):
-        key = tuple(extra) + tuple((id(t), t._version, t.device)
-                                   for layer in layers
-                                   for t in (layer.w, layer.b))
+        key = self._key(extra, layers)
         hit = self._packs.get(name)
         if hit is not None and hit[0] == key:
             return hit[1]
@@ -178,7 +186,8 @@ class TrunkWeights(PackCache):
         self._packs = {}
 
     def trunk_buffers(self, xw):
-        """(wpack bf16, bias f32, kx) of the trunk (``pack_trunk``)."""
+        """(wpack bf16, bias f32, kx) of the trunk (``pack_trunk``): the
+        mma.sync trunk kernel's."""
         kx = _ceil16(xw)
 
         def build():
@@ -215,6 +224,7 @@ class STFieldWeights(TrunkWeights):
     def __init__(self, trunk, rgb, trans, skip):
         super().__init__(trunk, skip)
         self.rgb, self.trans = list(rgb), list(trans or ())
+        self._heads_of = (None, None)     # (walk, the heads' key it holds)
 
     def _check_heads(self, e3):
         for name, head, n_out in (("rgb", self.rgb, 3),
@@ -227,16 +237,36 @@ class STFieldWeights(TrunkWeights):
         if self.rgb[0].w.shape[0] <= self.feat_dim + e3:
             self._bad("rgb layer 0 has no latent rows")
 
-    def kernel_buffers(self, xw, e3):
-        """Forward: (trunk wpack bf16, trunk bias f32, heads wpack, heads
-        bias, kx, ke) in the kernel's walk order: trunk layers (the last
-        split into 256 feature columns and one density tile); then the RGB
-        head, then the transient head."""
-        ke = _ceil16(e3)
-        wpack, bias, kx = self.trunk_buffers(xw)
-        heads = self._cached("heads", (e3,), self.rgb + self.trans,
-                             lambda: self._pack_heads(e3, ke))
-        return (wpack, bias) + heads + (kx, ke)
+    def fwd_walk(self, xw, e3):
+        """The forward kernel's ``Walk`` (kernels/field_fwd.py): the
+        trunk's layers, then the RGB and the transient head's, in one set
+        of tiles built whenever a trunk tensor changed; when only a head
+        tensor did, the heads' rows are rewritten in place."""
+        kx, ke = _ceil16(xw), _ceil16(e3)
+
+        def heads():
+            self._check_heads(e3)
+            return st_head_layers(self.rgb, self.trans, kx, ke,
+                                  self.feat_dim, e3)
+
+        def build():
+            check_trunk(self.trunk, self.skip, xw, self._bad)
+            layers = trunk_layers(self.trunk, self.skip, xw, kx,
+                                  self._bad) + heads()
+            walk = make_walk(layers, build_tiles(layers, self.rgb[0].w.device),
+                             kx, ke, 4, self._bad)
+            self._heads_of = (walk, self._key((), self.rgb + self.trans))
+            return walk
+
+        walk = self._cached("walk", (xw, e3), self.trunk, build)
+        key = self._key((), self.rgb + self.trans)
+        if self._heads_of[0] is not walk or self._heads_of[1] != key:
+            nt = len(self.trunk)
+            with torch.no_grad():
+                walk.layers[nt:] = heads()
+                write_tiles(walk.tiles, walk.layers[nt:], nt)
+            self._heads_of = (walk, key)
+        return walk
 
     def kernel_buffers_bwd(self, e3):
         """Backward: (heads wpack, heads bias, Wᵀ pack, ke); the Wᵀ pack
@@ -510,8 +540,7 @@ def _finish_bwd(weights, parts, d_lrow, d_trow, light, trans, e3):
 
 
 _ARGTYPES = {
-    "st_field_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-    + [ctypes.c_void_p],
+    "st_field_fwd": field_fwd.ARGTYPES,
     "st_field_bwd_dx": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
@@ -533,21 +562,22 @@ def _check_cuda(what, x, compute_dtype):
 
 def fwd_inputs(what, xext, encpts, light, trans, weights, rows_per_img,
                compute_dtype, others=()):
-    """The field forward kernels' checked, staged inputs: (wpack, bias,
-    heads wpack, heads bias, kx, ke, lrow, trow, xe) on the inputs' card;
-    ``others`` are further tensors that must lie there."""
+    """The field forward kernels' checked, staged inputs: (walk, lrow, trow,
+    xe) on the inputs' card; ``others`` are further tensors that must lie
+    there."""
     _check_cuda(what, xext, compute_dtype)
     M, xw = xext.shape
     e3 = encpts.shape[1]
     dev = xext.device
     _check_rows(what, M, encpts, light, trans, rows_per_img)
-    wpack, bias, wh, bh, kx, ke = weights.kernel_buffers(xw, e3)
-    if any(t.device != dev for t in (encpts, light, trans, wpack, *others)):
+    walk = weights.fwd_walk(xw, e3)
+    if any(t.device != dev for t in (encpts, light, trans, walk.tiles.wide,
+                                     *others)):
         raise ValueError(f"{what}: inputs, latents and weights must all lie "
                          f"on {dev}")
     lrow, trow = _latent_rows(weights, light, trans, e3, compute_dtype)
-    return (wpack, bias, wh, bh, kx, ke, lrow.float().contiguous(),
-            trow.float().contiguous(), stage_rows(xext, encpts, kx, ke))
+    return (walk, lrow.float().contiguous(), trow.float().contiguous(),
+            stage_rows(xext, encpts, walk.kx, walk.ke))
 
 
 def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
@@ -560,7 +590,7 @@ def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
     if xext.device.type == "cpu":
         return st_field_plain(xext, encpts, light, trans, weights,
                               rows_per_img, compute_dtype, want_feat)
-    wpack, bias, wh, bh, kx, ke, lrow, trow, xe = fwd_inputs(
+    walk, lrow, trow, xe = fwd_inputs(
         "st_field_fwd", xext, encpts, light, trans, weights, rows_per_img,
         compute_dtype)
     M, dev = xext.shape[0], xext.device
@@ -570,18 +600,20 @@ def st_field_fwd(xext, encpts, light, trans, weights, rows_per_img,
     feat = (torch.empty((M, HIDDEN), dtype=torch.bfloat16, device=dev)
             if want_feat else None)
     lib = _build.load("st_field", _ARGTYPES)
-    skip_mask = sum(1 << s for s in weights.skip)
-    err = lib.st_field_fwd(
-        xe.data_ptr(), wpack.data_ptr(), bias.data_ptr(), wh.data_ptr(),
-        bh.data_ptr(), lrow.data_ptr(), trow.data_ptr(), rgb.data_ptr(),
-        dens.data_ptr(), tr.data_ptr(),
-        feat.data_ptr() if feat is not None else None,
-        M, kx, ke, int(rows_per_img), lrow.shape[0], len(weights.trunk),
-        len(weights.rgb), len(weights.trans), skip_mask,
-        _build.stream_ptr(dev))
+    err = field_fwd.launch(
+        lib.st_field_fwd, walk, xe, feat_plane(weights, want_feat),
+        n_res=int(want_feat), rows_per_img=rows_per_img, n_img=lrow.shape[0],
+        stream=_build.stream_ptr(dev), lrow=lrow, trow=trow, rgb=rgb,
+        dens=dens, trans=tr, res=feat)
     _build.check(err, "st_field_fwd")
     st_field_fwd.launches += 1
     return (rgb, dens, tr, feat) if want_feat else (rgb, dens, tr)
+
+
+def feat_plane(weights, want_feat):
+    """The forward walk's residual plane: the last trunk layer's output, the
+    feature residual, as plane 0 when it is wanted."""
+    return {len(weights.trunk) - 1: 0} if want_feat else {}
 
 
 st_field_fwd.launches = 0

@@ -40,11 +40,11 @@ import os
 import torch
 
 from ..ops.render import _dists
-from . import _build
+from . import _build, field_fwd
 from .composite import (N_OUT, composite_st_bwd, composite_st_bwd_plain,
                         composite_st_plain, packed_to_dict)
-from .st_field import (HIDDEN, ROW_TILE, bwd_inputs, finish_flat,
-                       fwd_inputs, heads_plain, st_field_bwd,
+from .st_field import (HIDDEN, ROW_TILE, bwd_inputs, feat_plane,
+                       finish_flat, fwd_inputs, heads_plain, st_field_bwd,
                        st_field_bwd_plain, st_field_plain)
 
 
@@ -73,8 +73,7 @@ def st_render_bwd_plain(feat, encpts, light, trans, dens, dist, g, weights,
 
 
 _ARGTYPES = {
-    "st_render_fwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
-    + [ctypes.c_float, ctypes.c_void_p],
+    "st_render_fwd": field_fwd.ARGTYPES,
     "st_render_bwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
 }
@@ -105,7 +104,7 @@ def st_render_fwd(xext, encpts, light, trans, dist, depth, weights,
                                min_uncert, want_res)
     M = xext.shape[0]
     _check_rays("st_render_fwd", M, dist, ((depth, tuple(dist.shape)),))
-    wpack, bias, wh, bh, kx, ke, lrow, trow, xe = fwd_inputs(
+    walk, lrow, trow, xe = fwd_inputs(
         "st_render_fwd", xext, encpts, light, trans, weights, rows_per_img,
         compute_dtype, (dist, depth))
     BR, N = dist.shape
@@ -121,15 +120,12 @@ def st_render_fwd(xext, encpts, light, trans, dist, depth, weights,
     feat = (torch.empty((M, HIDDEN), dtype=torch.bfloat16, device=dev)
             if want_res else None)
     lib = _build.load("st_render", _ARGTYPES)
-    err = lib.st_render_fwd(
-        xe.data_ptr(), wpack.data_ptr(), bias.data_ptr(), wh.data_ptr(),
-        bh.data_ptr(), lrow.data_ptr(), trow.data_ptr(), dist.data_ptr(),
-        depth.data_ptr(), out.data_ptr(), rgb.data_ptr(), dens.data_ptr(),
-        tr.data_ptr(), feat.data_ptr() if feat is not None else None,
-        M, kx, ke, N, int(rows_per_img), lrow.shape[0], len(weights.trunk),
-        len(weights.rgb), len(weights.trans),
-        sum(1 << s for s in weights.skip), float(min_uncert),
-        _build.stream_ptr(dev))
+    err = field_fwd.launch(
+        lib.st_render_fwd, walk, xe, feat_plane(weights, want_res),
+        n_res=int(want_res), rows_per_img=rows_per_img, n_img=lrow.shape[0],
+        N=N, min_uncert=float(min_uncert), stream=_build.stream_ptr(dev),
+        lrow=lrow, trow=trow, rgb=rgb, dens=dens, trans=tr, res=feat,
+        dist=dist, depth=depth, out=out)
     _build.check(err, "st_render_fwd")
     st_render_fwd.launches += 1
     return (out, rgb, dens, tr, feat) if want_res else out

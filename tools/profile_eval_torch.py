@@ -278,7 +278,7 @@ def profile_train(eng, steps, trace, key="train"):
                 with torch.no_grad():
                     for layer in w.trunk + w.rgb:   # bump every version
                         layer.b.add_(0.0)
-                w.kernel_buffers(xw, e3)
+                w.fwd_walk(xw, e3)
                 w.kernel_buffer_bwd(xw, e3)
         what = f"trunk + head + transposed repack ({len(ws)} fields)"
     else:
@@ -288,7 +288,7 @@ def profile_train(eng, steps, trace, key="train"):
         def repack():
             with torch.no_grad():
                 w.rgb[0].b.add_(0.0)          # bump a head tensor's version
-            w.kernel_buffers(xw, e3)
+            w.fwd_walk(xw, e3)
             w.kernel_buffers_bwd(e3)
         what = "head repack"
 

@@ -9,13 +9,14 @@ Phases; any failure exits non-zero and no result line is printed:
   1. build: the six kernel sources compiled from csrc/ by nvcc (sm_90a),
      in parallel with the measurement builds that nothing but the
      comparisons below runs: the one-kernel field backwards
-     (coarse_field.cu and st_field.cu with -DFIELD_BWD_ONE_KERNEL,
-     tools/probe_field_bwd_atomics.py), the mma.sync field forwards
-     (st_field.cu, coarse_field.cu and st_render.cu with
-     -DFIELD_FWD_MMA_SYNC, tools/probe_field_fwd.py) and those forwards'
-     measurement switches (csrc/trunk.cuh TRUNK_FWD_*), which the "step 1"
-     lines time against the mma.sync build in turns (where the replaced
-     forwards' time went: weight loads, residual stores, epilogue);
+     (coarse_field.cu, st_field.cu and st_render.cu with
+     -DFIELD_BWD_ONE_KERNEL, tools/probe_field_bwd_atomics.py), the
+     mma.sync field and trunk forwards (st_field.cu, coarse_field.cu,
+     st_render.cu and trunk_fwd.cu with -DFIELD_FWD_MMA_SYNC,
+     tools/probe_field_fwd.py) and those forwards' measurement switches
+     (csrc/trunk.cuh TRUNK_FWD_*), which the "step 1" lines time against
+     the mma.sync build in turns (where the replaced forwards' time went:
+     weight loads, residual stores, epilogue);
   2. kernels: each of the fourteen kernels against its plain-PyTorch twin on
      the card at the main paths' shapes — ST field forward on one
      2048-ray × 64-sample chunk (131,072 rows, full width, bf16), its
@@ -30,19 +31,21 @@ Phases; any failure exits non-zero and no result line is printed:
      samples per ray, its backward at 192 and the field backward at
      393,216 rows — checked against the bounds
      below, timed with CUDA events (median of repeats) and set beside the
-     least time the card could take (``bound``).  The two field backwards
-     (rows 7b and 2) run split: a dX-chain kernel, then the grouped dW
-     GEMM and its reduction (csrc/dw_gemm.cu).  At each of their three
-     shapes the GEMM and the reduction are held against the direct f32
-     products of the planes the dX chain wrote, each phase is timed alone
-     beside the GEMM's yardstick (one torch.matmul per segment), and the
-     one-kernel form they replaced (f32 dW atomics, from the measurement
-     build) is held against the twin and timed against the split form in
-     turns (old, new, new, old).  The four wgmma + TMA field forwards (rows
-     1, 6f, 7a, 8) are timed the same way against the mma.sync forms they
-     replaced (held against the twins too), each beside the L2 weight
-     bytes of both designs; the render backward's (6b) mma.sync recompute
-     of the heads' raw outputs is held against the wgmma forward's;
+     least time the card could take (``bound``).  The three field
+     backwards (rows 7b, 2 and the render backward 6b) run split: a
+     dX-chain kernel, then the grouped dW GEMM and its reduction
+     (csrc/dw_gemm.cu).  At each of their four shapes the GEMM and the
+     reduction are held against the direct f32 products of the planes the
+     dX chain wrote, each phase is timed alone beside the GEMM's yardstick
+     (one torch.matmul per segment), and the one-kernel form they replaced
+     (f32 dW atomics, from the measurement build) is held against the twin
+     and timed against the split form in turns (old, new, new, old); 6b
+     also beside the hybrid backward, timed before and after.  The five
+     wgmma + TMA forwards (rows 1, 6f, 7a, 8 and the trunk forward, 10)
+     are timed the same way against the mma.sync forms they replaced (held
+     against the twins too), each beside the L2 weight bytes of both
+     designs; the render backward's (6b) mma.sync recompute of the heads'
+     raw outputs is held against the wgmma forward's;
   3. eval: ``texpose_tpu_torch.evaluate`` (the CLI entry) on a generated
      480×640 fixture at the full width of configs/nerf_lm_adapt_gan.yaml,
      weights from the port's seeded init saved as a JAX-format npz and
@@ -101,8 +104,9 @@ Phases; any failure exits non-zero and no result line is printed:
      launch and the fused backward on the train step's 8 images × 16,384
      rows (the backward also against the hybrid backward).  Then the train
      CLI with --kernels.st_mega=true and TEXPOSE_MEGA_FULLBWD=1 for
-     MEGA_STEPS steps (the fused backward exactly once per step, nothing of
-     the two-kernel route), HYBRID_STEPS steps of the default hybrid
+     MEGA_STEPS steps (the fused backward's dX chain, the dW GEMM and its
+     reduction exactly once per step, nothing else of the two-kernel
+     route), HYBRID_STEPS steps of the default hybrid
      backward (each of its three kernels once per step), route checks of
      the fused vs the hybrid backward and of the mega vs the two-kernel
      route, warm steps/s of all three; and the eval CLI with the mega route
@@ -615,7 +619,23 @@ def kernel_phase(cfg, dev, one_kernel, mma):
                 and float(derr.max()) <= FIELD_MAX_ERR
                 and float(derr.mean()) <= FIELD_MEAN_ERR):
             fail("trunk_fwd kernel disagrees with its plain twin")
-        out["trunk_fwd"] = entry(tmax, tms, tplain, tb, feat_rel_err=trel)
+        # the mma.sync form it replaced, against the twin and in turns
+        old = mma["trunk"](xext, weights)
+        torch.cuda.synchronize()
+        old_rel = float(((old[0].float() - tref[0]).abs()
+                         / tref[0].abs().clamp(min=1.0)).max())
+        old_err = max(float((old[0].float() - tref[0]).abs().max()),
+                      float((old[1] - tref[1][:, 0]).abs().max()))
+        ab = fwd_ab(lambda: trunk_fwd(xext, weights),
+                    lambda: mma["trunk"](xext, weights))
+        l2 = mma["trunk_l2"](weights, xext.shape[1], R * N)
+        print(f"kernel trunk_fwd (row 10): mma.sync form feat max|err|/"
+              f"max(|ref|,1)={old_rel:.3g} (bound {FEAT_REL}); "
+              f"{ab_text(ab, l2)}", flush=True)
+        if not old_rel <= FEAT_REL:
+            fail("trunk_fwd mma.sync form disagrees with its plain twin")
+        out["trunk_fwd"] = entry(tmax, tms, tplain, tb, feat_rel_err=trel,
+                                 **ab_numbers(ab, old_err))
     return out
 
 
@@ -662,7 +682,7 @@ def mega_bwd_macs(weights, e3):
             + weights.trans[-1].w.numel())
 
 
-def st_mega_kernel_phase(cfg, dev, mma):
+def st_mega_kernel_phase(cfg, dev, one_kernel, mma):
     """The render kernels against their twins at full width (rows 6f/6b):
     the forward's evaluation launch on one eval chunk (one image, 2048
     rays × 64 samples = 131,072 rows), its training launch and the fused
@@ -670,8 +690,10 @@ def st_mega_kernel_phase(cfg, dev, mma):
     repeated); returns the measured numbers per kernel.
     ``mma["st_render"]`` runs the forward's mma.sync form and
     ``mma["recompute"]`` the fused backward's mma.sync recompute of the
-    heads' raw outputs (the measurement build)."""
+    heads' raw outputs, ``one_kernel["st_render"]`` the fused backward's
+    one-kernel form (the measurement builds)."""
     import torch
+    from texpose_tpu_torch.kernels import st_field as sf_module
     from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
                                                      composite_st_plain)
     from texpose_tpu_torch.kernels.st_field import st_field_bwd
@@ -841,8 +863,23 @@ def st_mega_kernel_phase(cfg, dev, mma):
                 and h_norm <= FIELD_BWD_NORM):
             fail("st_render_bwd kernel disagrees with its plain twin or the "
                  "hybrid backward")
-        out["st_render_bwd"] = entry(bmax, bms, bplain, bb, hybrid_ms=hms,
-                                     hybrid_rel_norm=h_norm)
+        # the split form (dX chain, dW GEMM, reduction) phase by phase and
+        # in turns with the one-kernel form it replaced; the hybrid again
+        # after it, in the same call
+        ep_meta = torch.empty((MT, -(-e3 // 16) * 16), dtype=torch.bfloat16,
+                              device="meta")
+        extra, gemm, red = split_bwd(
+            sf_module, lambda: st_render_bwd(*bargs),
+            lambda: (lambda r: list(r[0]) + [r[1], r[2]])(
+                one_kernel["st_render"](*bargs)),
+            flat[1], (feat, dens, dt, cot, ep_meta), True, "st_render_bwd")
+        hms2 = time_ms(hybrid, reps=20)
+        print(f"kernel st_render_bwd (row 6b): hybrid {hms:.4f} / "
+              f"{hms2:.4f} ms around the A/B", flush=True)
+        out["st_render_bwd"] = entry(bmax, bms, bplain, bb,
+                                     hybrid_ms=[hms, hms2],
+                                     hybrid_rel_norm=h_norm, **extra)
+        out["_dw"] = {f"row 6b, {MT} rows": (gemm, red)}
     return out
 
 
@@ -1904,9 +1941,12 @@ def st_mega_phase(here, tmp, dev):
           f"{launches}", flush=True)
     if (launches["st_render_bwd"] != MEGA_STEPS
             or launches["st_render_fwd"] < MEGA_STEPS
-            or any(launches[k] for k in TWO_KERNEL_ST)):
-        fail(f"st_mega: the train CLI must launch the render forward and the "
-             f"fused backward (once per step) and no two-kernel kernel: "
+            or any(launches[k] != MEGA_STEPS for k in DW_KERNELS)
+            or any(launches[k] for k in TWO_KERNEL_ST
+                   if k not in DW_KERNELS)):
+        fail(f"st_mega: the train CLI must launch the render forward, the "
+             f"fused backward's dX chain, the dW GEMM and its reduction "
+             f"(each once per step) and no other two-kernel kernel: "
              f"{launches}")
     print(f"st_mega: step {MEGA_STEPS} losses "
           f"{_train_losses(eng.cfg, MEGA_STEPS)}", flush=True)
@@ -2048,9 +2088,10 @@ def main():
     t0 = time.perf_counter()
     sources = ("st_field", "composite", "coarse_field", "trunk_fwd",
                "st_render", "dw_gemm")
-    copies = ("coarse_field", "st_field")
+    copies = ("coarse_field", "st_field", "st_render")
     fwd_copies = [(s, None) for s in ("st_field", "coarse_field",
-                                      "st_render")] + fwd.switch_copies()
+                                      "st_render", "trunk_fwd")] \
+        + fwd.switch_copies()
     n_jobs = len(sources) + len(copies) + len(fwd_copies)
     with ThreadPoolExecutor(n_jobs) as pool:
         # one nvcc per source and per measurement build
@@ -2072,7 +2113,9 @@ def main():
     one_kernel = {
         "coarse_field": lambda *a: probe.coarse_one_kernel(
             libs["coarse_field"], *a),
-        "st_field": lambda *a: probe.st_one_kernel(libs["st_field"], *a)}
+        "st_field": lambda *a: probe.st_one_kernel(libs["st_field"], *a),
+        "st_render": lambda *a: probe.render_one_kernel(libs["st_render"],
+                                                        *a)}
     # the mma.sync forwards the wgmma forwards replaced, and the render
     # backward's mma.sync recompute (measurement builds)
     mma = {"st_field": partial(fwd.st_field_mma, fwd_libs["st_field", None]),
@@ -2084,14 +2127,16 @@ def main():
                                     fwd_libs["coarse_field", None]),
            "coarse_field": partial(fwd.coarse_field_mma,
                                    fwd_libs["coarse_field", None]),
-           "l2_bytes": fwd.l2_bytes}
+           "trunk": partial(fwd.trunk_mma, fwd_libs["trunk_fwd", None]),
+           "l2_bytes": fwd.l2_bytes, "trunk_l2": fwd.trunk_l2_bytes}
     # step 1: where the mma.sync forwards' time went (measurement switches)
     step1 = fwd.attribution(dev, fwd_libs)
 
     measured, dw_runs = {}, {}
     for part in (kernel_phase(load_cfg(here), dev, one_kernel, mma),
                  coarse_kernel_phase(here, dev, one_kernel, mma),
-                 st_mega_kernel_phase(load_cfg(here), dev, mma)):
+                 st_mega_kernel_phase(load_cfg(here), dev, one_kernel,
+                                      mma)):
         dw_runs.update(part.pop("_dw", {}))
         measured.update(part)
     measured["st_field_fwd"]["step1"] = step1["row 1, eval"]
@@ -2122,7 +2167,8 @@ def main():
     launches["trunk_fwd"] = trunk_launches["trunk_fwd"]
     launches.update({k: mega_launches[k] for k in MEGA_KERNELS})
     by_path = {"pretrain": pre_launches, "hierarchical": hier_launches,
-               "two_kernel": two_launches, "gan": gan_launches}
+               "two_kernel": two_launches, "gan": gan_launches,
+               "st_mega": mega_launches}
     for k in DW_KERNELS:
         launches[k] = pre_launches[k]
         measured[k]["launches_by_path"] = {p: n[k] for p, n in by_path.items()}

@@ -1,20 +1,28 @@
-"""The split form of the two field backwards (rows 7b and 2): phase (a), the
-dX chain that stores each layer's output gradient (and row 2's recomputed
-hidden activations) to planes, then phase (b), the grouped dW GEMM over
-the descriptor table (kernels/dw_gemm.py ``dw_segments`` of each field),
-then the fixed-order sum of the GEMM's split partials.  The CUDA kernels
-cannot run here, so the layouts they read are held on the CPU through
-their plain twins, at a small width:
+"""The split form of the field backwards (rows 7b and 2, and the render
+backward 6b): phase (a), the dX chain that stores each layer's output
+gradient (and rows 2 and 6b's recomputed hidden activations) to planes,
+then phase (b), the grouped dW GEMM over the descriptor table
+(kernels/dw_gemm.py ``dw_segments`` of each field; 6b uses row 2's), then
+the fixed-order sum of the GEMM's split partials.  The CUDA kernels cannot
+run here, so the layouts they read are held on the CPU through their plain
+twins, at a small width:
 
   * the descriptor table covers every dW block of the gradient layout
-    exactly once, with dW rows that are multiples of 16;
+    exactly once, with dW rows that are multiples of 16 (for 6b, inside
+    the planes its dX chain's twin writes);
   * phase (a)'s twin, then phase (b)'s twin from that table, equals the
-    one-piece twin (``coarse_field_bwd_plain`` / ``st_field_bwd_plain``)
-    to rtol 1e-5 in float32 (the same products, summed in another order);
+    one-piece twin (``coarse_field_bwd_plain`` / ``st_field_bwd_plain`` /
+    ``st_render_bwd_plain``) to rtol 1e-5 in float32 (the same products,
+    summed in another order) and, for 6b at bf16 compute, to 2e-3 of each
+    tensor's largest magnitude (the planes hold the same bf16 values; the
+    sums' order differs);
   * the same output equals JAX's backward of ``fused_coarse_field`` /
-    ``fused_st_field`` in interpret mode, to the tolerances of
+    ``fused_st_field`` / the fully fused render backward
+    (TEXPOSE_MEGA_FULLBWD=1) in interpret mode, to the tolerances of
     tests/test_torch_pretrain_kernels.py (1e-4 of each tensor's largest
-    magnitude) and tests/test_torch_field_bwd.py (1e-5);
+    magnitude), tests/test_torch_field_bwd.py (1e-5) and
+    tests/test_torch_st_render.py (5e-5 absolute or 1e-4 of the largest
+    magnitude);
   * the reduction's twin sums the split partials of the kernel's tiles
     into their blocks.
 """
@@ -36,11 +44,15 @@ from test_fused_st import st_cfg
 from test_torch_field import _bridge as _st_bridge
 from test_torch_pretrain_kernels import (B, N, PROGRESS, R, _bridge, _cfg,
                                          _jax_pts, _port_inputs, _rel)
+from test_torch_st_render import _close, _jax_run, _loss, _port_run, _setup
+from texpose_tpu.kernels.fused_st_render import _make_op
 from texpose_tpu_torch.kernels import dw_gemm as dw
 from texpose_tpu_torch.kernels import st_field as sf
+from texpose_tpu_torch.kernels import st_render as sr
 from texpose_tpu_torch.kernels.coarse_field import (
     coarse_field_bwd_dx_plain, coarse_field_bwd_plain, coarse_render_plain)
 from texpose_tpu_torch.kernels.st_field import _ceil16
+from texpose_tpu_torch.nn.mlp import round_to
 
 SPLIT_RTOL = 1e-5
 
@@ -75,12 +87,50 @@ def _blocks(parts):
     return out
 
 
-@pytest.mark.parametrize("row", ["7b_view_indep", "7b_view_dep", "2"])
-def test_descriptor_table_covers_the_layout(row):
+def _render_inputs(w, Bi, Ri, Ni, seed):
+    """The render backward's inputs at the field ``w``'s widths, from a
+    numpy seed: (feat [M,F], encpts [M,18], light [Bi,12], trans [Bi,8],
+    dens [M,1], dist [BR,N], g [BR,16], rows per image)."""
+    rng = np.random.default_rng(seed)
+    M, BR = Bi * Ri * Ni, Bi * Ri
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32))
+
+    feat = torch.relu(t(M, w.feat_dim))
+    dist = torch.from_numpy(rng.uniform(0.01, 0.2, size=(BR, Ni))
+                            .astype(np.float32))
+    return (feat, t(M, 18), t(Bi, 12, scale=0.3), t(Bi, 8, scale=0.3),
+            t(M, 1), dist, t(BR, 16, scale=0.1), Ri * Ni)
+
+
+def _render_split(feat, encpts, light, trans, dens, dist, g, w, rpi,
+                  compute_dtype=torch.float32):
+    """Row 6b's split twins: the dX chain's (``st_render_bwd_dx_plain``),
+    then phase (b)'s through the wrapper's own ``finish_split`` on the
+    staged enc⊕pts (rounded to compute_dtype, as the card's bf16 staging)
+    → what ``st_render_bwd`` returns."""
+    hp, gp, gn, grads, d_lrow, d_trow = sr.st_render_bwd_dx_plain(
+        feat, encpts, light, trans, dens, dist, g, w, rpi, compute_dtype)
+    e3 = encpts.shape[1]
+    ke = _ceil16(e3)
+    ep = torch.zeros((feat.shape[0], ke))
+    ep[:, :e3] = round_to(encpts.float(), compute_dtype)
+    return sf.finish_split(w, (hp, gp, gn), round_to(feat.float(),
+                                                     compute_dtype), ep,
+                           sf._grad_layout(w, ke), grads, d_lrow, d_trow,
+                           light, trans, e3)
+
+
+@pytest.mark.parametrize("row", ["7b_view_indep", "7b_view_dep", "2", "6b"])
+def test_descriptor_table_covers_the_layout(row, monkeypatch):
     """Every dW block of the layout is one segment, at its offset, of its
     rows and columns; nothing else is; dW rows are multiples of 16 and
     each block lies inside its G plane (wide blocks the layer's width,
-    narrow ones 8 columns of the 16-column plane)."""
+    narrow ones 8 columns of the 16-column plane).  For 6b (the render
+    kernels' test field) each segment's A and G columns also lie inside
+    the planes its dX chain's twin writes."""
     if row.startswith("7b"):
         cfg, _, nerf, scene = _coarse(row.endswith("view_dep"))
         xext, ep, _, _ = _port_inputs(cfg, *scene)
@@ -91,13 +141,28 @@ def test_descriptor_table_covers_the_layout(row):
         segs = w.dw_segments(kx, ke)
         width = w.feat_dim
     else:
-        cfg, _, nerf = _st()
+        if row == "2":
+            _, _, nerf = _st()
+        else:
+            _, _, nerf, _ = _setup(monkeypatch)
         w = nerf.kernel_weights()
         ke = _ceil16(3 + 6 * 2 + 3)
         blocks = _blocks([(part, r, c) for *_, part, r, c
                           in sf._grad_layout(w, ke)])
         segs = sf.dw_segments(w, ke)
         width = w.rgb[0].w.shape[1]
+    if row == "6b":
+        args = _render_inputs(w, 2, 4, 16, 1)
+        with torch.no_grad():
+            hp, gp, gn, *_ = sr.st_render_bwd_dx_plain(*args[:7], w,
+                                                       args[7])
+        srcs = [hp, args[0][None], torch.zeros((1, hp.shape[1], ke))]
+        for s in segs:
+            a = srcs[s.a]
+            assert s.a_plane < a.shape[0] and s.a_col + s.k_in <= a.shape[2]
+            if s.b == dw.WIDE:
+                assert s.b_plane < gp.shape[0] and s.n <= gp.shape[2], s
+            assert gn.shape[1] == dw.NARROW_COLS
     got = {s.out: (s.k_in, s.n) for s in segs}
     assert len(got) == len(segs)
     assert got == blocks
@@ -230,6 +295,71 @@ def test_st_split_matches_twin_and_jax():
         assert _rel(got.numpy(), ref) <= 1e-5
     assert _rel(split[1].numpy(), g_ll) <= 1e-5
     assert _rel(split[2].numpy(), g_lt) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_st_render_split_matches_twin(dtype, monkeypatch):
+    """Row 6b: the split twins (dX chain, then phase (b) over row 2's
+    segment table) against st_render_bwd_plain, every head tensor and both
+    latents, with rows of two images: to rtol 1e-5 in float32, to 2e-3 of
+    each tensor's largest magnitude at bf16 compute."""
+    _, _, nerf, _ = _setup(monkeypatch)
+    w = nerf.kernel_weights()
+    cdt = getattr(torch, dtype)
+    args = _render_inputs(w, 2, 4, 16, 3)
+    with torch.no_grad():
+        feat = round_to(args[0], cdt)
+        split = _render_split(feat, *args[1:7], w, args[7], cdt)
+        twin = sr.st_render_bwd_plain(feat, *args[1:7], w, args[7], cdt)
+    flat_split = list(split[0]) + list(split[1:])
+    flat_twin = list(twin[0]) + list(twin[1:])
+    assert len(flat_split) == len(flat_twin) == 2 * (len(w.rgb)
+                                                     + len(w.trans)) + 2
+    for a, b in zip(flat_split, flat_twin):
+        assert a.shape == b.shape
+        peak = float(b.abs().max())
+        if dtype == "float32":
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=SPLIT_RTOL,
+                                       atol=SPLIT_RTOL * peak)
+        else:
+            assert float((a - b).abs().max()) <= 2e-3 * peak
+
+
+def test_st_render_split_matches_jax_fullbwd(monkeypatch):
+    """Row 6b: the port's mega route with its backward taken by the split
+    twins, against jax.grad through the JAX package's fully fused render
+    backward (TEXPOSE_MEGA_FULLBWD=1, interpret mode), as
+    tests/test_torch_st_render.py holds the one-piece twin: every head
+    tensor and both latents."""
+    cfg, jparams, nerf, (*scene, lt, ll) = _setup(monkeypatch)
+    monkeypatch.setenv("TEXPOSE_MEGA_FULLBWD", "1")
+    heads = {k: v for k, v in jparams.items() if k != "mlp_feat"}
+    _make_op.cache_clear()
+    try:
+        g_heads, g_lt, g_ll = jax.grad(
+            lambda h, a, b: _loss(_jax_run(dict(h, mlp_feat=jparams[
+                "mlp_feat"]), cfg, scene, a, b)),
+            argnums=(0, 1, 2))(heads, jnp.asarray(lt), jnp.asarray(ll))
+    finally:
+        _make_op.cache_clear()
+    calls = []
+
+    def split(*args):
+        calls.append(1)
+        return _render_split(*args)
+
+    monkeypatch.setattr(sr, "st_render_bwd", split)
+    t_lt = torch.tensor(lt, requires_grad=True)
+    t_ll = torch.tensor(ll, requires_grad=True)
+    _loss(_port_run(nerf, cfg, scene, t_lt, t_ll)).backward()
+    assert calls == [1]
+    for name in ("mlp_rgb", "mlp_trans"):
+        for i, layer in enumerate(getattr(nerf, name)):
+            for part in ("w", "b"):
+                _close(getattr(layer, part).grad.numpy(),
+                       g_heads[name][i][part], (name, i, part))
+    _close(t_lt.grad.numpy(), g_lt, "latent_trans")
+    _close(t_ll.grad.numpy(), g_ll, "latent_light")
 
 
 def test_reduce_twin_sums_split_partials_in_order():

@@ -488,6 +488,45 @@ def test_trunk_fwd_kernel_matches_plain(cuda, M):
     assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
 
 
+@pytest.mark.parametrize("field,M", [("st", 300), ("coarse", 64),
+                                     ("density", 129)],
+                         ids=["st-shared-tiles", "coarse-one-tile",
+                              "density-own-tiles"])
+def test_trunk_fwd_walk_tiles_and_edges(cuda, field, M):
+    """Row 10 on the wgmma tile: through the tiles it shares with a field's
+    forward walk (built first) and through its own (the density-only
+    field), at a ragged last tile, M = 64 (the second warpgroup has no
+    row) and M = 129; the features' ReLU mask as the twin's."""
+    from texpose_tpu_torch.kernels.st_field import TrunkWeights
+    from texpose_tpu_torch.kernels.trunk import (trunk_forward_plain,
+                                                 trunk_fwd)
+    if field == "st":
+        w = _weights(cuda)
+        w.fwd_walk(63, 30)
+    elif field == "coarse":
+        w = _coarse_weights(cuda, True)
+        w.fwd_walk(63, 30)
+    else:
+        c = _coarse_weights(cuda, False, seed=3)
+        w = TrunkWeights(c.trunk, c.skip)
+    shared = field != "density"
+    assert (w.trunk_walk(63).tiles.wide is w.fwd_walk(63, 30).tiles.wide
+            if shared else w._packs.get("walk") is None)
+    g = torch.Generator().manual_seed(M)
+    pts = (torch.randn(M, 3, generator=g) * 0.5).to(cuda)
+    xext = make_xext(pts, 10, torch.linspace(1.0, 0.3, 10).to(cuda))
+    n0 = trunk_fwd.launches
+    with torch.inference_mode():
+        feat, dens = trunk_fwd(xext, w)
+    torch.cuda.synchronize()
+    assert trunk_fwd.launches == n0 + 1
+    feat_ref, dens_ref = trunk_forward_plain(xext, w.trunk, w.skip)
+    _feat_close(feat, feat_ref)
+    _mask_agrees(feat, feat_ref)
+    err = (dens - dens_ref[:, 0]).abs()
+    assert float(err.max()) <= 3e-2 and float(err.mean()) <= 1e-3
+
+
 def test_coarse_field_autograd_and_raising_wrappers(cuda):
     """coarse_field's autograd launches the field forward and backward
     kernels once each; the new wrappers raise on what their kernels do not
@@ -620,8 +659,9 @@ def test_st_render_bwd_kernel_matches_plain(cuda, B, R, N):
 @pytest.mark.parametrize("full", [False, True], ids=["hybrid", "fullbwd"])
 def test_st_render_autograd_launches_its_kernels(cuda, monkeypatch, full):
     """fused_st_render under grad: the training forward, then the hybrid
-    backward's two kernels, or with TEXPOSE_MEGA_FULLBWD=1 the fused one —
-    and nothing of the two-kernel forward route."""
+    backward's two kernels, or with TEXPOSE_MEGA_FULLBWD=1 the fused one's
+    dX chain — each followed by the dW GEMM and its reduction — and
+    nothing of the two-kernel forward route."""
     from texpose_tpu_torch.kernels import composite as comp
     from texpose_tpu_torch.kernels import st_field as sf
     from texpose_tpu_torch.kernels import st_render as sr
@@ -634,8 +674,10 @@ def test_st_render_autograd_launches_its_kernels(cuda, monkeypatch, full):
     params = w.head_params()
     for p in params:
         p.requires_grad_(True)
+    from texpose_tpu_torch.kernels import dw_gemm as dw
     fns = (sr.st_render_fwd, sr.st_render_bwd, comp.composite_st_bwd,
-           sf.st_field_bwd, sf.st_field_fwd, comp.composite_st_fwd)
+           sf.st_field_bwd, sf.st_field_fwd, comp.composite_st_fwd,
+           dw.dw_gemm, dw.dw_reduce)
     counts = [f.launches for f in fns]
     depth_samples = depth.reshape(B, R, N, 1)
     ray = torch.ones(B, R, 3, device=cuda)
@@ -645,9 +687,41 @@ def test_st_render_autograd_launches_its_kernels(cuda, monkeypatch, full):
      + out["trans_density_mean"]).backward()
     torch.cuda.synchronize()
     added = [f.launches - c for f, c in zip(fns, counts)]
-    assert added == ([1, 1, 0, 0, 0, 0] if full else [1, 0, 1, 1, 0, 0])
+    # both backwards end in the grouped dW GEMM and its reduction, once
+    assert added == ([1, 1, 0, 0, 0, 0, 1, 1] if full
+                     else [1, 0, 1, 1, 0, 0, 1, 1])
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in params + [light, trans])
+
+
+def test_st_render_bwd_dw_is_the_same_run_to_run(cuda):
+    """Row 6b split: dW comes from the grouped GEMM's fixed-order sums, so
+    two launches on the same inputs give the same dW bits (but for layer
+    0's latent rows, which come from the per-image sums; those, db and the
+    latents' gradients are f32 atomics, whose order varies: held to 1e-4
+    of their largest magnitude)."""
+    from texpose_tpu_torch.kernels.st_render import (st_render_bwd,
+                                                     st_render_fwd)
+    w = _weights(cuda)
+    B, R, N = 4, 64, 64
+    xext, encpts, light, trans, dist, depth = _render_inputs(cuda, B, R, N, 9)
+    g = torch.Generator().manual_seed(12)
+    cot = (torch.randn(B * R, 16, generator=g) / (B * R)).to(cuda)
+    with torch.no_grad():
+        _, _, dens, _, feat = st_render_fwd(
+            xext, encpts, light, trans, dist, depth, w, R * N, want_res=True)
+        args = (feat, encpts, light, trans, dens, dist, cot, w, R * N)
+        a, b = st_render_bwd(*args), st_render_bwd(*args)
+    torch.cuda.synchronize()
+    n_rgb = len(w.rgb)
+    for i, (x, y) in enumerate(zip(a[0][0::2], b[0][0::2])):   # head dW
+        li = i if i < n_rgb else i - n_rgb
+        rows = x.shape[0] if li else 256 + (30 if i == 0 else 0)
+        assert torch.equal(x[:rows], y[:rows]), i
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    for x, y in zip(list(a[0][1::2]) + list(a[1:]),
+                    list(b[0][1::2]) + list(b[1:])):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
 
 
 def test_st_render_wrappers_raise_on_unsupported_input(cuda):

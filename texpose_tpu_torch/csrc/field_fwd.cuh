@@ -1,7 +1,8 @@
 // The field forwards on Hopper's wgmma + TMA, shared by the ST field
-// (st_field.cu, row 1), the ST render forward (st_render.cu, row 6f) and the
-// coarse field's two forwards (coarse_field.cu, rows 7a and 8).  The
-// kernels' headers say what each computes; this file is the tile.
+// (st_field.cu, row 1), the ST render forward (st_render.cu, row 6f), the
+// coarse field's two forwards (coarse_field.cu, rows 7a and 8) and the trunk
+// forward (trunk_fwd.cu, row 10).  The kernels' headers say what each
+// computes; this file is the tile.
 //
 // A block is persistent: it walks 128-row tiles blockIdx.x, +gridDim.x, ...
 // Its 8 warps are two warpgroups, each owning 64 rows × all 256 columns of
@@ -520,7 +521,8 @@ bool bad_walk(const int* table, int n, int xregion, int n_res,
 
 // The forward launch shared by the entry points: checks, encodes the maps,
 // sizes the ring to the shared memory left and launches one persistent block
-// per SM (fewer for fewer tiles) on `stream`.  Returns a cudaError_t.
+// per SM (fewer for fewer tiles) on `stream`.  ke may be 0 (the trunk
+// kernel's walk: no enc⊕pts columns, xblocks == bx).  Returns a cudaError_t.
 template <int kEpi>
 int launch_field_fwd(const long long* ptrs, const int* ints, const int* table,
                      float min_uncert, void* stream, int* limits) {
@@ -528,7 +530,7 @@ int launch_field_fwd(const long long* ptrs, const int* ints, const int* table,
   if (M <= 0) return 0;
   const int bx = ints[I_BX], xblocks = ints[I_XBLOCKS];
   const int xregion = ints[I_XREGION], n = ints[I_LAYERS];
-  if (kx <= 0 || ke <= 0 || kx % 16 || ke % 16 || bx != (kx + 63) / 64 ||
+  if (kx <= 0 || ke < 0 || kx % 16 || ke % 16 || bx != (kx + 63) / 64 ||
       xblocks != bx + (ke + 63) / 64 || xregion < xblocks ||
       ints[I_ROWS_PER_IMG] <= 0 || ints[I_N_IMG] <= 0 || ints[I_N_RES] < 0 ||
       bad_walk(table, n, xregion, ints[I_N_RES], ints[I_WIDE_ROWS],

@@ -62,9 +62,9 @@
 // (st_field_bwd_kernel<false>, entry st_field_bwd_atomic, compiled only in
 // the measurement build -DFIELD_BWD_ONE_KERNEL that chip_smoke.py and
 // tools/probe_field_bwd_atomics.py time against this one; the render
-// backward st_render.cu still runs its head_bwd) adds every tile's
-// partials with f32 atomics, ~400 K per tile, 5.6 ms per 131,072 rows on
-// the H100, on one block per SM.  The split form stores each head's
+// backward st_render.cu runs the same head_bwd, split the same way) adds
+// every tile's partials with f32 atomics, ~400 K per tile, 5.6 ms per
+// 131,072 rows on the H100, on one block per SM.  The split form stores each head's
 // recomputed hidden activations and layer gradients (bf16, 6 + 6 planes of
 // 64 MB at 131,072 rows) and the output gradients (a narrow [M, 16] plane)
 // to device memory instead, and dw_gemm.cu forms every dW with wgmma over

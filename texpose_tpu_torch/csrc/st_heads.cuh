@@ -330,10 +330,10 @@ struct SplitOut {
 //   gout: [64][kOutStride] bf16 output gradient (columns ≥ ncols zero)
 //   g_in: the tile's f32 output gradient, row r at g_in[r*ncols] (device or
 //         shared memory; rows past M are not read)
-// kSplit (row 2's dX chain): no dW here — the hidden activations, each
-// layer's gradient and the output gradient go to the planes of `so`, and
-// dw_gemm.cu forms dW; db and the latent sums are added as in the one-kernel
-// form (which the render backward, st_render.cu, runs).
+// kSplit (the dX chains of rows 2 and 6b): no dW here — the hidden
+// activations, each layer's gradient and the output gradient go to the
+// planes of `so`, and dw_gemm.cu forms dW; db and the latent sums are added
+// as in the one-kernel form (the measurement build -DFIELD_BWD_ONE_KERNEL).
 template <bool kSplit = false>
 __device__ void head_bwd(int n, bool rgb, bool recompute, const BwdParams& p,
                          const Seg& feat, const Seg& ep, bf16* const* h,
@@ -356,8 +356,9 @@ __device__ void head_bwd(int n, bool rgb, bool recompute, const BwdParams& p,
   else
     skip_head(n, rgb ? kHidden + p.ke : kHidden, w, b);
   if constexpr (kSplit)
-    for (int li = 0; li < n - 1; ++li)
-      store_tile(so.h + li * plane, h[li], row0, p.M);
+    if (so.h != nullptr)                    // null: stored by the caller
+      for (int li = 0; li < n - 1; ++li)
+        store_tile(so.h + li * plane, h[li], row0, p.M);
 
   // ---- this head's slices of the gradient output and the Wᵀ packs ----
   for (int li = 0; li < n; ++li) {

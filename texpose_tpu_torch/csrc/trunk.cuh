@@ -1,8 +1,8 @@
 // The mma.sync building blocks of the field kernels: the backwards' dX
-// chains (st_field.cu, coarse_field.cu, st_render.cu), the trunk kernel
-// (trunk_fwd.cu, row 10) and the field forwards' mma.sync form, which is
-// compiled only in the measurement build -DFIELD_FWD_MMA_SYNC (the shipped
-// forwards are field_fwd.cuh's wgmma + TMA tile).
+// chains (st_field.cu, coarse_field.cu, st_render.cu) and the field and
+// trunk forwards' mma.sync form, which is compiled only in the measurement
+// build -DFIELD_FWD_MMA_SYNC (the shipped forwards, the trunk's included,
+// are field_fwd.cuh's wgmma + TMA tile).
 //
 // A block owns a 64-row tile with 8 warps; every warp owns all 64 rows and a
 // disjoint 32-column slice of each 256-wide layer, so each weight element is

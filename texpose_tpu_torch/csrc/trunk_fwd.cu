@@ -9,27 +9,47 @@
 // nerf.density_noise_reg, the coarse field with kernels.fused_coarse off,
 // the density-only field).
 //
-// Per 64-row tile, in shared memory: the staged xext [64,kx] (pts ⊕ c2f-
-// weighted sin/cos bands, bf16, formed by the wrapper as for the field
-// kernels) → the 8×256 trunk of trunk.cuh (skip layers re-read xext; the last
-// layer's column 0 is the raw density, stored f32 to dens [M]) → the
-// features, written as bf16 [M,256] rows.  The TPU kernel returns f32
-// features; every consumer of this kernel rounds them to bf16 before its
-// next matmul (the heads run with compute_dtype bfloat16, the only dtype the
-// kernel takes), so the bf16 store is that rounding done once, here, and
-// halves the output bytes.
+// Kernel: field_fwd_kernel<EPI_NONE> (field_fwd.cuh, the wgmma + TMA tile of
+// rows 1, 6f, 7a and 8; entry trunk_fwd) over the trunk's walk alone
+// (kernels/field_fwd.py trunk_walk_layers): per 128-row tile the staged
+// xext [128,kx] (pts ⊕ c2f-weighted sin/cos bands, bf16, formed by the
+// wrapper as for the field kernels) in the X region, which holds nothing
+// else (no enc⊕pts: ke = 0) and is freed after the last layer that reads it
+// (the last skip layer), so the next tile's xext loads under the layers
+// after it; the 8×256 trunk (skip layers re-read xext) in place in the A
+// buffer; the last layer's column 0, the raw density, as its narrow output
+// (f32 to dens [M]); its 256 ReLU'd features stored as residual plane 0 by
+// TMA (bf16 [M,256] rows).  The TPU kernel returns f32 features; every
+// consumer of this kernel rounds them to bf16 before its next matmul (the
+// heads run with compute_dtype bfloat16, the only dtype the kernel takes),
+// so the bf16 store is that rounding done once, here, and halves the
+// output bytes.  The weight tiles are the field walk's where the weights
+// carry one (kernels/st_field.py TrunkWeights.trunk_walk), else the trunk's
+// own.
 //
 // What bounds it: ~0.98 MFLOP per row on the tensor cores (129 GFLOP at the
 // 131,072 rows of one 2048-ray × 64-sample chunk, 0.130 ms at 989 TFLOP/s)
 // against 128 B of staged xext in and 516 B out per row (84 MB, 0.025 ms).
-// Design: trunk.cuh's (weights fragment-packed on the host, each warp all 64
-// rows × 32 columns of every layer, activations in three shared buffers);
-// 110,592 B of shared memory, so two blocks share an SM.
+// The mma.sync form it replaced (trunk.cuh's trunk_forward on 64-row
+// tiles, fragment-packed weights read by every warp from L2, 110,592 B of
+// shared memory, two blocks per SM; 0.57 ms at 131,072 rows on the H100)
+// lost its time as the field forwards of that form did: the epilogues (bias,
+// ReLU, bf16 stores behind block barriers) and the weight re-reads (the
+// whole trunk, ≈ 0.98 MB, per 64 rows: 2.0 GB per chunk).  The wgmma tile
+// reads the weights once per 128 rows (≈ 1.0 GB per chunk) and folds the
+// epilogue into one conversion and stmatrix stores.  The mma.sync form
+// (trunk_fwd_mma_kernel, entry trunk_fwd_mma) is compiled only in the
+// measurement build -DFIELD_FWD_MMA_SYNC (tools/probe_field_fwd.py,
+// chip_smoke.py's in-call comparison).
 
-#include "trunk.cuh"
+#include "field_fwd.cuh"
 
 namespace {
 
+int g_smem_limit[kMaxDevices];
+
+#ifdef FIELD_FWD_MMA_SYNC
+// The mma.sync form (measurement build only).
 struct TrunkParams {
   const bf16* x;           // [M, kx] bf16: xext, zero padded to kx
   const uint2* wpack;      // trunk layers in walk order, fragment packed
@@ -41,7 +61,7 @@ struct TrunkParams {
 };
 
 __global__ void __launch_bounds__(kThreads, 2)
-    trunk_fwd_kernel(const TrunkParams p) {
+    trunk_fwd_mma_kernel(const TrunkParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* const act[3] = {
       reinterpret_cast<bf16*>(smem),
@@ -62,15 +82,30 @@ __global__ void __launch_bounds__(kThreads, 2)
   store_tile(p.feat, act[feat], row0, p.M);   // trunk_forward synced last
 }
 
-int g_smem_limit[kMaxDevices];
+int g_smem_limit_mma[kMaxDevices];
+#endif  // FIELD_FWD_MMA_SYNC
 
 }  // namespace
 
-// Launches the trunk forward on `stream`: x [M,kx] bf16 → feat [M,256] bf16,
-// dens [M] f32.  Returns cudaGetLastError() (0 = launched).
-extern "C" int trunk_fwd(const void* x, const void* wpack, const void* bias,
-                         void* feat, void* dens, int M, int kx, int n_trunk,
-                         int skip_mask, void* stream) {
+// Launches the trunk forward on `stream`: the flat pointer and int
+// arguments of field_fwd.cuh (FwdPtr, FwdInt: xe the staged xext [M, kx]
+// bf16, ke 0; dens receives the raw density [M,1] f32, res the [1, M, 256]
+// bf16 features) and the walk's table.  Returns a cudaError_t (0 =
+// launched).
+extern "C" int trunk_fwd(const long long* ptrs, const int* ints,
+                         const int* table, float min_uncert, void* stream) {
+  return launch_field_fwd<EPI_NONE>(ptrs, ints, table, min_uncert, stream,
+                                    g_smem_limit);
+}
+
+#ifdef FIELD_FWD_MMA_SYNC
+// Measurement build only.  Launches the mma.sync trunk forward on `stream`:
+// x [M,kx] bf16 → feat [M,256] bf16, dens [M] f32, from the trunk's
+// fragment pack.  Returns cudaGetLastError() (0 = launched).
+extern "C" int trunk_fwd_mma(const void* x, const void* wpack,
+                             const void* bias, void* feat, void* dens, int M,
+                             int kx, int n_trunk, int skip_mask,
+                             void* stream) {
   if (M <= 0) return 0;
   if (kx % 16 || kx <= 0 || n_trunk < 1) return (int)cudaErrorInvalidValue;
   TrunkParams p;
@@ -85,10 +120,11 @@ extern "C" int trunk_fwd(const void* x, const void* wpack, const void* bias,
   p.skip_mask = static_cast<unsigned>(skip_mask);
   const int smem =
       (3 * kTile * kActStride + kTile * (kx + 8)) * (int)sizeof(bf16);
-  cudaError_t e = ensure_smem(trunk_fwd_kernel, smem, g_smem_limit);
+  cudaError_t e = ensure_smem(trunk_fwd_mma_kernel, smem, g_smem_limit_mma);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((M + kTile - 1) / kTile);
-  trunk_fwd_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(p);
+  trunk_fwd_mma_kernel<<<grid, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
+#endif  // FIELD_FWD_MMA_SYNC

@@ -52,9 +52,8 @@ from .trunk import trunk_forward_plain
 
 class CoarseFieldWeights(TrunkWeights):
     """The coarse field's dense layers (``.w`` [in,out], ``.b``) plus the
-    kernels' packed copies.  The trunk trains, so both the trunk pack and
-    the RGB-head pack, and the backward's transposed pack, rebuild after
-    every optimizer step."""
+    kernels' copies.  The trunk trains, so the forward walk's tiles and the
+    backward's transposed pack rebuild after every optimizer step."""
 
     _kind = "coarse_field"
 

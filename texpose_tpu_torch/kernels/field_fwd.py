@@ -1,6 +1,6 @@
 """The field forwards' weight tiles and walk: what the wgmma + TMA forward
-kernel (``csrc/field_fwd.cuh``; rows 1, 6f, 7a and 8) reads, its launcher,
-and their plain-PyTorch readers.
+kernel (``csrc/field_fwd.cuh``; rows 1, 6f, 7a, 8 and 10) reads, its
+launcher, and their plain-PyTorch readers.
 
 The kernel knows no field.  It takes
   * the weights as plain bf16 tiles TMA can read: ``wide`` [Rw, 256] (every
@@ -171,6 +171,17 @@ def trunk_layers(trunk, skip, xw, kx, bad):
     return out
 
 
+def trunk_walk_layers(trunk, skip, xw, kx, bad):
+    """The trunk kernel's walk (row 10): ``trunk_layers`` alone, the X
+    region (xext only) freed after the last layer that reads it, so the next
+    tile's xext loads under the layers after it."""
+    layers = trunk_layers(trunk, skip, xw, kx, bad)
+    last = max(i for i, layer in enumerate(layers)
+               if any(buf == BUF_X for buf, _, _ in layer.segs))
+    layers[last].xfree = True
+    return layers
+
+
 def head_layers(head, first_rows, first_segs, buf, lat, nout, xfree_at):
     """A head's walk: layer 0 with ``first_rows`` / ``first_segs`` (the
     features in A and, for an RGB head, enc⊕pts in X), its hidden layers
@@ -197,8 +208,9 @@ class Walk:
     """A field's forward for the kernel: its tiles, its layers (the rows of
     the table, less the residual planes), the row input's shape (kx: the
     staged xext width, zero padded to whole 64-column blocks, so enc⊕pts
-    starts a block; ke: the 16-padded enc⊕pts width; bx, xblocks: their
-    64-column blocks) and the X region's size in blocks."""
+    starts a block; ke: the 16-padded enc⊕pts width, 0 for the trunk
+    kernel's walk; bx, xblocks: their 64-column blocks) and the X region's
+    size in blocks."""
     tiles: Tiles
     layers: list
     kx: int

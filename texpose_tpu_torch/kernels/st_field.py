@@ -37,7 +37,8 @@ import torch
 from ..nn.mlp import relu, round_to
 from . import _build, field_fwd
 from .dw_gemm import NARROW, NARROW_COLS, WIDE, Segment, dw_grads
-from .field_fwd import (build_tiles, make_walk, st_head_layers, trunk_layers,
+from .field_fwd import (Tiles, blocks, build_tiles, make_walk,
+                        st_head_layers, trunk_layers, trunk_walk_layers,
                         write_tiles)
 
 HIDDEN = 256          # the CUDA kernel's layer width
@@ -71,8 +72,8 @@ def _ceil16(n):
 
 def _pack_layer(w, segs, n_out, n_pad):
     """w [K,N] (JAX [in,out] layout) → mma fragment order, bf16, flat: the
-    mma.sync kernels' packs (the backwards, the trunk kernel, and the
-    forwards' measurement build).
+    mma.sync kernels' packs (the backwards, and the forwards' measurement
+    build).
 
     segs: [(row_lo, row_hi, k_pad)] — where each input slice of w lands in
     the kernel's zero-padded K.  Tile (nt, kt) of the packed buffer holds,
@@ -146,36 +147,11 @@ def check_trunk(trunk, skip, xw, bad):
                 f"expected {want}")
 
 
-def pack_trunk(trunk, skip, xw, kx):
-    """(wpack bf16, bias f32) of the trunk in the kernels' walk order: each
-    layer, the last split into its 256 feature columns and one density
-    n8 tile."""
-    H = HIDDEN
-    ws, bs = [], []
-    n = len(trunk)
-    for li, layer in enumerate(trunk):
-        if li == 0:
-            segs = [(0, xw, kx)]
-        elif li in skip:
-            segs = [(0, H, H), (H, H + xw, kx)]
-        else:
-            segs = [(0, H, H)]
-        if li < n - 1:
-            ws.append(_pack_layer(layer.w, segs, H, H))
-            bs.append(layer.b)
-        else:
-            ws.append(_pack_layer(layer.w[:, 1:], segs, H, H))
-            bs.append(layer.b[1:])
-            ws.append(_pack_layer(layer.w[:, :1], segs, 1, _OUT_TILE))
-            bs.append(_pad_bias(layer.b[:1], _OUT_TILE))
-    return _cat_packs(ws), _cat_packs(bs, torch.float32)
-
-
 class TrunkWeights(PackCache):
-    """The trunk's dense layers (``.w`` [in,out], ``.b``) plus the kernels'
-    packed copy, rebuilt whenever a trunk tensor changed.  Every field's
-    weights extend it, so a field holds one trunk pack for all its
-    kernels (the trunk kernel of kernels/trunk.py takes it as it is)."""
+    """The trunk's dense layers (``.w`` [in,out], ``.b``) plus the trunk
+    kernel's walk (``trunk_walk``), rebuilt whenever a trunk tensor changed.
+    Every field's weights extend it, so the trunk kernel of kernels/trunk.py
+    takes any field's."""
 
     _kind = "trunk"
 
@@ -185,16 +161,37 @@ class TrunkWeights(PackCache):
         self.feat_dim = self.trunk[-1].w.shape[1] - 1
         self._packs = {}
 
-    def trunk_buffers(self, xw):
-        """(wpack bf16, bias f32, kx) of the trunk (``pack_trunk``): the
-        mma.sync trunk kernel's."""
+    def trunk_walk(self, xw):
+        """The trunk kernel's ``Walk`` (row 10, kernels/field_fwd.py
+        ``trunk_walk_layers``; ke 0, the X region xext's blocks alone).  Its
+        tiles are those of this field's forward walk (``fwd_walk``, where
+        the trunk's layers come first) when one over the same xext width is
+        cached with the current trunk, read through the trunk's offsets;
+        else the trunk's own."""
         kx = _ceil16(xw)
 
         def build():
             check_trunk(self.trunk, self.skip, xw, self._bad)
-            return pack_trunk(self.trunk, self.skip, xw, kx)
+            layers = trunk_walk_layers(self.trunk, self.skip, xw, kx,
+                                       self._bad)
+            tiles = self._field_tiles(xw)
+            tiles = (build_tiles(layers, self.trunk[0].w.device)
+                     if tiles is None else
+                     Tiles(tiles.wide, tiles.narrow, tiles.bias,
+                           tiles.offs[:len(layers)]))
+            return make_walk(layers, tiles, kx, 0, blocks(kx), self._bad)
 
-        return self._cached("trunk", (xw,), self.trunk, build) + (kx,)
+        return self._cached("trunk_walk", (xw,), self.trunk, build)
+
+    def _field_tiles(self, xw):
+        """The tiles of the cached forward walk over xext ``xw`` wide whose
+        trunk is the current one, or None.  Its cache key is (xw, e3) and
+        then the trunk's tensors (``fwd_walk``)."""
+        hit = self._packs.get("walk")
+        trunk = self._key((), self.trunk)
+        if hit is None or hit[0][0] != xw or hit[0][2:2 + len(trunk)] != trunk:
+            return None
+        return hit[1].tiles
 
 
 def pack_head(layers, first_segs):
@@ -215,9 +212,9 @@ def pack_head(layers, first_segs):
 
 class STFieldWeights(TrunkWeights):
     """The field's dense layers (objects with ``.w`` [in,out] and ``.b``)
-    plus the kernels' packed copies of them: the trunk pack is rebuilt only
-    when a trunk tensor changed, the head packs whenever a head tensor
-    did."""
+    plus the kernels' copies of them: the forward walk's tiles are built
+    when a trunk tensor changed (a head update rewrites the heads' rows in
+    place), the heads' packs whenever a head tensor changed."""
 
     _kind = "st_field"
 
@@ -681,11 +678,7 @@ def st_field_bwd(feat, encpts, light, trans, weights, rows_per_img, g_rgb,
     g_trans = g_trans.float().contiguous()
     feat = feat.contiguous()
     dev = feat.device
-    nh = len(weights.rgb) + len(weights.trans) - 2
-    hplanes = torch.empty((nh, M, HIDDEN), dtype=torch.bfloat16, device=dev)
-    gplanes = torch.empty_like(hplanes)
-    gnarrow = torch.empty((M, NARROW_COLS), dtype=torch.bfloat16,
-                          device=dev)
+    hplanes, gplanes, gnarrow = planes = split_planes(weights, M, dev)
     lib = _build.load("st_field", _ARGTYPES)
     err = lib.st_field_bwd_dx(
         feat.data_ptr(), ep.data_ptr(), g_rgb.data_ptr(), g_trans.data_ptr(),
@@ -696,13 +689,36 @@ def st_field_bwd(feat, encpts, light, trans, weights, rows_per_img, g_rgb,
         len(weights.rgb), len(weights.trans), _build.stream_ptr(dev))
     _build.check(err, "st_field_bwd")
     st_field_bwd.launches += 1
-    dw_grads([hplanes, feat, ep], gplanes, gnarrow, dw_segments(weights, ke),
-             grads)
-    return finish_flat(weights, layout, grads, d_lrow, d_trow, light, trans,
-                       encpts.shape[1])
+    return finish_split(weights, planes, feat, ep, layout, grads, d_lrow,
+                        d_trow, light, trans, encpts.shape[1])
 
 
 st_field_bwd.launches = 0
+
+
+def split_planes(weights, M, device):
+    """The planes a heads' dX chain (rows 2 and 6b) writes and the grouped
+    dW GEMM reads: (hplanes, gplanes [n_rgb-1 + n_trans-1, M, 256] bf16,
+    RGB head first; gnarrow [M, 16] bf16)."""
+    nh = len(weights.rgb) + len(weights.trans) - 2
+    hplanes = torch.empty((nh, M, HIDDEN), dtype=torch.bfloat16,
+                          device=device)
+    return (hplanes, torch.empty_like(hplanes),
+            torch.empty((M, NARROW_COLS), dtype=torch.bfloat16,
+                        device=device))
+
+
+def finish_split(weights, planes, feat, ep, layout, grads, d_lrow, d_trow,
+                 light, trans, e3):
+    """Phase (b) of the split heads' backward (rows 2 and 6b): every dW
+    from the dX chain's ``planes``, the feat residual and the staged
+    enc⊕pts ``ep`` (``dw_grads`` over ``dw_segments``), then
+    ``finish_flat``."""
+    hplanes, gplanes, gnarrow = planes
+    dw_grads([hplanes, feat, ep], gplanes, gnarrow,
+             dw_segments(weights, ep.shape[1]), grads)
+    return finish_flat(weights, layout, grads, d_lrow, d_trow, light, trans,
+                       e3)
 
 
 class _STField(torch.autograd.Function):

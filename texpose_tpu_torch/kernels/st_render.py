@@ -10,10 +10,11 @@ chains the composite backward and the field backward).  The kernels are in
 ``csrc/st_render.cu``; its header says what bounds them on the card and how
 their design answers that.
 
-The weights need nothing new: the kernels read the ST field's packs
-(``STFieldWeights`` of kernels/st_field.py: the trunk pack, the heads'
-packs and the backward's transposed packs), and the JAX parameters reach
-them through the npz bridge of utils/checkpoint.py as for the field.
+The weights need nothing new: the kernels read the ST field's
+(``STFieldWeights`` of kernels/st_field.py: the forward walk's tiles, the
+heads' packs and the backward's transposed packs), and the JAX parameters
+reach them through the npz bridge of utils/checkpoint.py as for the
+field.
 
 Forward contract: the ST field's (xext [M,3+6L], enc⊕pts [M,E+3], the
 per-image latents, rows_per_img) plus the composite's intervals and sample
@@ -29,7 +30,10 @@ Backward contract (the trunk is frozen): from the feature residual,
 enc⊕pts, the latents, dens_raw, dist and the packed cotangent g [BR,16] →
 the gradients of every head Dense weight and bias and of the latent rows,
 as ``st_field_bwd`` returns them.  Nothing reaches the trunk, the points,
-the depths or the intervals.
+the depths or the intervals.  On the card the fused backward runs split as
+row 2 does: its dX-chain kernel writes the planes of ``split_planes``, then
+the grouped dW GEMM (kernels/dw_gemm.py) forms dW over the same segment
+table (``dw_segments``).
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from . import _build, field_fwd
 from .composite import (N_OUT, composite_st_bwd, composite_st_bwd_plain,
                         composite_st_plain, packed_to_dict)
 from .st_field import (HIDDEN, ROW_TILE, bwd_inputs, feat_plane,
-                       finish_flat, fwd_inputs, heads_plain, st_field_bwd,
+                       finish_split, fwd_inputs, heads_plain, split_planes,
+                       st_field_bwd, st_field_bwd_dx_plain,
                        st_field_bwd_plain, st_field_plain)
 
 
@@ -60,21 +65,43 @@ def st_render_plain(xext, encpts, light, trans, dist, depth, weights,
     return (packed, rgb, dens, tr, feat) if want_res else packed
 
 
-def st_render_bwd_plain(feat, encpts, light, trans, dens, dist, g, weights,
-                        rows_per_img, compute_dtype=torch.bfloat16):
-    """The backward kernel's twin: both heads recomputed from the feature
-    residual, the composite's closed-form VJP, then the heads' backward
-    twin.  Returns what ``st_render_bwd`` returns."""
+def _raw_grads(feat, encpts, light, trans, dens, dist, g, weights,
+               rows_per_img, compute_dtype):
+    """Both heads recomputed from the feature residual, then the
+    composite's closed-form VJP → (d rgb_raw [M,3], d trans_raw [M,5])."""
     rgb, tr = heads_plain(feat.float(), encpts, light, trans, weights,
                           rows_per_img, compute_dtype)
-    d_rgb, d_tr = composite_st_bwd_plain(rgb, tr, dens, dist, g)
+    return composite_st_bwd_plain(rgb, tr, dens, dist, g)
+
+
+def st_render_bwd_plain(feat, encpts, light, trans, dens, dist, g, weights,
+                        rows_per_img, compute_dtype=torch.bfloat16):
+    """The backward's twin: the composite's VJP of the recomputed raw
+    outputs, then the heads' backward twin.  Returns what
+    ``st_render_bwd`` returns."""
+    d_rgb, d_tr = _raw_grads(feat, encpts, light, trans, dens, dist, g,
+                             weights, rows_per_img, compute_dtype)
     return st_field_bwd_plain(feat, encpts, light, trans, weights,
                               rows_per_img, d_rgb, d_tr, compute_dtype)
 
 
+def st_render_bwd_dx_plain(feat, encpts, light, trans, dens, dist, g,
+                           weights, rows_per_img,
+                           compute_dtype=torch.bfloat16):
+    """The dX-chain kernel's twin (phase (a) of the split render
+    backward): the composite's VJP of the recomputed raw outputs, then
+    row 2's dX-chain twin → what ``st_field_bwd_dx_plain`` returns (the
+    planes, db and the latent row sums); ``dw_grads`` over ``dw_segments``
+    fills the dW blocks."""
+    d_rgb, d_tr = _raw_grads(feat, encpts, light, trans, dens, dist, g,
+                             weights, rows_per_img, compute_dtype)
+    return st_field_bwd_dx_plain(feat, encpts, light, trans, weights,
+                                 rows_per_img, d_rgb, d_tr, compute_dtype)
+
+
 _ARGTYPES = {
     "st_render_fwd": field_fwd.ARGTYPES,
-    "st_render_bwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+    "st_render_bwd_dx": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
 }
 
@@ -141,7 +168,9 @@ def st_render_bwd(feat, encpts, light, trans, dens, dist, g, weights,
     [B,Dl], d_trans [B,Dt]), f32.
 
     CPU tensors take ``st_render_bwd_plain``; CUDA tensors launch the
-    kernel (bf16 compute only, rays of N | 64 samples) or raise."""
+    dX-chain kernel (bf16 compute only, rays of N | 64 samples; its
+    launches counted here), then the grouped dW GEMM and its reduction
+    (``finish_split``), or raise."""
     if feat.device.type == "cpu":
         return st_render_bwd_plain(feat, encpts, light, trans, dens, dist, g,
                                    weights, rows_per_img, compute_dtype)
@@ -156,18 +185,21 @@ def st_render_bwd(feat, encpts, light, trans, dens, dist, g, weights,
     dist = dist.float().contiguous()
     g = g.float().contiguous()
     feat = feat.contiguous()
+    hplanes, gplanes, gnarrow = planes = split_planes(weights, M,
+                                                      feat.device)
     lib = _build.load("st_render", _ARGTYPES)
-    err = lib.st_render_bwd(
+    err = lib.st_render_bwd_dx(
         feat.data_ptr(), ep.data_ptr(), dens.data_ptr(), dist.data_ptr(),
         g.data_ptr(), wh.data_ptr(), bh.data_ptr(), wT.data_ptr(),
         lrow.data_ptr(), trow.data_ptr(), grads.data_ptr(),
-        d_lrow.data_ptr(), d_trow.data_ptr(), M, ke, N, int(rows_per_img),
+        d_lrow.data_ptr(), d_trow.data_ptr(), hplanes.data_ptr(),
+        gplanes.data_ptr(), gnarrow.data_ptr(), M, ke, N, int(rows_per_img),
         lrow.shape[0], len(weights.rgb), len(weights.trans),
         _build.stream_ptr(feat.device))
     _build.check(err, "st_render_bwd")
     st_render_bwd.launches += 1
-    return finish_flat(weights, layout, grads, d_lrow, d_trow, light, trans,
-                       encpts.shape[1])
+    return finish_split(weights, planes, feat, ep, layout, grads, d_lrow,
+                        d_trow, light, trans, encpts.shape[1])
 
 
 st_render_bwd.launches = 0

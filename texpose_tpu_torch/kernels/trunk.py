@@ -25,12 +25,10 @@ ReLU after every layer.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..nn.mlp import relu, round_to
-from . import _build
+from . import _build, field_fwd
 from .st_field import HIDDEN
 
 
@@ -56,14 +54,13 @@ def trunk_forward_plain(xext, trunk, skip, compute_dtype=torch.bfloat16,
     return (h, dens, acts) if want_acts else (h, dens)
 
 
-_ARGTYPES = {"trunk_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_void_p]}
+_ARGTYPES = {"trunk_fwd": field_fwd.ARGTYPES}
 
 
 def trunk_fwd(xext, weights, compute_dtype=torch.bfloat16):
     """(feat [M,F], dens_raw [M]) of the trunk, no gradient.  ``weights``
     is any field's ``TrunkWeights`` (kernels/st_field.py): the kernel reads
-    its trunk pack.
+    its trunk walk (``trunk_walk``).
 
     CPU tensors take ``trunk_forward_plain`` (feat in f32 holding
     compute_dtype values), without autograd as the kernel; CUDA tensors
@@ -81,21 +78,20 @@ def trunk_fwd(xext, weights, compute_dtype=torch.bfloat16):
                          f"compute_dtype={compute_dtype}")
     M, xw = xext.shape
     dev = xext.device
-    wpack, bias, kx = weights.trunk_buffers(xw)
-    if wpack.device != dev:
+    walk = weights.trunk_walk(xw)
+    if walk.tiles.wide.device != dev:
         raise ValueError(f"trunk_fwd: input and weights must lie on {dev}")
-    x = torch.zeros((M, kx), dtype=torch.bfloat16, device=dev)
+    x = torch.zeros((M, walk.kx), dtype=torch.bfloat16, device=dev)
     x[:, :xw] = xext
     feat = torch.empty((M, HIDDEN), dtype=torch.bfloat16, device=dev)
-    dens = torch.empty((M,), dtype=torch.float32, device=dev)
+    dens = torch.empty((M, 1), dtype=torch.float32, device=dev)
     lib = _build.load("trunk_fwd", _ARGTYPES)
-    err = lib.trunk_fwd(x.data_ptr(), wpack.data_ptr(), bias.data_ptr(),
-                        feat.data_ptr(), dens.data_ptr(), M, kx,
-                        len(weights.trunk), sum(1 << s for s in weights.skip),
-                        _build.stream_ptr(dev))
+    err = field_fwd.launch(lib.trunk_fwd, walk, x,
+                           {len(weights.trunk) - 1: 0}, n_res=1,
+                           stream=_build.stream_ptr(dev), dens=dens, res=feat)
     _build.check(err, "trunk_fwd")
     trunk_fwd.launches += 1
-    return feat, dens
+    return feat, dens[:, 0]
 
 
 trunk_fwd.launches = 0

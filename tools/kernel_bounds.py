@@ -15,12 +15,12 @@ the render kernels of rows 6f/6b add their composite's f32 operations to
 their bf16 ones).
 A field function's input is its points (the last columns of its enc⊕pts
 rows, or [M,3] for the trunk alone), not the posenc rows derived from them.
-Rows 2 and 7b also print the byte floor of their split design (the dX-chain
-kernel, then the grouped dW GEMM, csrc/dw_gemm.cu): the bytes phase (a)
-reads and writes (its inputs; the bf16 gradient planes, and for row 2 the
-recomputed hidden activations) plus those phase (b) reads (the planes and
-the inputs it shares), over 3.35 TB/s — the least time that design could
-take, beside the function's own bound.
+Rows 2, 6b and 7b also print the byte floor of their split design (the
+dX-chain kernel, then the grouped dW GEMM, csrc/dw_gemm.cu): the bytes
+phase (a) reads and writes (its inputs; the bf16 gradient planes, and for
+rows 2 and 6b the recomputed hidden activations) plus those phase (b)
+reads (the planes and the inputs it shares), over 3.35 TB/s — the least
+time that design could take, beside the function's own bound.
 Pure arithmetic on the shapes: no card is needed, and for the ported
 kernels it reproduces the ``bound_ms`` of chip_smoke.py's kernels line.
 """
@@ -78,6 +78,11 @@ def main():
     st_planes = (bf(nh, M, 256), bf(nh, M, 256), bf(M, 16))   # H, G, narrow
     st_floor = floor((bf(M, 256), bf(M, 32), t(M, 8)), st_planes,
                      (*st_planes, bf(M, 256), bf(M, 32)))
+    # 6b's dX chain reads dens_raw, dist and the packed cotangent where
+    # row 2's reads the raw outputs' gradients; it writes row 2's planes
+    render_floor = floor((bf(M, 256), bf(M, 32), t(M, 1), t(BR, N),
+                          t(BR, 16)), st_planes,
+                         (*st_planes, bf(M, 256), bf(M, 32)))
 
     rows = [
         ("1 st_field fwd", cs.nbytes(enc_st, *lat, t(M, 9),
@@ -104,7 +109,7 @@ def main():
                                        t(BR, 16), *st.head_params(),
                                        *head_grads, *lat),
          2 * cs.mega_bwd_macs(st, e3_st) * M, cs.PEAK_BF16,
-         cs.COMPOSITE_ST_BWD_OPS * M),
+         cs.COMPOSITE_ST_BWD_OPS * M, render_floor),
     ]
     for what, m in (("coarse", M), ("fine", MF)):
         e = t(m, e3_co)

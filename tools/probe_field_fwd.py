@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the field forwards' time goes in their mma.sync form, on one GPU:
 the ST field forward (row 1, csrc/st_field.cu) and the coarse field +
-composite forward (row 8, csrc/coarse_field.cu).
+composite forward (row 8, csrc/coarse_field.cu); and the mma.sync form of
+the trunk forward (row 10, csrc/trunk_fwd.cu) beside the others.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -10,14 +11,15 @@ Run from the root of a checkout on a machine with a CUDA card:
 The package ships the wgmma + TMA forwards (csrc/field_fwd.cuh).  The
 mma.sync forms they replaced are compiled only in the measurement build
 -DFIELD_FWD_MMA_SYNC (entries st_field_fwd_mma, st_render_fwd_mma,
-coarse_fwd_mma, coarse_field_fwd_mma), into build/probe_fwd/, beside
-st_render_recompute_mma, the render backward's (row 6b) mma.sync recompute
-of the heads' raw outputs; ``build_mma``, ``load_mma`` and the ``*_mma``
-launchers below build and launch them on the fragment packs of
-``mma_buffers`` (the package keeps only those its backwards and the trunk
-kernel read), and chip_smoke.py uses them for its in-call comparison of
-the two forms (rows 1, 6f, 7a and 8), for the 6f / 6b raw-output
-difference, for both designs' L2 weight bytes (``l2_bytes``) and, through
+coarse_fwd_mma, coarse_field_fwd_mma, trunk_fwd_mma), into
+build/probe_fwd/, beside st_render_recompute_mma, the render backward's
+(row 6b) mma.sync recompute of the heads' raw outputs; ``build_mma``,
+``load_mma`` and the ``*_mma`` launchers below build and launch them on
+the fragment packs of ``mma_buffers`` (the package keeps only the heads'
+packs its backwards read; the trunk's is built here, ``trunk_pack``), and
+chip_smoke.py uses them for its in-call comparison of the two forms (rows
+1, 6f, 7a, 8 and 10), for the 6f / 6b raw-output difference, for both
+designs' L2 weight bytes (``l2_bytes``, ``trunk_l2_bytes``) and, through
 ``attribution``, for the table below.  This script builds them once more per measurement switch of
 csrc/trunk.cuh (all nvcc runs in parallel):
   no weight loads     TRUNK_FWD_NO_WEIGHT_LOADS: each warp_gemm fetches its
@@ -44,7 +46,6 @@ the package uses them.
 """
 
 import argparse
-import contextlib
 import ctypes
 import os
 import subprocess
@@ -53,7 +54,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from probe_field_bwd_atomics import build_copy, time_ms  # noqa: E402
+from probe_field_bwd_atomics import build_copy, time_ms, using  # noqa: E402
 
 OUT_DIR = os.path.join(HERE, "build", "probe_fwd")
 MMA = "FIELD_FWD_MMA_SYNC"
@@ -69,6 +70,7 @@ ENTRIES = {
                   "st_render_recompute_mma": [_P] * 8 + [_I] * 6 + [_P]},
     "coarse_field": {"coarse_fwd_mma": [_P] * 11 + [_I] * 7 + [_P],
                      "coarse_field_fwd_mma": [_P] * 8 + [_I] * 6 + [_P]},
+    "trunk_fwd": {"trunk_fwd_mma": [_P] * 5 + [_I] * 4 + [_P]},
 }
 
 
@@ -97,28 +99,13 @@ def load_new(so, source):
     """A build of csrc/<source>.cu with its wgmma forward entries typed."""
     from texpose_tpu_torch.kernels import field_fwd
     entries = {"st_field": ("st_field_fwd",), "st_render": ("st_render_fwd",),
-               "coarse_field": ("coarse_fwd", "coarse_field_fwd")}[source]
+               "coarse_field": ("coarse_fwd", "coarse_field_fwd"),
+               "trunk_fwd": ("trunk_fwd",)}[source]
     lib = ctypes.CDLL(so)
     for sym in entries:
         getattr(lib, sym).argtypes = field_fwd.ARGTYPES
         getattr(lib, sym).restype = ctypes.c_int
     return lib
-
-
-@contextlib.contextmanager
-def using(source, lib):
-    """Inside the block the package's wrappers launch csrc/<source>.cu's
-    kernels from ``lib`` (a measurement build) instead of the package's
-    build."""
-    import importlib
-    from texpose_tpu_torch.kernels import _build
-    module = importlib.import_module(f"texpose_tpu_torch.kernels.{source}")
-    kept = _build.load(source, module._ARGTYPES)     # the package's own
-    _build._libs[source] = lib
-    try:
-        yield
-    finally:
-        _build._libs[source] = kept
 
 
 def ptxas_report(source, *defines):
@@ -149,17 +136,48 @@ def _check(err, what):
     _build.check(err, what)
 
 
+def trunk_pack(weights, xw):
+    """(wpack bf16, bias f32, kx) of the trunk in the mma.sync kernels' walk
+    order (kernels/st_field.py ``_pack_layer``): each layer, the last split
+    into its 256 feature columns and one density n8 tile; kept with the
+    field's packs while its trunk is unchanged."""
+    import torch
+    from texpose_tpu_torch.kernels.st_field import (
+        HIDDEN, _OUT_TILE, _cat_packs, _ceil16, _pack_layer, _pad_bias,
+        check_trunk)
+    kx = _ceil16(xw)
+
+    def build():
+        check_trunk(weights.trunk, weights.skip, xw, weights._bad)
+        H, n = HIDDEN, len(weights.trunk)
+        ws, bs = [], []
+        for li, layer in enumerate(weights.trunk):
+            segs = ([(0, xw, kx)] if li == 0 else
+                    [(0, H, H), (H, H + xw, kx)] if li in weights.skip else
+                    [(0, H, H)])
+            if li < n - 1:
+                ws.append(_pack_layer(layer.w, segs, H, H))
+                bs.append(layer.b)
+            else:
+                ws.append(_pack_layer(layer.w[:, 1:], segs, H, H))
+                bs.append(layer.b[1:])
+                ws.append(_pack_layer(layer.w[:, :1], segs, 1, _OUT_TILE))
+                bs.append(_pad_bias(layer.b[:1], _OUT_TILE))
+        return _cat_packs(ws), _cat_packs(bs, torch.float32)
+
+    return weights._cached("trunk_mma", (xw,), weights.trunk, build) + (kx,)
+
+
 def mma_buffers(weights, xw, e3):
     """The mma.sync forwards' fragment packs (kernels/st_field.py
     ``_pack_layer``): (trunk wpack bf16, trunk bias f32, heads wpack, heads
-    bias, kx, ke).  The trunk's is the trunk kernel's (row 10); an ST
-    field's heads pack is its backward's; a coarse field's RGB head pack is
-    built here, kept with the field's packs while its tensors are
-    unchanged."""
+    bias, kx, ke).  The trunk's is ``trunk_pack``; an ST field's heads pack
+    is its backward's; a coarse field's RGB head pack is built here, kept
+    with the field's packs while its tensors are unchanged."""
     import torch
     from texpose_tpu_torch.kernels.st_field import (HIDDEN, _cat_packs,
                                                     _ceil16, pack_head)
-    wpack, bias, kx = weights.trunk_buffers(xw)
+    wpack, bias, kx = trunk_pack(weights, xw)
     if hasattr(weights, "trans"):
         wh, bh, _, ke = weights.kernel_buffers_bwd(e3)
         return wpack, bias, wh, bh, kx, ke
@@ -183,6 +201,36 @@ def l2_bytes(weights, xw, e3, M):
     wpack, _, wh, _, _, _ = mma_buffers(weights, xw, e3)
     return (l2_weight_bytes(weights.fwd_walk(xw, e3), M),
             -(-M // 64) * 2 * (wpack.numel() + wh.numel()))
+
+
+def trunk_l2_bytes(weights, xw, M):
+    """The trunk forward's L2 weight bytes at M rows: (the wgmma design's,
+    ``l2_weight_bytes`` of the trunk walk; the mma.sync design's, every
+    64-row tile reading the whole trunk pack)."""
+    from texpose_tpu_torch.kernels.field_fwd import l2_weight_bytes
+    wpack, _, _ = trunk_pack(weights, xw)
+    return (l2_weight_bytes(weights.trunk_walk(xw), M),
+            -(-M // 64) * 2 * wpack.numel())
+
+
+def trunk_mma(lib, xext, weights):
+    """``trunk_fwd``'s result (feat [M,256] bf16, dens_raw [M]) from the
+    mma.sync form in ``lib``."""
+    import torch
+    from texpose_tpu_torch.kernels import _build
+    M, xw = xext.shape
+    dev = xext.device
+    wpack, bias, kx = trunk_pack(weights, xw)
+    x = torch.zeros((M, kx), dtype=torch.bfloat16, device=dev)
+    x[:, :xw] = xext
+    feat = torch.empty((M, 256), dtype=torch.bfloat16, device=dev)
+    dens = torch.empty((M,), dtype=torch.float32, device=dev)
+    _check(lib.trunk_fwd_mma(
+        x.data_ptr(), wpack.data_ptr(), bias.data_ptr(), feat.data_ptr(),
+        dens.data_ptr(), M, kx, len(weights.trunk),
+        sum(1 << s for s in weights.skip), _build.stream_ptr(dev)),
+        "trunk_fwd_mma")
+    return feat, dens
 
 
 def st_field_mma(lib, xext, encpts, light, trans, weights, rows_per_img,
@@ -483,8 +531,8 @@ def main():
         attribution_new(dev, libs, args.reps)
         return
     jobs = [(src,) for src in ("st_field", "coarse_field")] + switch_copies()
-    reports = [(src,) for src in ("st_field", "coarse_field", "st_render")] \
-        + [(src, MMA) for src in ("st_field", "coarse_field", "st_render")]
+    srcs = ("st_field", "coarse_field", "st_render", "trunk_fwd")
+    reports = [(src,) for src in srcs] + [(src, MMA) for src in srcs]
     with ThreadPoolExecutor(len(jobs) + len(reports)) as pool:
         copies = dict(zip(jobs, pool.map(lambda job: build_mma(*job), jobs)))
         for lines in pool.map(lambda job: ptxas_report(*job), reports):

@@ -6,6 +6,7 @@ goes, on one GPU.
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_eval_torch.py [--frames 12] [--trace out.json]
+    python3 tools/profile_eval_torch.py --noisy [--frames 12]
     python3 tools/profile_eval_torch.py --train [--steps 30] [--trace ...]
     python3 tools/profile_eval_torch.py [--train] --st-mega [--steps 30]
     python3 tools/profile_eval_torch.py --pretrain [--steps 30] [--trace ...]
@@ -27,6 +28,10 @@ prints one line per measurement, each starting with its key:
                 synchronized): render + metrics, render only, metrics only;
   load:         the dataset's per-frame load on the host, without and with
                 the compact transform (mean over the frames).
+
+--noisy evaluates with nerf.density_noise_reg = 1, as chip_smoke.py's
+trunk phase does: the ST kernels' gate is off, so each frame's trunk runs
+in the trunk kernel (row 10) and its heads plain.
 
 --train builds chip_smoke.py's train fixture (``train_argv``: 16 train
 images at 128x128, the seeded JAX-format pretrain checkpoint, the full
@@ -337,6 +342,9 @@ def main():
                     help="with --pretrain: the hierarchical pretrain")
     ap.add_argument("--st-mega", action="store_true",
                     help="render through the render kernels (st_mega)")
+    ap.add_argument("--noisy", action="store_true",
+                    help="evaluate with nerf.density_noise_reg=1 (the "
+                         "trunk kernel under plain heads)")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace", default=None,
                     help="write the profiled run as a Chrome trace here")
@@ -357,6 +365,8 @@ def main():
         argv = fixture_argv(HERE, tmp, dev, args.frames)
         if args.st_mega:
             argv.append("--kernels.st_mega=true")
+        if args.noisy:
+            argv.append("--nerf.density_noise_reg=1")
         engine = evaluate.main(argv)
         torch.cuda.synchronize()
         profile(engine, args.frames, args.trace)

@@ -13,10 +13,12 @@ Phases; any failure exits non-zero and no result line is printed:
      -DFIELD_BWD_ONE_KERNEL, tools/probe_field_bwd_atomics.py), the
      mma.sync field and trunk forwards (st_field.cu, coarse_field.cu,
      st_render.cu and trunk_fwd.cu with -DFIELD_FWD_MMA_SYNC,
-     tools/probe_field_fwd.py) and those forwards' measurement switches
+     tools/probe_field_fwd.py), those forwards' measurement switches
      (csrc/trunk.cuh TRUNK_FWD_*), which the "step 1" lines time against
      the mma.sync build in turns (where the replaced forwards' time went:
-     weight loads, residual stores, epilogue);
+     weight loads, residual stores, epilogue), and the warp-per-ray
+     composites of rows 3 and 9b (composite.cu with
+     -DCOMPOSITE_WARP_PER_RAY, tools/probe_composite.py);
   2. kernels: each of the fourteen kernels against its plain-PyTorch twin on
      the card at the main paths' shapes — ST field forward on one
      2048-ray × 64-sample chunk (131,072 rows, full width, bf16), its
@@ -31,7 +33,17 @@ Phases; any failure exits non-zero and no result line is printed:
      samples per ray, its backward at 192 and the field backward at
      393,216 rows — checked against the bounds
      below, timed with CUDA events (median of repeats) and set beside the
-     least time the card could take (``bound``).  The three field
+     least time the card could take (``bound``).  The composites and the
+     dW reduction, kernels of a few µs, are timed three ways: the kernel
+     alone (200 launches captured in one CUDA graph, replayed between two
+     events, cycling through copies of the inputs that together exceed
+     twice the L2 cache, so the inputs come from device memory as the
+     bound assumes; torch.profiler's kernel duration and the graph's own
+     floor per launch beside it), the wrapper
+     per call (host clock over 200 calls) and one call between events (the
+     figure earlier records gave, mostly the wrapper's host work); the
+     segmented rows 3 and 9b also in turns against their warp-per-ray
+     forms (old, new, new, old), through the old host path.  The three field
      backwards (rows 7b, 2 and the render backward 6b) run split: a
      dX-chain kernel, then the grouped dW GEMM and its reduction
      (csrc/dw_gemm.cu).  At each of their four shapes the GEMM and the
@@ -218,6 +230,139 @@ def time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def cold_copies(args):
+    """``args`` and copies of it (tensors cloned, other values as they are)
+    whose tensors together hold more than twice the card's L2 cache, so a
+    run that cycles through them reads its inputs from device memory, as
+    a bound of bytes over the memory rate assumes."""
+    import torch
+    tensors = [a for a in args if torch.is_tensor(a)]
+    if not tensors:
+        return [tuple(args)]
+    size = max(1, nbytes(*tensors))
+    l2 = getattr(torch.cuda.get_device_properties(tensors[0].device),
+                 "L2_cache_size", 50 << 20)
+    n = max(2, -(-2 * l2 // size) + 1)
+
+    def copy(a):                                # same sizes and strides
+        if not torch.is_tensor(a):
+            return a
+        return torch.empty_strided(a.size(), a.stride(), dtype=a.dtype,
+                                   device=a.device).copy_(a)
+    return [tuple(args)] + [tuple(copy(a) for a in args)
+                            for _ in range(n - 1)]
+
+
+def graph_ms(fn, k=200, replays=5, args=None):
+    """A small kernel alone: k calls of ``fn`` captured in one CUDA graph
+    and replayed between two events, ms per call (median over replays).
+    The wrappers launch on the current stream, the capture stream, so the
+    graph holds the k kernels and none of the wrappers' host work.  With
+    ``args`` the calls are ``fn(*copy)`` over ``cold_copies(args)`` in turn
+    and every call's outputs stay alive until the graph is replayed, so
+    inputs and outputs do not stay in L2 from one launch to the next;
+    without, ``fn()`` k times (warm: the graph's own floor)."""
+    import torch
+    sets = cold_copies(args) if args is not None else None
+    call = (lambda i: fn(*sets[i % len(sets)])) if sets else \
+        (lambda i: fn())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            call(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call(i) for i in range(k)]
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / k)
+    del graph, outs, sets
+    return statistics.median(times)
+
+
+_GRAPH_FLOOR = []
+
+
+def graph_floor_ms():
+    """The graph replay's own floor per launch: a 1-element fill (warm),
+    measured once."""
+    import torch
+    if not _GRAPH_FLOOR:
+        one = torch.zeros(1, device="cuda")
+        _GRAPH_FLOOR.append(graph_ms(one.zero_))
+    return _GRAPH_FLOOR[0]
+
+
+def wrapper_ms(fn, k=200, runs=5):
+    """The wrapper per call: host clock over k back-to-back calls ending in
+    a synchronize, ms per call (median over runs).  For a kernel of a few
+    µs the device keeps up, so this is the wrapper's host work."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / k)
+    return statistics.median(times)
+
+
+def profiler_ms(fn, name, calls=50):
+    """torch.profiler's mean device duration (ms) of the kernels whose name
+    holds ``name`` over ``calls`` eager calls; None if it saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += getattr(ev, "device_time_total", None) or \
+                getattr(ev, "cuda_time_total", 0)
+            count += ev.count
+    return total / count / 1e3 if count else None
+
+
+def small_kernel_ms(fn, args, name, k=200, producer=None):
+    """The three times of a kernel of a few µs called as ``fn(*args)``:
+    the kernel alone by graph replay over cold copies of ``args``, the
+    wrapper per call, one call between events; beside them the profiler's
+    kernel duration (warm inputs) as a cross-check of the first, and the
+    graph's own floor per launch.  With ``producer`` (a call that returns
+    fresh arguments, running the kernels that write them on the main path)
+    also ``in_path_ms``: the profiler's duration of the kernel launched
+    right after its producer, as the main path launches it."""
+    def once():
+        return fn(*args)
+    t = dict(kernel_ms=graph_ms(fn, k, args=args),
+             wrapper_ms=wrapper_ms(once, k),
+             event_ms=time_ms(once, reps=20),
+             profiler_ms=profiler_ms(once, name),
+             graph_floor_ms=graph_floor_ms())
+    if producer is not None:
+        t["in_path_ms"] = profiler_ms(lambda: fn(*producer()), name,
+                                      calls=20)
+    return t
+
+
 def nbytes(*tensors):
     """Bytes of the tensors.  A field function's bound counts its points,
     not the posenc rows xext that the port stages from them (the TPU kernels
@@ -243,6 +388,53 @@ def entry(err, ms, plain_ms, bnd, **extra):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             **extra}
+
+
+def small_entry(err, t, plain_ms, bnd, **extra):
+    """``entry`` of a kernel of a few µs from ``small_kernel_ms``'s times:
+    ``ms`` is the kernel alone (graph replay), beside it the wrapper per
+    call and the single call between events that earlier records gave."""
+    return entry(err, t["kernel_ms"], plain_ms, bnd, **t, **extra)
+
+
+def _ms(x):
+    return "n/a" if x is None else f"{x:.5f}"
+
+
+def small_text(t, plain_ms, bnd):
+    path = (f"; after its producer {_ms(t['in_path_ms'])} ms (profiler)"
+            if "in_path_ms" in t else "")
+    return (f"kernel alone {t['kernel_ms']:.5f} ms (graph replay, inputs "
+            f"cycled past L2; graph floor {t['graph_floor_ms']:.5f} ms; "
+            f"profiler, warm {_ms(t['profiler_ms'])} ms{path}), wrapper per "
+            f"call {t['wrapper_ms']:.5f} ms, one call between events "
+            f"{t['event_ms']:.5f} ms vs plain {plain_ms:.4f} ms (bound "
+            f"{bnd[0]:.5f} ms, {bnd[1]})")
+
+
+def warp_ab(warp, row, new, args, want):
+    """A segmented composite (row 3 or 9b, ``new(*args)``) against the
+    warp-per-ray form it replaced (``warp[row]``: the
+    -DCOMPOSITE_WARP_PER_RAY build through the old host path,
+    tools/probe_composite.py) in turns old / new / new / old → (its
+    entry's A/B keys, the printed text, the old form's largest error
+    relative to the twin's largest magnitude)."""
+    import torch
+    old = warp[row]
+    got = old(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    rel = max(rel_max(a, b) for a, b in zip(got, want))
+    t = warp["turns"](old, new, args)
+    keys = dict(warp_per_ray_kernel_ms=[t["kernel"][0], t["kernel"][3]],
+                segmented_kernel_ms=[t["kernel"][1], t["kernel"][2]],
+                warp_per_ray_wrapper_ms=[t["wrapper"][0], t["wrapper"][3]],
+                segmented_wrapper_ms=[t["wrapper"][1], t["wrapper"][2]],
+                warp_per_ray_max_abs_err=err)
+    return keys, (f"A/B warp per ray / segmented / segmented / warp per "
+                  f"ray: {warp['text'](t)}; warp-per-ray form max|err|="
+                  f"{err:.3g}"), rel
 
 
 def split_bwd(module, split, one_kernel, twin_grads, a_reads, writes_h,
@@ -305,7 +497,8 @@ def split_bwd(module, split, one_kernel, twin_grads, a_reads, writes_h,
                                     grads.device).multi_processor_count)
     gemm_plain = time_ms(lambda: dw.dw_gemm_plain(
         srcs, g_wide, g_narrow, prob.tolist(), per, splits), reps=3)
-    red_ms = time_ms(lambda: dw.dw_reduce(partial, prob, got), reps=20)
+    red_t = small_kernel_ms(dw.dw_reduce, (partial, prob, got), "dw_reduce")
+    red_ms = red_t["kernel_ms"]
     red_plain = time_ms(lambda: dw.dw_reduce_plain(partial, prob, got),
                         reps=3)
     # the yardsticks: one torch.matmul per segment on the same planes, and
@@ -314,7 +507,7 @@ def split_bwd(module, split, one_kernel, twin_grads, a_reads, writes_h,
               (g_wide[s.b_plane] if s.b == dw.WIDE else g_narrow)[
                   :, s.b_col:s.b_col + s.n]) for s in segs]
     lib_ms = time_ms(lambda: [torch.matmul(h.t(), g) for h, g in views])
-    red_lib = time_ms(lambda: partial.sum(1), reps=20)
+    red_lib = graph_ms(lambda p: p.sum(1), args=(partial,))
 
     M = g_wide.shape[1]
     used = {(s.a, s.a_plane) for s in segs}
@@ -338,9 +531,9 @@ def split_bwd(module, split, one_kernel, twin_grads, a_reads, writes_h,
           f"{gemm_bound[0]:.4f} ms, {gemm_bound[1]}; {tflops:.1f} TFLOP/s), "
           f"dW vs the direct products worst block "
           f"‖err‖/‖ref‖={dw_norm:.3g} max|err|/max|ref|={dw_peak:.3g} (bound "
-          f"{DW_REL}); dw_reduce {red_ms:.4f} ms vs plain {red_plain:.4f} ms, "
-          f"sum over splits {red_lib:.4f} ms (bound {red_bound[0]:.4f} ms, "
-          f"{red_bound[1]}) max|err|={red_abs:.3g}; byte floor of the split "
+          f"{DW_REL}); dw_reduce {small_text(red_t, red_plain, red_bound)}"
+          f", sum over splits {red_lib:.5f} ms (graph replay, cold) "
+          f"max|err|={red_abs:.3g}; byte floor of the split "
           f"design {floor_ms:.4f} ms; one-kernel form vs twin worst "
           f"‖err‖/‖ref‖={old_norm:.3g}; A/B old {ab[0]:.4f} / new {ab[1]:.4f}"
           f" / new {ab[2]:.4f} / old {ab[3]:.4f} ms", flush=True)
@@ -353,7 +546,7 @@ def split_bwd(module, split, one_kernel, twin_grads, a_reads, writes_h,
                  split_ms=[ab[1], ab[2]], one_kernel_rel_norm=old_norm)
     gemm = dict(entry(dw_abs, gemm_ms, gemm_plain, gemm_bound,
                       rel_norm=dw_norm), library_ms=lib_ms)
-    red = dict(entry(red_abs, red_ms, red_plain, red_bound),
+    red = dict(small_entry(red_abs, red_t, red_plain, red_bound),
                library_ms=red_lib)
     return extra, gemm, red
 
@@ -440,11 +633,12 @@ def eval_chunk(cfg, dev, seed):
             trans)
 
 
-def kernel_phase(cfg, dev, one_kernel, mma):
+def kernel_phase(cfg, dev, one_kernel, mma, warp):
     """Each kernel against its twin on one eval chunk; returns the
     measured numbers per kernel.  ``one_kernel["st_field"]`` runs the ST
     heads' one-kernel backward, ``mma["st_field"]`` the ST field's mma.sync
-    forward (the measurement builds)."""
+    forward, ``warp["3"]`` the warp-per-ray dual composite forward (the
+    measurement builds)."""
     import torch
     from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
                                                      composite_st_bwd_plain,
@@ -506,16 +700,23 @@ def kernel_phase(cfg, dev, one_kernel, mma):
         cref = composite_st_plain(*cargs)
         torch.cuda.synchronize()
         cmax = float((cgot - cref).abs().max())
-        cms = time_ms(lambda: composite_st_fwd(*cargs), reps=20)
+        ct = small_kernel_ms(
+            composite_st_fwd, cargs, "composite_st_fwd",
+            producer=lambda: (lambda r, dn, t: (r, t, dn, *cargs[3:]))(
+                *st_field_fwd(*args)))
         cplain = time_ms(lambda: composite_st_plain(*cargs), reps=20)
-        print(f"kernel composite_st_fwd: {R} rays x {N} samples "
+        cb = bound(nbytes(*cargs[:5], cgot), COMPOSITE_ST_FWD_OPS * R * N,
+                   PEAK_F32)
+        ab_keys, ab_line, _ = warp_ab(warp, "3", composite_st_fwd, cargs,
+                                      (cref,))
+        print(f"kernel composite_st_fwd (row 3): {R} rays x {N} samples "
               f"max|err|={cmax:.3g} (bound {COMPOSITE_MAX_ERR}); "
-              f"{cms:.4f} ms vs plain {cplain:.4f} ms", flush=True)
-        if not cmax <= COMPOSITE_MAX_ERR:
+              f"{small_text(ct, cplain, cb)}; {ab_line}", flush=True)
+        if not (cmax <= COMPOSITE_MAX_ERR
+                and ab_keys["warp_per_ray_max_abs_err"] <= COMPOSITE_MAX_ERR):
             fail("composite kernel disagrees with its plain twin")
-        out["composite_st_fwd"] = entry(cmax, cms, cplain, bound(
-            nbytes(*cargs[:5], cgot), COMPOSITE_ST_FWD_OPS * R * N,
-            PEAK_F32))
+        out["composite_st_fwd"] = small_entry(cmax, ct, cplain, cb,
+                                              **ab_keys)
 
         # composite backward on the same rays, a cotangent like the train
         # step's (per-ray means over 2048 rays)
@@ -526,16 +727,17 @@ def kernel_phase(cfg, dev, one_kernel, mma):
         torch.cuda.synchronize()
         brel = max(rel_max(a, b) for a, b in zip(bgot, bref))
         bmax = max(float((a - b).abs().max()) for a, b in zip(bgot, bref))
-        bms = time_ms(lambda: composite_st_bwd(*bargs), reps=20)
+        bt = small_kernel_ms(composite_st_bwd, bargs, "composite_st_bwd")
         bplain = time_ms(lambda: composite_st_bwd_plain(*bargs), reps=20)
-        print(f"kernel composite_st_bwd: {R} rays x {N} samples "
+        bb = bound(nbytes(*bargs, *bgot), COMPOSITE_ST_BWD_OPS * R * N,
+                   PEAK_F32)
+        print(f"kernel composite_st_bwd (row 4): {R} rays x {N} samples "
               f"max|err|={bmax:.3g} ({brel:.3g} of max, bound "
-              f"{COMPOSITE_BWD_REL}); {bms:.4f} ms vs plain {bplain:.4f} ms",
+              f"{COMPOSITE_BWD_REL}); {small_text(bt, bplain, bb)}",
               flush=True)
         if not brel <= COMPOSITE_BWD_REL:
             fail("composite backward kernel disagrees with its plain twin")
-        out["composite_st_bwd"] = entry(bmax, bms, bplain, bound(
-            nbytes(*bargs, *bgot), COMPOSITE_ST_BWD_OPS * R * N, PEAK_F32))
+        out["composite_st_bwd"] = small_entry(bmax, bt, bplain, bb)
 
         # field backward at the train step's shape: 8 images x 16,384 rows
         B = int(cfg.batch_size)
@@ -896,13 +1098,14 @@ def coarse_macs(weights, e3):
     return fwd, fwd + dx
 
 
-def coarse_kernel_phase(here, dev, one_kernel, mma):
+def coarse_kernel_phase(here, dev, one_kernel, mma, warp):
     """The pretrain's three kernels against their twins at the pretrain
     step's shape, 2048 rays × 64 stratified samples (16 images × 128 rays)
     at the full width of configs/nerf_lm_pretrain.yaml.
     ``one_kernel["coarse_field"]`` runs the trunk-training one-kernel
     backward, ``mma["coarse_render"]`` / ``mma["coarse_field"]`` the two
-    forwards' mma.sync forms (the measurement builds)."""
+    forwards' mma.sync forms, ``warp["9b"]`` the warp-per-ray composite
+    backward (the measurement builds)."""
     import torch
     from texpose_tpu_torch.kernels import coarse_field as cf_module
     from texpose_tpu_torch.kernels.coarse_field import (
@@ -1023,17 +1226,23 @@ def coarse_kernel_phase(here, dev, one_kernel, mma):
         torch.cuda.synchronize()
         crel = max(rel_max(a, b) for a, b in zip(cgot, cref))
         cmax = max(float((a - b).abs().max()) for a, b in zip(cgot, cref))
-        cms = time_ms(lambda: composite_coarse_bwd(*cargs), reps=20)
+        ct = small_kernel_ms(
+            composite_coarse_bwd, cargs, "composite_coarse_bwd",
+            producer=lambda: (lambda _, r, dn, res: (r, dn, *cargs[2:]))(
+                *coarse_render_fwd(*args, want_res=True)))
         cplain = time_ms(lambda: composite_coarse_bwd_plain(*cargs), reps=20)
         cb = bound(nbytes(*cargs, *cgot), COMPOSITE_COARSE_BWD_OPS * M,
                    PEAK_F32)
-        print(f"kernel composite_coarse_bwd: {BR} rays x {N} samples "
-              f"max|err|={cmax:.3g} ({crel:.3g} of max, bound "
-              f"{COMPOSITE_BWD_REL}); {cms:.4f} ms vs plain {cplain:.4f} ms "
-              f"(bound {cb[0]:.4f} ms, {cb[1]})", flush=True)
-        if not crel <= COMPOSITE_BWD_REL:
+        ab_keys, ab_line, old_rel = warp_ab(
+            warp, "9b", composite_coarse_bwd, cargs, cref)
+        print(f"kernel composite_coarse_bwd (row 9b): {BR} rays x {N} "
+              f"samples max|err|={cmax:.3g} ({crel:.3g} of max, bound "
+              f"{COMPOSITE_BWD_REL}); {small_text(ct, cplain, cb)}; "
+              f"{ab_line}", flush=True)
+        if not (crel <= COMPOSITE_BWD_REL and old_rel <= COMPOSITE_BWD_REL):
             fail("composite_coarse_bwd kernel disagrees with its plain twin")
-        out["composite_coarse_bwd"] = entry(cmax, cms, cplain, cb)
+        out["composite_coarse_bwd"] = small_entry(cmax, ct, cplain, cb,
+                                                  **ab_keys)
 
         # the field backward from the kernel's residuals and the composite
         # backward's gradients, as the train step chains them
@@ -1100,19 +1309,20 @@ def coarse_kernel_phase(here, dev, one_kernel, mma):
         torch.cuda.synchronize()
         crel = max(rel_max(a, b) for a, b in zip(cgot, cref))
         cmax = max(float((a - b).abs().max()) for a, b in zip(cgot, cref))
-        cms = time_ms(lambda: composite_coarse_bwd(*cargs), reps=20)
+        ct = small_kernel_ms(composite_coarse_bwd, cargs,
+                             "composite_coarse_bwd")
         cplain = time_ms(lambda: composite_coarse_bwd_plain(*cargs), reps=20)
         cb = bound(nbytes(*cargs, *cgot), COMPOSITE_COARSE_BWD_OPS * BR * nf,
                    PEAK_F32)
-        print(f"kernel composite_coarse_bwd: {BR} rays x {nf} samples "
-              f"max|err|={cmax:.3g} ({crel:.3g} of max, bound "
-              f"{COMPOSITE_BWD_REL}); {cms:.4f} ms vs plain {cplain:.4f} ms "
-              f"(bound {cb[0]:.4f} ms, {cb[1]})", flush=True)
+        print(f"kernel composite_coarse_bwd (row 9b): {BR} rays x {nf} "
+              f"samples max|err|={cmax:.3g} ({crel:.3g} of max, bound "
+              f"{COMPOSITE_BWD_REL}); {small_text(ct, cplain, cb)}",
+              flush=True)
         if not crel <= COMPOSITE_BWD_REL:
             fail("composite_coarse_bwd kernel disagrees with its plain twin "
                  f"at {nf} samples")
-        out["composite_coarse_bwd"]["variants"] = {str(nf): entry(
-            cmax, cms, cplain, cb)}
+        out["composite_coarse_bwd"]["variants"] = {str(nf): small_entry(
+            cmax, ct, cplain, cb)}
 
         # the field backward on the fine field's rows, from the kernel's
         # residuals and that composite backward's gradients
@@ -1233,20 +1443,19 @@ def composite_fwd_check(rgb, dens, depth, dist, n):
     ref = composite_coarse_plain(rgb, dens, depth, dist)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    ms = time_ms(lambda: composite_coarse_fwd(rgb, dens, depth, dist),
-                 reps=20)
+    t = small_kernel_ms(composite_coarse_fwd, (rgb, dens, depth, dist),
+                        "composite_coarse_fwd")
     plain_ms = time_ms(lambda: composite_coarse_plain(rgb, dens, depth,
                                                       dist), reps=20)
     b = bound(nbytes(rgb, dens, depth, dist, got),
               COMPOSITE_COARSE_FWD_OPS * BR * n, PEAK_F32)
-    print(f"kernel composite_coarse_fwd: {BR} rays x {n} samples "
-          f"max|err|={err:.3g} (bound {COMPOSITE_MAX_ERR}); {ms:.4f} ms vs "
-          f"plain {plain_ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]})",
-          flush=True)
+    print(f"kernel composite_coarse_fwd (row 9a): {BR} rays x {n} samples "
+          f"max|err|={err:.3g} (bound {COMPOSITE_MAX_ERR}); "
+          f"{small_text(t, plain_ms, b)}", flush=True)
     if not err <= COMPOSITE_MAX_ERR:
         fail(f"composite_coarse_fwd kernel disagrees with its plain twin at "
              f"{n} samples")
-    return entry(err, ms, plain_ms, b)
+    return small_entry(err, t, plain_ms, b)
 
 
 def fixture_argv(here, tmp, dev, n_test, sub="", init=None):
@@ -2085,6 +2294,7 @@ def main():
     from texpose_tpu_torch.kernels import _build
     probe = load_probe(here)
     fwd = load_probe(here, "probe_field_fwd")
+    cprobe = load_probe(here, "probe_composite")
     t0 = time.perf_counter()
     sources = ("st_field", "composite", "coarse_field", "trunk_fwd",
                "st_render", "dw_gemm")
@@ -2092,7 +2302,7 @@ def main():
     fwd_copies = [(s, None) for s in ("st_field", "coarse_field",
                                       "st_render", "trunk_fwd")] \
         + fwd.switch_copies()
-    n_jobs = len(sources) + len(copies) + len(fwd_copies)
+    n_jobs = len(sources) + len(copies) + len(fwd_copies) + 1
     with ThreadPoolExecutor(n_jobs) as pool:
         # one nvcc per source and per measurement build
         built = [pool.submit(_build.build, name) for name in sources]
@@ -2100,14 +2310,16 @@ def main():
                 for name in copies}
         fwd_libs = {c: pool.submit(fwd.build_mma, *[d for d in c if d])
                     for c in fwd_copies}
+        warp_lib = pool.submit(cprobe.build_old)
         for job in built:
             job.result()
         libs = {name: probe.load_one_kernel(job.result(), name)
                 for name, job in libs.items()}
         fwd_libs = {c: fwd.load_mma(job.result(), c[0])
                     for c, job in fwd_libs.items()}
+        warp_lib = cprobe.load_old(warp_lib.result())
     print(f"build: {len(sources)} kernel sources and "
-          f"{len(copies) + len(fwd_copies)} measurement "
+          f"{len(copies) + len(fwd_copies) + 1} measurement "
           "builds in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     one_kernel = {
@@ -2129,12 +2341,17 @@ def main():
                                    fwd_libs["coarse_field", None]),
            "trunk": partial(fwd.trunk_mma, fwd_libs["trunk_fwd", None]),
            "l2_bytes": fwd.l2_bytes, "trunk_l2": fwd.trunk_l2_bytes}
+    # the warp-per-ray composites the segmented rows 3 and 9b replaced,
+    # through their old host path (measurement build)
+    warp = {"3": partial(cprobe.legacy_st_fwd, warp_lib),
+            "9b": partial(cprobe.legacy_coarse_bwd, warp_lib),
+            "turns": cprobe.turns, "text": cprobe.turns_text}
     # step 1: where the mma.sync forwards' time went (measurement switches)
     step1 = fwd.attribution(dev, fwd_libs)
 
     measured, dw_runs = {}, {}
-    for part in (kernel_phase(load_cfg(here), dev, one_kernel, mma),
-                 coarse_kernel_phase(here, dev, one_kernel, mma),
+    for part in (kernel_phase(load_cfg(here), dev, one_kernel, mma, warp),
+                 coarse_kernel_phase(here, dev, one_kernel, mma, warp),
                  st_mega_kernel_phase(load_cfg(here), dev, one_kernel,
                                       mma)):
         dw_runs.update(part.pop("_dw", {}))

@@ -176,7 +176,15 @@ def test_composite_bwd_kernel_matches_plain(cuda, BR, N):
     assert max(errs) <= COMPOSITE_BWD_REL
 
 
-@pytest.mark.parametrize("BR,N", [(2048, 64), (37, 16), (5, 100)])
+# the segmented composites (rows 3 and 9b): N = 64 (the main paths; 2
+# samples a lane), 100 (4 a lane), 192 and 256 (8 a lane), 99 and 7 (N % S
+# != 0: the scalar-load variant), 16 (4 rays a warp), one ray and odd ray
+# counts (a block's last segments past the last ray)
+SEG_SHAPES = [(2048, 64), (37, 16), (5, 100), (1, 64), (37, 99),
+              (2047, 192), (9, 256), (1, 256), (3, 7)]
+
+
+@pytest.mark.parametrize("BR,N", SEG_SHAPES)
 def test_composite_kernel_matches_plain(cuda, BR, N):
     g = torch.Generator().manual_seed(N)
     M = BR * N
@@ -187,10 +195,84 @@ def test_composite_kernel_matches_plain(cuda, BR, N):
                        dim=1).values.to(cuda)
     ray = torch.randn(1, BR, 3, generator=g).to(cuda)
     dist = _dists(depth.reshape(1, BR, N, 1), ray).reshape(BR, N)
+    n0 = composite_st_fwd.launches
     out = composite_st_fwd(rgb_raw, trans_raw, dens_raw, depth, dist, 0.05)
-    ref = composite_st_plain(rgb_raw, trans_raw, dens_raw, depth, dist, 0.05)
     torch.cuda.synchronize()
+    assert composite_st_fwd.launches == n0 + 1
+    ref = composite_st_plain(rgb_raw, trans_raw, dens_raw, depth, dist, 0.05)
+    assert out.shape == (BR, 16)
     assert float((out - ref).abs().max()) <= 1e-4
+
+
+def _offset(x):
+    """x's values in a view one float past a fresh buffer's start: the
+    same contiguous tensor, its base no longer 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _seg_inputs(cuda, BR, N, seed):
+    g = torch.Generator().manual_seed(seed)
+    M = BR * N
+    rgb_raw = torch.randn(M, 3, generator=g).to(cuda)
+    trans_raw = torch.randn(M, 5, generator=g).to(cuda)
+    dens_raw = (torch.randn(M, 1, generator=g) * 3).to(cuda)
+    depth = torch.sort(torch.rand(BR, N, generator=g) * 4 + 2,
+                       dim=1).values.to(cuda)
+    ray = torch.randn(1, BR, 3, generator=g).to(cuda)
+    dist = _dists(depth.reshape(1, BR, N, 1), ray).reshape(BR, N)
+    return (rgb_raw, trans_raw, dens_raw, depth, dist,
+            torch.randn(BR, 8, generator=g).to(cuda))
+
+
+@pytest.mark.parametrize("which", ["rgb", "dist", "strided"])
+def test_composites_take_the_scalar_variant_on_an_offset_view(cuda, which):
+    """An input one float off its buffer's 16-byte alignment: both
+    segmented kernels take the scalar-load variant (segment_plan), launch
+    (counted) and agree with their twins at the main paths' shape.  A
+    non-contiguous input is copied by the wrapper and read from the copy."""
+    from texpose_tpu_torch.kernels.composite import (
+        composite_coarse_bwd, composite_coarse_bwd_plain, segment_plan)
+    BR, N = 2048, 64
+    rgb, tr, dens, depth, dist, cot = _seg_inputs(cuda, BR, N, 11)
+    if which == "strided":
+        dist = dist.t().contiguous().t()
+        assert not dist.is_contiguous()
+    else:
+        if which == "rgb":
+            rgb = _offset(rgb)
+        else:
+            dist = _offset(dist)
+        assert segment_plan(BR, N, [rgb.data_ptr(), dist.data_ptr()]) == \
+            (2, 32, False, 256)
+    n0 = (composite_st_fwd.launches, composite_coarse_bwd.launches)
+    out = composite_st_fwd(rgb, tr, dens, depth, dist, 0.05)
+    got = composite_coarse_bwd(rgb, dens, dist, depth, cot)
+    torch.cuda.synchronize()
+    assert (composite_st_fwd.launches,
+            composite_coarse_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    ref = composite_st_plain(rgb, tr, dens, depth, dist, 0.05)
+    assert float((out - ref).abs().max()) <= 1e-4
+    want = composite_coarse_bwd_plain(rgb, dens, dist, depth, cot)
+    assert max(_rel_err(a, b) for a, b in zip(got, want)) <= \
+        COMPOSITE_BWD_REL
+
+
+@pytest.mark.parametrize("BR,N", [(2048, 64), (37, 100), (9, 256)])
+def test_composites_are_the_same_run_to_run(cuda, BR, N):
+    """Both segmented kernels' outputs are bit-identical over repeated
+    launches on the same inputs (no atomics, a fixed summation order)."""
+    from texpose_tpu_torch.kernels.composite import composite_coarse_bwd
+    rgb, tr, dens, depth, dist, cot = _seg_inputs(cuda, BR, N, 12)
+    first = composite_st_fwd(rgb, tr, dens, depth, dist, 0.05)
+    grads = composite_coarse_bwd(rgb, dens, dist, depth, cot)
+    for _ in range(3):
+        assert torch.equal(composite_st_fwd(rgb, tr, dens, depth, dist,
+                                            0.05), first)
+        again = composite_coarse_bwd(rgb, dens, dist, depth, cot)
+        assert all(torch.equal(a, b) for a, b in zip(again, grads))
 
 
 def test_wrappers_raise_on_unsupported_input(cuda):
@@ -308,7 +390,7 @@ def test_coarse_render_kernel_matches_plain(cuda, BR, N, view_dep):
         assert float(err.mean()) <= 1e-3
 
 
-@pytest.mark.parametrize("BR,N", [(2048, 64), (37, 16), (5, 48)])
+@pytest.mark.parametrize("BR,N", SEG_SHAPES + [(5, 48)])
 def test_composite_coarse_bwd_kernel_matches_plain(cuda, BR, N):
     from texpose_tpu_torch.kernels.composite import (
         composite_coarse_bwd, composite_coarse_bwd_plain)

@@ -22,7 +22,8 @@ PORT_FILES = sorted(
         REPO, "texpose_tpu_torch")) for f in fs if f.endswith(".py")]
     + [os.path.join(REPO, "chip_smoke.py"),
        os.path.join(REPO, "tools", "profile_eval_torch.py"),
-       os.path.join(REPO, "tools", "kernel_bounds.py")])
+       os.path.join(REPO, "tools", "kernel_bounds.py"),
+       os.path.join(REPO, "tools", "probe_composite.py")])
 
 
 def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
@@ -43,7 +44,8 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
             importlib.import_module(name)
         for path in ({REPO!r} + "/chip_smoke.py",
                      {REPO!r} + "/tools/profile_eval_torch.py",
-                     {REPO!r} + "/tools/kernel_bounds.py"):
+                     {REPO!r} + "/tools/kernel_bounds.py",
+                     {REPO!r} + "/tools/probe_composite.py"):
             spec = importlib.util.spec_from_file_location("m", path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules

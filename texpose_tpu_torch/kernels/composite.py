@@ -143,51 +143,97 @@ def composite_coarse_bwd_plain(rgb_raw, dens_raw, dist, depth, g):
     return d_rgb.reshape(BR * N, 3), d_dens.reshape(BR * N, 1)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "composite_st_fwd": [ctypes.c_void_p] * 5
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-       ctypes.c_void_p],
-    "composite_st_bwd": [ctypes.c_void_p] * 5
-    + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
-    "composite_coarse_bwd": [ctypes.c_void_p] * 5
-    + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
-    "composite_coarse_fwd": [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2,
+    "composite_st_fwd": [_P] * 5 + [_I, _I, ctypes.c_float] + [_I] * 4
+    + [_P, _P],
+    "composite_st_bwd": [_P] * 5 + [_I, _I] + [_P] * 3,
+    "composite_coarse_bwd": [_P] * 5 + [_I] * 6 + [_P] * 3,
+    "composite_coarse_fwd": [_P] * 4 + [_I, _I] + [_P] * 2,
 }
-MAX_SAMPLES = 256      # the composite kernels' samples per ray (8 per lane)
+MAX_SAMPLES = 256      # the composite kernels' samples per ray
+SEG_THREADS = 256      # csrc/composite.cu kSegThreads
 
 
-def _check_planes(what, device, args, numels):
+def segment_plan(BR, N, ptrs):
+    """The launch of a segmented composite kernel (rows 3 and 9b): (S
+    samples a lane, L lanes a ray, vector loads?, blocks of SEG_THREADS).
+    S is 2 up to 64 samples a ray, 4 up to 128, 8 up to 256: the kernels
+    are bound by issuing their instructions, so S is the least that keeps
+    a ray inside one warp (csrc/composite_seg.cuh).  L is the power of two
+    ≥ ⌈N/S⌉; 32/L rays share a warp.  The vector-load variant needs every
+    base pointer in ``ptrs`` 16-byte aligned and N % S == 0: then a lane's
+    S rows are whole and aligned, so no vector load reads past the ray's
+    last row; otherwise the scalar-load variant of the same kernel runs."""
+    samples = 2 if N <= 64 else 4 if N <= 128 else 8
+    lanes = 1 << ((N + samples - 1) // samples - 1).bit_length()
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    return (samples, lanes, N % samples == 0 and not bits & 15,
+            -(-BR * lanes // SEG_THREADS))
+
+
+_lib = None
+
+
+def _kernels():
+    """csrc/composite.cu's entries, built, loaded and bound at first use,
+    then kept."""
+    global _lib
+    if _lib is None:
+        _lib = _build.load("composite", _ARGTYPES)
+    return _lib
+
+
+def _ready(what, args, numels):
+    """(the kernel's inputs, their data pointers): float32 tensors on one
+    card of ``numels`` elements each, else ValueError; non-contiguous
+    inputs are copied first (the caller keeps the returned inputs until it
+    has launched)."""
+    dev = args[0].get_device()
+    ptrs = []
     for x, numel in zip(args, numels):
-        if (x.dtype != torch.float32 or x.device != device
+        if (x.dtype is not torch.float32 or x.get_device() != dev
                 or x.numel() != numel):
-            raise ValueError(f"{what}: expects float32 CUDA tensors of "
-                             f"{numels[2]} samples, got {x.dtype} "
-                             f"{tuple(x.shape)}")
-    return [x.contiguous() for x in args]
+            raise ValueError(f"{what}: expects float32 tensors on one CUDA "
+                             f"device with {numels} elements, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous():
+            return _ready(what, [y.contiguous() for y in args], numels)
+        ptrs.append(x.data_ptr())
+    return args, ptrs
+
+
+def _on_card(x, what):
+    """True for a CUDA tensor; False for a CPU tensor (the twin runs);
+    ValueError otherwise."""
+    if x.is_cuda:
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel for {x.device}")
 
 
 def composite_st_fwd(rgb_raw, trans_raw, dens_raw, depth, dist,
                      min_uncert=0.05):
     """Packed [BR,16] composite.  CPU tensors take ``composite_st_plain``;
-    CUDA tensors launch the kernel or raise."""
-    if rgb_raw.device.type == "cpu":
+    CUDA tensors launch the segmented kernel (vector or scalar loads, as
+    ``segment_plan`` finds) or raise."""
+    if not _on_card(rgb_raw, "composite_st_fwd"):
         return composite_st_plain(rgb_raw, trans_raw, dens_raw, depth, dist,
                                   min_uncert)
-    if rgb_raw.device.type != "cuda":
-        raise ValueError(f"composite_st_fwd: no kernel for {rgb_raw.device}")
     BR, N = depth.shape
+    _check_samples("composite_st_fwd", N)
     M = BR * N
-    args = _check_planes("composite_st_fwd", rgb_raw.device,
-                         (rgb_raw, trans_raw, dens_raw, depth, dist),
-                         (3 * M, 5 * M, M, M, M))
-    out = torch.empty((BR, N_OUT), dtype=torch.float32,
-                      device=rgb_raw.device)
-    lib = _build.load("composite", _ARGTYPES)
-    err = lib.composite_st_fwd(*(x.data_ptr() for x in args), BR, N,
-                               float(min_uncert), out.data_ptr(),
-                               _build.stream_ptr(rgb_raw.device))
-    _build.check(err, "composite_st_fwd")
+    args, ptrs = _ready("composite_st_fwd",
+                        (rgb_raw, trans_raw, dens_raw, depth, dist),
+                        (3 * M, 5 * M, M, M, M))
+    out = rgb_raw.new_empty((BR, N_OUT))
+    _build.check(_kernels().composite_st_fwd(
+        *ptrs, BR, N, float(min_uncert), *segment_plan(BR, N, ptrs),
+        out.data_ptr(), torch._C._cuda_getCurrentRawStream(
+            rgb_raw.get_device())), "composite_st_fwd")
     composite_st_fwd.launches += 1
     return out
 
@@ -199,22 +245,20 @@ def composite_st_bwd(rgb_raw, trans_raw, dens_raw, dist, g):
     """(d rgb_raw [M,3], d trans_raw [M,5]) from the packed cotangent g
     [BR,16].  CPU tensors take ``composite_st_bwd_plain``; CUDA tensors
     launch the kernel or raise."""
-    if rgb_raw.device.type == "cpu":
+    if not _on_card(rgb_raw, "composite_st_bwd"):
         return composite_st_bwd_plain(rgb_raw, trans_raw, dens_raw, dist, g)
-    if rgb_raw.device.type != "cuda":
-        raise ValueError(f"composite_st_bwd: no kernel for {rgb_raw.device}")
     BR, N = dist.shape
+    _check_samples("composite_st_bwd", N)
     M = BR * N
-    args = _check_planes("composite_st_bwd", rgb_raw.device,
-                         (rgb_raw, trans_raw, dens_raw, dist, g),
-                         (3 * M, 5 * M, M, M, BR * N_OUT))
-    d_rgb = torch.empty((M, 3), dtype=torch.float32, device=rgb_raw.device)
-    d_tr = torch.empty((M, 5), dtype=torch.float32, device=rgb_raw.device)
-    lib = _build.load("composite", _ARGTYPES)
-    err = lib.composite_st_bwd(*(x.data_ptr() for x in args), BR, N,
-                               d_rgb.data_ptr(), d_tr.data_ptr(),
-                               _build.stream_ptr(rgb_raw.device))
-    _build.check(err, "composite_st_bwd")
+    args, ptrs = _ready("composite_st_bwd",
+                        (rgb_raw, trans_raw, dens_raw, dist, g),
+                        (3 * M, 5 * M, M, M, BR * N_OUT))
+    d_rgb = rgb_raw.new_empty((M, 3))
+    d_tr = rgb_raw.new_empty((M, 5))
+    _build.check(_kernels().composite_st_bwd(
+        *ptrs, BR, N, d_rgb.data_ptr(), d_tr.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(rgb_raw.get_device())),
+        "composite_st_bwd")
     composite_st_bwd.launches += 1
     return d_rgb, d_tr
 
@@ -232,24 +276,18 @@ def composite_coarse_fwd(rgb_raw, dens_raw, depth, dist):
     """Packed [BR,8] single-density composite of the raw field outputs.
     CPU tensors take ``composite_coarse_plain``; CUDA tensors launch the
     kernel (N ≤ 256) or raise."""
-    if rgb_raw.device.type == "cpu":
+    if not _on_card(rgb_raw, "composite_coarse_fwd"):
         return composite_coarse_plain(rgb_raw, dens_raw, depth, dist)
-    if rgb_raw.device.type != "cuda":
-        raise ValueError(
-            f"composite_coarse_fwd: no kernel for {rgb_raw.device}")
     BR, N = depth.shape
     _check_samples("composite_coarse_fwd", N)
     M = BR * N
-    args = _check_planes("composite_coarse_fwd", rgb_raw.device,
-                         (rgb_raw, dens_raw, dist, depth),
-                         (3 * M, M, M, M))
-    out = torch.empty((BR, N_OUT_COARSE), dtype=torch.float32,
-                      device=rgb_raw.device)
-    lib = _build.load("composite", _ARGTYPES)
-    err = lib.composite_coarse_fwd(*(x.data_ptr() for x in args), BR, N,
-                                   out.data_ptr(),
-                                   _build.stream_ptr(rgb_raw.device))
-    _build.check(err, "composite_coarse_fwd")
+    args, ptrs = _ready("composite_coarse_fwd",
+                        (rgb_raw, dens_raw, dist, depth), (3 * M, M, M, M))
+    out = rgb_raw.new_empty((BR, N_OUT_COARSE))
+    _build.check(_kernels().composite_coarse_fwd(
+        *ptrs, BR, N, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(rgb_raw.get_device())),
+        "composite_coarse_fwd")
     composite_coarse_fwd.launches += 1
     return out
 
@@ -260,25 +298,22 @@ composite_coarse_fwd.launches = 0
 def composite_coarse_bwd(rgb_raw, dens_raw, dist, depth, g):
     """(d rgb_raw [M,3], d dens_raw [M,1]) from the packed cotangent g
     [BR,8].  CPU tensors take ``composite_coarse_bwd_plain``; CUDA tensors
-    launch the kernel or raise."""
-    if rgb_raw.device.type == "cpu":
+    launch the segmented kernel (vector or scalar loads, as
+    ``segment_plan`` finds; N ≤ 256) or raise."""
+    if not _on_card(rgb_raw, "composite_coarse_bwd"):
         return composite_coarse_bwd_plain(rgb_raw, dens_raw, dist, depth, g)
-    if rgb_raw.device.type != "cuda":
-        raise ValueError(
-            f"composite_coarse_bwd: no kernel for {rgb_raw.device}")
     BR, N = dist.shape
     _check_samples("composite_coarse_bwd", N)
     M = BR * N
-    args = _check_planes("composite_coarse_bwd", rgb_raw.device,
-                         (rgb_raw, dens_raw, dist, depth, g),
-                         (3 * M, M, M, M, BR * N_OUT_COARSE))
-    d_rgb = torch.empty((M, 3), dtype=torch.float32, device=rgb_raw.device)
-    d_dens = torch.empty((M, 1), dtype=torch.float32, device=rgb_raw.device)
-    lib = _build.load("composite", _ARGTYPES)
-    err = lib.composite_coarse_bwd(*(x.data_ptr() for x in args), BR, N,
-                                   d_rgb.data_ptr(), d_dens.data_ptr(),
-                                   _build.stream_ptr(rgb_raw.device))
-    _build.check(err, "composite_coarse_bwd")
+    args, ptrs = _ready("composite_coarse_bwd",
+                        (rgb_raw, dens_raw, dist, depth, g),
+                        (3 * M, M, M, M, BR * N_OUT_COARSE))
+    d_rgb = rgb_raw.new_empty((M, 3))
+    d_dens = rgb_raw.new_empty((M, 1))
+    _build.check(_kernels().composite_coarse_bwd(
+        *ptrs, BR, N, *segment_plan(BR, N, ptrs), d_rgb.data_ptr(),
+        d_dens.data_ptr(), torch._C._cuda_getCurrentRawStream(
+            rgb_raw.get_device())), "composite_coarse_bwd")
     composite_coarse_bwd.launches += 1
     return d_rgb, d_dens
 

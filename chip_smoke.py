@@ -17,7 +17,7 @@ Phases; any failure exits non-zero and no result line is printed:
      (csrc/trunk.cuh TRUNK_FWD_*), which the "step 1" lines time against
      the mma.sync build in turns (where the replaced forwards' time went:
      weight loads, residual stores, epilogue), and the warp-per-ray
-     composites of rows 3 and 9b (composite.cu with
+     composites of rows 4, 9a and 9b (composite.cu with
      -DCOMPOSITE_WARP_PER_RAY, tools/probe_composite.py);
   2. kernels: each of the fourteen kernels against its plain-PyTorch twin on
      the card at the main paths' shapes — ST field forward on one
@@ -42,7 +42,7 @@ Phases; any failure exits non-zero and no result line is printed:
      floor per launch beside it), the wrapper
      per call (host clock over 200 calls) and one call between events (the
      figure earlier records gave, mostly the wrapper's host work); the
-     segmented rows 3 and 9b also in turns against their warp-per-ray
+     segmented rows 4, 9a and 9b also in turns against their warp-per-ray
      forms (old, new, new, old), through the old host path.  The three field
      backwards (rows 7b, 2 and the render backward 6b) run split: a
      dX-chain kernel, then the grouped dW GEMM and its reduction
@@ -413,7 +413,7 @@ def small_text(t, plain_ms, bnd):
 
 
 def warp_ab(warp, row, new, args, want):
-    """A segmented composite (row 3 or 9b, ``new(*args)``) against the
+    """A segmented composite (row 4, 9a or 9b, ``new(*args)``) against the
     warp-per-ray form it replaced (``warp[row]``: the
     -DCOMPOSITE_WARP_PER_RAY build through the old host path,
     tools/probe_composite.py) in turns old / new / new / old → (its
@@ -637,7 +637,7 @@ def kernel_phase(cfg, dev, one_kernel, mma, warp):
     """Each kernel against its twin on one eval chunk; returns the
     measured numbers per kernel.  ``one_kernel["st_field"]`` runs the ST
     heads' one-kernel backward, ``mma["st_field"]`` the ST field's mma.sync
-    forward, ``warp["3"]`` the warp-per-ray dual composite forward (the
+    forward, ``warp["4"]`` the warp-per-ray dual composite backward (the
     measurement builds)."""
     import torch
     from texpose_tpu_torch.kernels.composite import (composite_st_bwd,
@@ -707,16 +707,12 @@ def kernel_phase(cfg, dev, one_kernel, mma, warp):
         cplain = time_ms(lambda: composite_st_plain(*cargs), reps=20)
         cb = bound(nbytes(*cargs[:5], cgot), COMPOSITE_ST_FWD_OPS * R * N,
                    PEAK_F32)
-        ab_keys, ab_line, _ = warp_ab(warp, "3", composite_st_fwd, cargs,
-                                      (cref,))
         print(f"kernel composite_st_fwd (row 3): {R} rays x {N} samples "
               f"max|err|={cmax:.3g} (bound {COMPOSITE_MAX_ERR}); "
-              f"{small_text(ct, cplain, cb)}; {ab_line}", flush=True)
-        if not (cmax <= COMPOSITE_MAX_ERR
-                and ab_keys["warp_per_ray_max_abs_err"] <= COMPOSITE_MAX_ERR):
+              f"{small_text(ct, cplain, cb)}", flush=True)
+        if not cmax <= COMPOSITE_MAX_ERR:
             fail("composite kernel disagrees with its plain twin")
-        out["composite_st_fwd"] = small_entry(cmax, ct, cplain, cb,
-                                              **ab_keys)
+        out["composite_st_fwd"] = small_entry(cmax, ct, cplain, cb)
 
         # composite backward on the same rays, a cotangent like the train
         # step's (per-ray means over 2048 rays)
@@ -731,13 +727,16 @@ def kernel_phase(cfg, dev, one_kernel, mma, warp):
         bplain = time_ms(lambda: composite_st_bwd_plain(*bargs), reps=20)
         bb = bound(nbytes(*bargs, *bgot), COMPOSITE_ST_BWD_OPS * R * N,
                    PEAK_F32)
+        ab_keys, ab_line, old_rel = warp_ab(warp, "4", composite_st_bwd,
+                                            bargs, bref)
         print(f"kernel composite_st_bwd (row 4): {R} rays x {N} samples "
               f"max|err|={bmax:.3g} ({brel:.3g} of max, bound "
-              f"{COMPOSITE_BWD_REL}); {small_text(bt, bplain, bb)}",
-              flush=True)
-        if not brel <= COMPOSITE_BWD_REL:
+              f"{COMPOSITE_BWD_REL}); {small_text(bt, bplain, bb)}; "
+              f"{ab_line}", flush=True)
+        if not (brel <= COMPOSITE_BWD_REL and old_rel <= COMPOSITE_BWD_REL):
             fail("composite backward kernel disagrees with its plain twin")
-        out["composite_st_bwd"] = small_entry(bmax, bt, bplain, bb)
+        out["composite_st_bwd"] = small_entry(bmax, bt, bplain, bb,
+                                              **ab_keys)
 
         # field backward at the train step's shape: 8 images x 16,384 rows
         B = int(cfg.batch_size)
@@ -1104,12 +1103,13 @@ def coarse_kernel_phase(here, dev, one_kernel, mma, warp):
     at the full width of configs/nerf_lm_pretrain.yaml.
     ``one_kernel["coarse_field"]`` runs the trunk-training one-kernel
     backward, ``mma["coarse_render"]`` / ``mma["coarse_field"]`` the two
-    forwards' mma.sync forms, ``warp["9b"]`` the warp-per-ray composite
-    backward (the measurement builds)."""
+    forwards' mma.sync forms, ``warp["9a"]`` / ``warp["9b"]`` the
+    warp-per-ray composite forward and backward (the measurement
+    builds)."""
     import torch
     from texpose_tpu_torch.kernels import coarse_field as cf_module
     from texpose_tpu_torch.kernels.coarse_field import (
-        coarse_field_bwd, coarse_field_bwd_plain,
+        coarse_field_bwd, coarse_field_bwd_plain, coarse_field_fwd,
         coarse_render_fwd, coarse_render_plain)
     from texpose_tpu_torch.kernels.composite import (
         composite_coarse_bwd, composite_coarse_bwd_plain)
@@ -1289,15 +1289,21 @@ def coarse_kernel_phase(here, dev, one_kernel, mma, warp):
             str(rows): v[0] for rows, v in variants.items()})
 
         # the composite forward (rows 9a/9c: one kernel, flat layout) on
-        # both fields' raw outputs, and the backward at 192 samples
+        # both fields' raw outputs, also right after the field forward
+        # with residuals that writes them on the two-kernel training route;
+        # and the backward at 192 samples
         depths = {N: (d, dist), fine_depth.shape[2]: (
             fine_depth.reshape(BR, -1),
             _dists(fine_depth, ray).reshape(BR, -1))}
         comp = {}
-        for n, (rgb_, dens_) in ((N, variants[M][1]),
-                                 (fine_depth.shape[2], f_raw)):
+        for n, (rgb_, dens_), (x_, e_) in (
+                (N, variants[M][1], (xext, ep)),
+                (fine_depth.shape[2], f_raw, (fx, fe))):
             dd, di = depths[n]
-            comp[n] = composite_fwd_check(rgb_, dens_, dd, di, n)
+            comp[n] = composite_fwd_check(
+                rgb_, dens_, dd, di, n, warp,
+                lambda x_=x_, e_=e_, dd=dd, di=di: (*coarse_field_fwd(
+                    x_, e_, w, want_res=True)[:2], dd, di))
         out["composite_coarse_fwd"] = dict(comp[N], variants={
             str(n): v for n, v in comp.items()})
         nf = fine_depth.shape[2]
@@ -1433,29 +1439,40 @@ def field_fwd_check(xext, ep, w, fwd_macs, rows, mma):
     return numbers, (rgb, dens), (xe, acts)
 
 
-def composite_fwd_check(rgb, dens, depth, dist, n):
-    """composite_coarse_fwd against composite_coarse_plain → numbers."""
+def composite_fwd_check(rgb, dens, depth, dist, n, warp, producer):
+    """composite_coarse_fwd against composite_coarse_plain, and in turns
+    against its warp-per-ray form ``warp["9a"]``; ``producer`` returns
+    fresh arguments from the field forward that writes them on the main
+    path (``small_kernel_ms``'s in_path_ms) → numbers."""
     import torch
     from texpose_tpu_torch.kernels.composite import (composite_coarse_fwd,
                                                      composite_coarse_plain)
     BR = depth.shape[0]
-    got = composite_coarse_fwd(rgb, dens, depth, dist)
-    ref = composite_coarse_plain(rgb, dens, depth, dist)
+    args = (rgb, dens, depth, dist)
+    got = composite_coarse_fwd(*args)
+    ref = composite_coarse_plain(*args)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    t = small_kernel_ms(composite_coarse_fwd, (rgb, dens, depth, dist),
-                        "composite_coarse_fwd")
-    plain_ms = time_ms(lambda: composite_coarse_plain(rgb, dens, depth,
-                                                      dist), reps=20)
-    b = bound(nbytes(rgb, dens, depth, dist, got),
-              COMPOSITE_COARSE_FWD_OPS * BR * n, PEAK_F32)
+    t = small_kernel_ms(composite_coarse_fwd, args, "composite_coarse_fwd",
+                        producer=producer)
+    plain_ms = time_ms(lambda: composite_coarse_plain(*args), reps=20)
+    b = bound(nbytes(*args, got), COMPOSITE_COARSE_FWD_OPS * BR * n,
+              PEAK_F32)
+    ab_keys, ab_line, _ = warp_ab(warp, "9a", composite_coarse_fwd, args,
+                                  (ref,))
+    # the warp-per-ray form right after the same producer
+    ab_keys["warp_per_ray_in_path_ms"] = profiler_ms(
+        lambda: warp["9a"](*producer()), "composite_coarse_fwd", calls=20)
     print(f"kernel composite_coarse_fwd (row 9a): {BR} rays x {n} samples "
           f"max|err|={err:.3g} (bound {COMPOSITE_MAX_ERR}); "
-          f"{small_text(t, plain_ms, b)}", flush=True)
-    if not err <= COMPOSITE_MAX_ERR:
+          f"{small_text(t, plain_ms, b)}; {ab_line}; warp-per-ray form "
+          f"after its producer {_ms(ab_keys['warp_per_ray_in_path_ms'])} "
+          f"ms (profiler)", flush=True)
+    if not (err <= COMPOSITE_MAX_ERR
+            and ab_keys["warp_per_ray_max_abs_err"] <= COMPOSITE_MAX_ERR):
         fail(f"composite_coarse_fwd kernel disagrees with its plain twin at "
              f"{n} samples")
-    return small_entry(err, t, plain_ms, b)
+    return small_entry(err, t, plain_ms, b, **ab_keys)
 
 
 def fixture_argv(here, tmp, dev, n_test, sub="", init=None):
@@ -2341,11 +2358,10 @@ def main():
                                    fwd_libs["coarse_field", None]),
            "trunk": partial(fwd.trunk_mma, fwd_libs["trunk_fwd", None]),
            "l2_bytes": fwd.l2_bytes, "trunk_l2": fwd.trunk_l2_bytes}
-    # the warp-per-ray composites the segmented rows 3 and 9b replaced,
-    # through their old host path (measurement build)
-    warp = {"3": partial(cprobe.legacy_st_fwd, warp_lib),
-            "9b": partial(cprobe.legacy_coarse_bwd, warp_lib),
-            "turns": cprobe.turns, "text": cprobe.turns_text}
+    # the warp-per-ray composites the segmented rows 4, 9a and 9b
+    # replaced, through their old host path (measurement build)
+    warp = {**cprobe.legacy(warp_lib), "turns": cprobe.turns,
+            "text": cprobe.turns_text}
     # step 1: where the mma.sync forwards' time went (measurement switches)
     step1 = fwd.attribution(dev, fwd_libs)
 

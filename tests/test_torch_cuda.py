@@ -154,7 +154,15 @@ def test_st_field_bwd_kernel_matches_plain(cuda, B, rows_per_img):
     assert max(norm) <= FIELD_BWD_REL and max(peak) <= FIELD_BWD_MAX
 
 
-@pytest.mark.parametrize("BR,N", [(2048, 64), (37, 16), (5, 100)])
+# the segmented composites (rows 3, 4, 9a and 9b): N = 64 (the main paths;
+# 2 samples a lane), 100 (4 a lane), 192 and 256 (8 a lane), 99 and 7 (N %
+# S != 0: the scalar-load variant), 16 (lanes past N), one ray and odd ray
+# counts (a block's last segments past the last ray)
+SEG_SHAPES = [(2048, 64), (37, 16), (5, 100), (1, 64), (37, 99),
+              (2047, 192), (9, 256), (1, 256), (3, 7)]
+
+
+@pytest.mark.parametrize("BR,N", SEG_SHAPES)
 def test_composite_bwd_kernel_matches_plain(cuda, BR, N):
     g = torch.Generator().manual_seed(N + 1)
     M = BR * N
@@ -174,14 +182,6 @@ def test_composite_bwd_kernel_matches_plain(cuda, BR, N):
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
     print("composite_st_bwd relative errors:", errs)
     assert max(errs) <= COMPOSITE_BWD_REL
-
-
-# the segmented composites (rows 3 and 9b): N = 64 (the main paths; 2
-# samples a lane), 100 (4 a lane), 192 and 256 (8 a lane), 99 and 7 (N % S
-# != 0: the scalar-load variant), 16 (4 rays a warp), one ray and odd ray
-# counts (a block's last segments past the last ray)
-SEG_SHAPES = [(2048, 64), (37, 16), (5, 100), (1, 64), (37, 99),
-              (2047, 192), (9, 256), (1, 256), (3, 7)]
 
 
 @pytest.mark.parametrize("BR,N", SEG_SHAPES)
@@ -229,12 +229,13 @@ def _seg_inputs(cuda, BR, N, seed):
 
 @pytest.mark.parametrize("which", ["rgb", "dist", "strided"])
 def test_composites_take_the_scalar_variant_on_an_offset_view(cuda, which):
-    """An input one float off its buffer's 16-byte alignment: both
+    """An input one float off its buffer's 16-byte alignment: the four
     segmented kernels take the scalar-load variant (segment_plan), launch
     (counted) and agree with their twins at the main paths' shape.  A
     non-contiguous input is copied by the wrapper and read from the copy."""
     from texpose_tpu_torch.kernels.composite import (
-        composite_coarse_bwd, composite_coarse_bwd_plain, segment_plan)
+        composite_coarse_bwd, composite_coarse_bwd_plain,
+        composite_coarse_fwd, composite_coarse_plain, segment_plan)
     BR, N = 2048, 64
     rgb, tr, dens, depth, dist, cot = _seg_inputs(cuda, BR, N, 11)
     if which == "strided":
@@ -247,14 +248,23 @@ def test_composites_take_the_scalar_variant_on_an_offset_view(cuda, which):
             dist = _offset(dist)
         assert segment_plan(BR, N, [rgb.data_ptr(), dist.data_ptr()]) == \
             (2, 32, False, 256)
-    n0 = (composite_st_fwd.launches, composite_coarse_bwd.launches)
+    cot16 = torch.cat([cot, cot], 1)
+    fns = (composite_st_fwd, composite_st_bwd, composite_coarse_fwd,
+           composite_coarse_bwd)
+    n0 = [f.launches for f in fns]
     out = composite_st_fwd(rgb, tr, dens, depth, dist, 0.05)
+    st_grads = composite_st_bwd(rgb, tr, dens, dist, cot16)
+    cout = composite_coarse_fwd(rgb, dens, depth, dist)
     got = composite_coarse_bwd(rgb, dens, dist, depth, cot)
     torch.cuda.synchronize()
-    assert (composite_st_fwd.launches,
-            composite_coarse_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    assert [f.launches for f in fns] == [n + 1 for n in n0]
     ref = composite_st_plain(rgb, tr, dens, depth, dist, 0.05)
     assert float((out - ref).abs().max()) <= 1e-4
+    want = composite_st_bwd_plain(rgb, tr, dens, dist, cot16)
+    assert max(_rel_err(a, b) for a, b in zip(st_grads, want)) <= \
+        COMPOSITE_BWD_REL
+    cref = composite_coarse_plain(rgb, dens, depth, dist)
+    assert float((cout - cref).abs().max()) <= 1e-4
     want = composite_coarse_bwd_plain(rgb, dens, dist, depth, cot)
     assert max(_rel_err(a, b) for a, b in zip(got, want)) <= \
         COMPOSITE_BWD_REL
@@ -262,17 +272,20 @@ def test_composites_take_the_scalar_variant_on_an_offset_view(cuda, which):
 
 @pytest.mark.parametrize("BR,N", [(2048, 64), (37, 100), (9, 256)])
 def test_composites_are_the_same_run_to_run(cuda, BR, N):
-    """Both segmented kernels' outputs are bit-identical over repeated
+    """The four segmented kernels' outputs are bit-identical over repeated
     launches on the same inputs (no atomics, a fixed summation order)."""
-    from texpose_tpu_torch.kernels.composite import composite_coarse_bwd
+    from texpose_tpu_torch.kernels.composite import (composite_coarse_bwd,
+                                                     composite_coarse_fwd)
     rgb, tr, dens, depth, dist, cot = _seg_inputs(cuda, BR, N, 12)
-    first = composite_st_fwd(rgb, tr, dens, depth, dist, 0.05)
-    grads = composite_coarse_bwd(rgb, dens, dist, depth, cot)
+    cot16 = torch.cat([cot, cot], 1)
+    calls = (lambda: (composite_st_fwd(rgb, tr, dens, depth, dist, 0.05),),
+             lambda: composite_st_bwd(rgb, tr, dens, dist, cot16),
+             lambda: (composite_coarse_fwd(rgb, dens, depth, dist),),
+             lambda: composite_coarse_bwd(rgb, dens, dist, depth, cot))
+    first = [call() for call in calls]
     for _ in range(3):
-        assert torch.equal(composite_st_fwd(rgb, tr, dens, depth, dist,
-                                            0.05), first)
-        again = composite_coarse_bwd(rgb, dens, dist, depth, cot)
-        assert all(torch.equal(a, b) for a, b in zip(again, grads))
+        for call, want in zip(calls, first):
+            assert all(torch.equal(a, b) for a, b in zip(call(), want))
 
 
 def test_wrappers_raise_on_unsupported_input(cuda):
@@ -505,8 +518,7 @@ def test_coarse_field_fwd_kernel_matches_plain(cuda, BR, N, view_dep):
         assert float(err.mean()) <= 1e-3
 
 
-@pytest.mark.parametrize("BR,N", [(2048, 64), (2048, 192), (37, 100),
-                                  (5, 256), (3, 7)])
+@pytest.mark.parametrize("BR,N", SEG_SHAPES + [(2048, 192)])
 def test_composite_coarse_fwd_kernel_matches_plain(cuda, BR, N):
     from texpose_tpu_torch.kernels.composite import (composite_coarse_fwd,
                                                      composite_coarse_plain)

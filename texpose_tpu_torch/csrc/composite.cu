@@ -1,92 +1,59 @@
-// Forward and backward of the NeRF-W dual-density composite, written by hand
-// for Hopper (sm_90a) and bound to PyTorch through ctypes
-// (texpose_tpu_torch/kernels/composite.py).
+// The composites, written by hand for Hopper (sm_90a) and bound to PyTorch
+// through ctypes (texpose_tpu_torch/kernels/composite.py): the NeRF-W
+// dual-density composite of the texture model, forward (row 3) and
+// backward (row 4), and the single-density composite of the pretrain,
+// forward (row 9a) and backward (row 9b).
 //
-// Replaces: texpose_tpu/kernels/fused_composite.py::_run_fwd (the forward
-// pallas_call; _forward_core + _fwd_cols) and ::_run_bwd (the backward
-// pallas_call; _bwd_cols), and their flat-input variants _run_fwd_flat /
-// _run_bwd_flat: both kernels here read and write the flat [M,C] layout.
+// Replaces: texpose_tpu/kernels/fused_composite.py::_run_fwd (_forward_core
+// + _fwd_cols) and ::_run_bwd (_bwd_cols), with their flat-input variants
+// _run_fwd_flat / _run_bwd_flat; texpose_tpu/kernels/
+// fused_composite_coarse.py::_run_fwd (_fwd_kernel) and ::_run_bwd
+// (_bwd_kernel), with _run_fwd_flat / _run_bwd_flat.  Every kernel here
+// reads the field's flat [M,C] outputs (row = ray*N + n) and writes flat
+// gradients, so kernels.composite_flat selects the same launches, and the
+// TPU kernels' [BR,N] channel planes are never materialized.
 //
-// FORWARD (composite_st_fwd_seg_kernel<S, L, VEC>).
-// A segment of L lanes per ray, S consecutive samples per lane (S = 2 up
-// to 64 samples a ray), 32/L rays per warp, 256-thread blocks
-// (composite_st_seg, composite_seg.cuh, says how and why).  Each lane
-// reads its samples' raw field outputs straight from the interleaved
-// [M,3] / [M,5] / [M,1] buffers (row = ray*N + n), with vector loads when
-// the wrapper finds every base 16-byte aligned and N % S == 0 (VEC), else
-// with scalar loads, so the TPU kernel's [BR,N]
-// channel planes are never materialized.  Activations: sigmoid for colors,
-// softplus (as jax.nn.softplus: max(x,0) + log1p(exp(-|x|))) for both
-// densities and the uncertainty.  The two exclusive prefix sums of σδ
-// (static, transient) that give the transmittances are a running sum
-// inside the lane plus one segmented shuffle scan of the lane totals — the
-// TPU's triangular-matmul cumsum has no reason to exist here — and the
-// joint transmittance is their product.  All in
-// float32.  The 16 per-ray columns are reduced across the segment by
-// recursive halving and every lane writes its share of the packed [BR,16]
-// row:
-//   0-2 rgb | 3-5 rgb_static | 6-8 rgb_transient | 9 depth | 10 opacity
-//   11 opacity_static | 12 opacity_transient | 13 uncert
-//   14 sum_n softplus(transient density raw) | 15 zero
+// All four are segmented (composite_seg.cuh says how and why): a segment
+// of L = 32 lanes per ray, S consecutive samples per lane (S = 2 up to 64
+// samples a ray, 4 up to 128, 8 up to 256: kernels/composite.py
+// segment_plan), 256-thread blocks, vector loads and stores when the
+// wrapper finds every base 16-byte aligned and N % S == 0 (VEC), else the
+// scalar variant of the same body.  The TPU kernels' triangular-matmul
+// cumsums are running sums inside the lane plus segmented shuffle scans of
+// the lane totals; transmittances are products inside the lane.  All in
+// float32, with the activations of the twins (sigmoid with the IEEE
+// division; softplus as jax.nn.softplus: max(x,0) + log1p(exp(-|x|))).
 //
-// What bounds it: by its bytes, memory — 44 B read per sample (11 f32) and
-// 64 B written per ray, about 60 flops and 7 transcendentals per sample;
-// measured, the issue of its instructions (mostly the IEEE expf /
-// division / log1pf sequences), hence S = 2 for threads,
-// then its loads when the inputs are not in L2.  The first
-// design (one warp per ray, S = ⌈N/32⌉, 4-byte loads, a branch per sample,
-// five-step butterflies per column and lane 0 storing the row) stays
-// compiled only under -DCOMPOSITE_WARP_PER_RAY, for the in-call A/B
-// (chip_smoke.py, tools/probe_composite.py).
+//   composite_st_fwd_seg_kernel (row 3): raw rgb [M,3], trans [M,5], static
+//     density [M,1], depth, dist → the packed [BR,16] row
+//       0-2 rgb | 3-5 rgb_static | 6-8 rgb_transient | 9 depth | 10 opacity
+//       11 opacity_static | 12 opacity_transient | 13 uncert
+//       14 sum_n softplus(transient density raw) | 15 zero
+//     (composite_st_seg; 44 B read a sample, 64 B written a ray).
+//   composite_st_bwd_seg_kernel (row 4): the closed-form VJP of _bwd_cols
+//     from the packed [BR,16] cotangent → d rgb_raw [M,3], d trans_raw
+//     [M,5]; the static density is frozen-trunk output and gets no
+//     gradient (composite_st_bwd_seg; 40 B read and 32 B written a sample).
+//   composite_coarse_fwd_seg_kernel (row 9a): raw rgb [M,3], density [M,1],
+//     dist, depth → packed [BR,8] = rgb | depth | opacity | 0,0,0
+//     (composite_coarse_seg; 24 B read a sample, 32 B written a ray).
+//   composite_coarse_bwd_seg_kernel (row 9b): its VJP from the packed
+//     [BR,8] cotangent → d rgb_raw [M,3], d dens_raw [M,1]
+//     (composite_coarse_bwd_seg; 24 B read and 16 B written a sample).
 //
-// BACKWARD (composite_st_bwd_kernel): the closed-form VJP of _bwd_cols from
-// the packed [BR,16] cotangent, one warp per ray (S = ceil(N/32) samples
-// per lane; the segmented design is next for it).  It recomputes
-// the forward quantities, then the two strict suffix sums of _bwd_cols
-// (through the joint T and through T_t; both enter d sdt with a minus sign,
-// so they are taken as one sum) as a reverse running sum inside the lane
-// plus a warp shuffle scan of the lane totals.  It writes d rgb_raw [M,3]
-// and d trans_raw [M,5] in the flat layout the field's backward reads; the
-// static density is frozen-trunk output and gets no gradient.  Bound and
-// design as the forward: 40 B read and 32 B written per sample, ~80 flops,
-// everything in registers.
-// Its per-ray body is the device function composite_st_ray_bwd
-// (composite_st.cuh); that and the warp-per-ray forward composite_st_ray
-// are the composite stages of the ST render kernels (st_render.cu) and the
-// field forward's epilogue (field_fwd.cuh).
-//
-// COARSE FORWARD (composite_coarse_fwd_kernel).
-// Replaces: texpose_tpu/kernels/fused_composite_coarse.py::_run_fwd (the
-// single-density composite on [BR,N] channel planes, _fwd_kernel) and
-// ::_run_fwd_flat (the same on the flat [M,3]/[M,1] outputs,
-// _fwd_kernel_flat).  The field kernel writes the flat layout and this
-// kernel reads it, so one kernel serves both (kernels.composite_flat
-// selects the same launch).  One warp per ray, S = ceil(N/32) samples per
-// lane (N ≤ 256): composite_coarse_ray (composite_coarse.cuh), the device
-// function the coarse mega forward runs as its epilogue.  What bounds it:
-// memory — 24 B read per sample and 32 B written per ray, ~25 flops and 3
-// transcendentals per sample.  Design: as the dual composite, nothing
-// staged, everything in registers.
-//
-// COARSE BACKWARD (composite_coarse_bwd_seg_kernel<S, L, VEC>).
-// Replaces: texpose_tpu/kernels/fused_composite_coarse.py::_run_bwd (the
-// closed-form VJP of the single-density composite, _bwd_kernel), the
-// pretrain step's composite backward.  Segmented as the forward above:
-// composite_coarse_bwd_seg (composite_seg.cuh).  From the packed [BR,8]
-// cotangent (0-2 rgb, 3 depth, 4 opacity), read once per segment and
-// broadcast by shuffle, with c = sigmoid(rgb_raw), s = softplus(dens_raw)·δ,
-// w = T·(1−e^{−s}) and the per-sample coefficient G = Σ_c g_c·c +
-// g_depth·depth + g_opacity:
-//   d rgb_raw_c = w·g_c·c·(1−c)
-//   dL/ds = G·T·e^{−s} − Σ_{n'>n} G·w  (reverse running sum + segment scan)
-//   d dens_raw = dL/ds · δ · sigmoid(dens_raw)       (softplus' = sigmoid)
-// The activations are recomputed from the f32 pre-activation residuals.
-// What bounds it: by its bytes, memory — 24 B read and 16 B written per
-// sample (0.0016 ms of traffic at 131,072 samples), ~40 flops and 4
-// transcendentals per sample; measured, instruction issue, as the
-// forward's.  N ≤ 256: the hierarchical fine field's 64 +
-// 128 samples and the two-kernel route at any N.  The warp-per-ray form
-// stays compiled only under -DCOMPOSITE_WARP_PER_RAY, as the forward's.
+// What bounds them: by their bytes, memory (a few µs at 2048 rays × 64
+// samples); measured (PERF.md), the issue of their instructions, most of
+// them the IEEE expf / division / log1pf sequences of the activations,
+// then their loads when the inputs are not in L2.  The first design of
+// rows 4, 9a and 9b (one warp per ray, S = ⌈N/32⌉, 4-byte loads, a branch
+// per sample, warp scans, five-step butterflies per column and lane 0
+// storing the row) stays compiled only under -DCOMPOSITE_WARP_PER_RAY,
+// for the in-call A/B (chip_smoke.py, tools/probe_composite.py); row 3's
+// went once the segmented form read no slower in turns (PERF.md).  The per-ray bodies
+// composite_st_ray_bwd (composite_st.cuh) and composite_coarse_ray
+// (composite_coarse.cuh) remain the composite stages of the render
+// kernels (st_render.cu) and of the field forward's epilogue
+// (field_fwd.cuh).
 
 #include <cuda_runtime.h>
 
@@ -96,8 +63,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // warp per ray: 8 rays per block
-constexpr int kSegThreads = 256;   // segmented: 256/L rays per block
+constexpr int kSegThreads = 256;   // 256/L rays per block
 
 template <int S, int L, bool VEC>
 __global__ void __launch_bounds__(kSegThreads)
@@ -111,6 +77,32 @@ __global__ void __launch_bounds__(kSegThreads)
   const int ray = blockIdx.x * (kSegThreads / L) + threadIdx.x / L;
   composite_st_seg<S, L, VEC>(rgb, tr, dens, depth, dist, ray, BR, N,
                               min_uncert, threadIdx.x & (L - 1), out);
+}
+
+template <int S, int L, bool VEC>
+__global__ void __launch_bounds__(kSegThreads)
+    composite_st_bwd_seg_kernel(const float* __restrict__ rgb,
+                                const float* __restrict__ tr,
+                                const float* __restrict__ dens,
+                                const float* __restrict__ dist,
+                                const float* __restrict__ gpk, int BR, int N,
+                                float* __restrict__ d_rgb,
+                                float* __restrict__ d_tr) {
+  const int ray = blockIdx.x * (kSegThreads / L) + threadIdx.x / L;
+  composite_st_bwd_seg<S, L, VEC>(rgb, tr, dens, dist, gpk, ray, BR, N,
+                                  threadIdx.x & (L - 1), d_rgb, d_tr);
+}
+
+template <int S, int L, bool VEC>
+__global__ void __launch_bounds__(kSegThreads)
+    composite_coarse_fwd_seg_kernel(const float* __restrict__ rgb,
+                                    const float* __restrict__ dens,
+                                    const float* __restrict__ dist,
+                                    const float* __restrict__ depth, int BR,
+                                    int N, float* __restrict__ out) {
+  const int ray = blockIdx.x * (kSegThreads / L) + threadIdx.x / L;
+  composite_coarse_seg<S, L, VEC>(rgb, dens, dist, depth, ray, BR, N,
+                                  threadIdx.x & (L - 1), out);
 }
 
 template <int S, int L, bool VEC>
@@ -129,24 +121,7 @@ __global__ void __launch_bounds__(kSegThreads)
 }
 
 #ifdef COMPOSITE_WARP_PER_RAY
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-    composite_st_fwd_kernel(const float* __restrict__ rgb,
-                            const float* __restrict__ tr,
-                            const float* __restrict__ dens,
-                            const float* __restrict__ depth,
-                            const float* __restrict__ dist, int BR, int N,
-                            float min_uncert, float* __restrict__ out) {
-  const int ray = (blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (ray >= BR) return;                      // uniform across the warp
-  const size_t row = (size_t)ray * N;
-  composite_st_ray<S>(rgb + row * 3, tr + row * 5, dens + row, depth + row,
-                      dist + row, N, min_uncert, lane,
-                      out + (size_t)ray * 16);
-}
-
-#endif  // COMPOSITE_WARP_PER_RAY
+constexpr int kThreads = 256;      // warp per ray: 8 rays per block
 
 template <int S>
 __global__ void __launch_bounds__(kThreads)
@@ -166,7 +141,19 @@ __global__ void __launch_bounds__(kThreads)
                           d_rgb + row * 3, d_tr + row * 5);
 }
 
-#ifdef COMPOSITE_WARP_PER_RAY
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+    composite_coarse_fwd_kernel(const float* __restrict__ rgb,
+                                const float* __restrict__ dens,
+                                const float* __restrict__ dist,
+                                const float* __restrict__ depth, int BR, int N,
+                                float* __restrict__ out) {
+  const int ray = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (ray >= BR) return;                      // uniform across the warp
+  composite_coarse_ray<S>(rgb, dens, dist, depth, ray, N, lane, out);
+}
+
 template <int S>
 __global__ void __launch_bounds__(kThreads)
     composite_coarse_bwd_kernel(const float* __restrict__ rgb,
@@ -237,113 +224,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+int warp_blocks(int BR) { return (BR * 32 + kThreads - 1) / kThreads; }
 #endif  // COMPOSITE_WARP_PER_RAY
-
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-    composite_coarse_fwd_kernel(const float* __restrict__ rgb,
-                                const float* __restrict__ dens,
-                                const float* __restrict__ dist,
-                                const float* __restrict__ depth, int BR, int N,
-                                float* __restrict__ out) {
-  const int ray = (blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (ray >= BR) return;                      // uniform across the warp
-  composite_coarse_ray<S>(rgb, dens, dist, depth, ray, N, lane, out);
-}
-
-template <int S>
-void launch_coarse_fwd(const float* rgb, const float* dens, const float* dist,
-                       const float* depth, int BR, int N, float* out,
-                       cudaStream_t stream) {
-  const int blocks = (BR * 32 + kThreads - 1) / kThreads;
-  composite_coarse_fwd_kernel<S><<<blocks, kThreads, 0, stream>>>(
-      rgb, dens, dist, depth, BR, N, out);
-}
-
-// The segmented kernels at S samples a lane and L lanes a ray: the vector
-// or the scalar-load variant.
-template <int S, int L>
-void launch_st_seg(const float* rgb, const float* tr, const float* dens,
-                   const float* depth, const float* dist, int BR, int N,
-                   float min_uncert, bool vec, int blocks, float* out,
-                   cudaStream_t stream) {
-  if (vec)
-    composite_st_fwd_seg_kernel<S, L, true>
-        <<<blocks, kSegThreads, 0, stream>>>(rgb, tr, dens, depth, dist, BR,
-                                             N, min_uncert, out);
-  else
-    composite_st_fwd_seg_kernel<S, L, false>
-        <<<blocks, kSegThreads, 0, stream>>>(rgb, tr, dens, depth, dist, BR,
-                                             N, min_uncert, out);
-}
-
-template <int S, int L>
-void launch_coarse_bwd_seg(const float* rgb, const float* dens,
-                           const float* dist, const float* depth,
-                           const float* g, int BR, int N, bool vec,
-                           int blocks, float* d_rgb, float* d_dens,
-                           cudaStream_t stream) {
-  if (vec)
-    composite_coarse_bwd_seg_kernel<S, L, true>
-        <<<blocks, kSegThreads, 0, stream>>>(rgb, dens, dist, depth, g, BR, N,
-                                             d_rgb, d_dens);
-  else
-    composite_coarse_bwd_seg_kernel<S, L, false>
-        <<<blocks, kSegThreads, 0, stream>>>(rgb, dens, dist, depth, g, BR, N,
-                                             d_rgb, d_dens);
-}
-
-// The (S, L) pairs the wrapper plans (kernels/composite.py segment_plan):
-// S = 2 with L = 1..32 up to 64 samples a ray, then S = 4 and S = 8 with
-// L = 32.
-#define SEG_PLANS(X) \
-  X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(2, 16) X(2, 32) X(4, 32) X(8, 32)
-
-#ifndef COMPOSITE_WARP_PER_RAY
-// The launch the wrapper planned covers every sample and every ray: S·L ≥
-// N and blocks·kSegThreads ≥ BR·L lanes (the (S, L) pair itself is checked
-// by the entries' switch over SEG_PLANS).
-bool seg_plan_ok(int BR, int N, int samples, int lanes, int blocks) {
-  return N <= samples * lanes &&
-         (long long)blocks * kSegThreads >= (long long)BR * lanes;
-}
-#else
-template <int S>
-void launch_coarse_bwd(const float* rgb, const float* dens, const float* dist,
-                       const float* depth, const float* g, int BR, int N,
-                       float* d_rgb, float* d_dens, cudaStream_t stream) {
-  const int blocks = (BR * 32 + kThreads - 1) / kThreads;
-  composite_coarse_bwd_kernel<S><<<blocks, kThreads, 0, stream>>>(
-      rgb, dens, dist, depth, g, BR, N, d_rgb, d_dens);
-}
-
-template <int S>
-void launch(const float* rgb, const float* tr, const float* dens,
-            const float* depth, const float* dist, int BR, int N,
-            float min_uncert, float* out, cudaStream_t stream) {
-  const int blocks = (BR * 32 + kThreads - 1) / kThreads;
-  composite_st_fwd_kernel<S><<<blocks, kThreads, 0, stream>>>(
-      rgb, tr, dens, depth, dist, BR, N, min_uncert, out);
-}
-
-#endif  // COMPOSITE_WARP_PER_RAY
-
-template <int S>
-void launch_bwd(const float* rgb, const float* tr, const float* dens,
-                const float* dist, const float* g, int BR, int N,
-                float* d_rgb, float* d_tr, cudaStream_t stream) {
-  const int blocks = (BR * 32 + kThreads - 1) / kThreads;
-  composite_st_bwd_kernel<S><<<blocks, kThreads, 0, stream>>>(
-      rgb, tr, dens, dist, g, BR, N, d_rgb, d_tr);
-}
 
 }  // namespace
 
-// Launches the forward on `stream` as planned: `samples` a lane, `lanes`
-// a ray, vector loads if `vec`, `blocks` blocks (the
-// -DCOMPOSITE_WARP_PER_RAY build ignores the plan and launches the
-// warp-per-ray form); returns cudaGetLastError() (0 = launched).
+// The (S, L) pairs the wrapper plans (kernels/composite.py segment_plan):
+// L = 32 lanes a ray, S = 2 up to 64 samples, 4 up to 128, 8 up to 256.
+// SEG_LAUNCH(launch) runs `launch` with S, L and VEC constexpr as planned
+// by the entry's (samples, lanes, vec, blocks); the entry returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan that is not one
+// of these or does not cover every sample and every ray (S·L ≥ N,
+// blocks·kSegThreads ≥ BR·L lanes).
+#define SEG_PLANS(...)          \
+  SEG_CASE(2, 32, __VA_ARGS__)  \
+  SEG_CASE(4, 32, __VA_ARGS__)  \
+  SEG_CASE(8, 32, __VA_ARGS__)
+#define SEG_VARIANT(S_, L_, VEC_, ...) \
+  {                                    \
+    constexpr int S = S_, L = L_;      \
+    constexpr bool VEC = VEC_;         \
+    __VA_ARGS__;                       \
+  }
+#define SEG_CASE(S_, L_, ...)                       \
+  case S_ * 64 + L_:                                \
+    if (vec)                                        \
+      SEG_VARIANT(S_, L_, true, __VA_ARGS__)        \
+    else                                            \
+      SEG_VARIANT(S_, L_, false, __VA_ARGS__)       \
+    break;
+#define SEG_LAUNCH(...)                                          \
+  if (N > samples * lanes ||                                     \
+      (long long)blocks * kSegThreads < (long long)BR * lanes)   \
+    return (int)cudaErrorInvalidValue;                           \
+  switch (samples * 64 + lanes) {                                \
+    SEG_PLANS(__VA_ARGS__)                                       \
+    default:                                                     \
+      return (int)cudaErrorInvalidValue;                         \
+  }                                                              \
+  return (int)cudaGetLastError();
+
+// The warp-per-ray forms: WARP_LAUNCH(launch) runs `launch` with S =
+// ⌈N/32⌉ rounded up to a power of two constexpr (N ≤ 256).
+#define WARP_CASE(S_, ...)   \
+  {                          \
+    constexpr int S = S_;    \
+    __VA_ARGS__;             \
+  }
+#define WARP_LAUNCH(...)                 \
+  if (N <= 32)                           \
+    WARP_CASE(1, __VA_ARGS__)            \
+  else if (N <= 64)                      \
+    WARP_CASE(2, __VA_ARGS__)            \
+  else if (N <= 128)                     \
+    WARP_CASE(4, __VA_ARGS__)            \
+  else if (N <= 256)                     \
+    WARP_CASE(8, __VA_ARGS__)            \
+  else                                   \
+    return (int)cudaErrorInvalidValue;   \
+  return (int)cudaGetLastError();
+
+// Each entry launches its kernel on `stream` as the wrapper planned it:
+// `samples` a lane, `lanes` a ray, vector loads if `vec`, `blocks` blocks
+// (the -DCOMPOSITE_WARP_PER_RAY build ignores the plan of rows 4, 9a and
+// 9b and launches their warp-per-ray forms); returns cudaGetLastError()
+// (0 = launched).
+
+// Row 3: → packed [BR,16].
 extern "C" int composite_st_fwd(const void* rgb, const void* tr,
                                 const void* dens, const void* depth,
                                 const void* dist, int BR, int N,
@@ -351,6 +298,7 @@ extern "C" int composite_st_fwd(const void* rgb, const void* tr,
                                 int vec, int blocks, void* out,
                                 void* stream) {
   if (BR <= 0) return 0;
+  if (N <= 0) return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(rgb);
   const float* b = static_cast<const float*>(tr);
   const float* c = static_cast<const float*>(dens);
@@ -358,44 +306,20 @@ extern "C" int composite_st_fwd(const void* rgb, const void* tr,
   const float* e = static_cast<const float*>(dist);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 0) return (int)cudaErrorInvalidValue;
-#ifdef COMPOSITE_WARP_PER_RAY
-  (void)samples, (void)lanes, (void)vec, (void)blocks;
-  if (N <= 32)
-    launch<1>(a, b, c, d, e, BR, N, min_uncert, o, st);
-  else if (N <= 64)
-    launch<2>(a, b, c, d, e, BR, N, min_uncert, o, st);
-  else if (N <= 128)
-    launch<4>(a, b, c, d, e, BR, N, min_uncert, o, st);
-  else if (N <= 256)
-    launch<8>(a, b, c, d, e, BR, N, min_uncert, o, st);
-  else
-    return (int)cudaErrorInvalidValue;
-#else
-  if (!seg_plan_ok(BR, N, samples, lanes, blocks))
-    return (int)cudaErrorInvalidValue;
-#define ST_CASE(S_, L_)                                                     \
-  case S_ * 64 + L_:                                                        \
-    launch_st_seg<S_, L_>(a, b, c, d, e, BR, N, min_uncert, vec, blocks, o, \
-                          st);                                              \
-    break;
-  switch (samples * 64 + lanes) {
-    SEG_PLANS(ST_CASE)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef ST_CASE
-#endif
-  return (int)cudaGetLastError();
+  SEG_LAUNCH(
+    composite_st_fwd_seg_kernel<S, L, VEC>
+        <<<blocks, kSegThreads, 0, st>>>(a, b, c, d, e, BR, N, min_uncert,
+                                         o));
 }
 
-// Launches the backward on `stream`: g [BR,16] → d_rgb [M,3], d_tr [M,5];
-// returns cudaGetLastError() (0 = launched).
+// Row 4: g [BR,16] → d_rgb [M,3], d_tr [M,5].
 extern "C" int composite_st_bwd(const void* rgb, const void* tr,
                                 const void* dens, const void* dist,
-                                const void* g, int BR, int N, void* d_rgb,
+                                const void* g, int BR, int N, int samples,
+                                int lanes, int vec, int blocks, void* d_rgb,
                                 void* d_tr, void* stream) {
   if (BR <= 0) return 0;
+  if (N <= 0) return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(rgb);
   const float* b = static_cast<const float*>(tr);
   const float* c = static_cast<const float*>(dens);
@@ -404,22 +328,45 @@ extern "C" int composite_st_bwd(const void* rgb, const void* tr,
   float* o1 = static_cast<float*>(d_rgb);
   float* o2 = static_cast<float*>(d_tr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 0) return (int)cudaErrorInvalidValue;
-  if (N <= 32)
-    launch_bwd<1>(a, b, c, e, gg, BR, N, o1, o2, st);
-  else if (N <= 64)
-    launch_bwd<2>(a, b, c, e, gg, BR, N, o1, o2, st);
-  else if (N <= 128)
-    launch_bwd<4>(a, b, c, e, gg, BR, N, o1, o2, st);
-  else if (N <= 256)
-    launch_bwd<8>(a, b, c, e, gg, BR, N, o1, o2, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#ifdef COMPOSITE_WARP_PER_RAY
+  WARP_LAUNCH(
+    composite_st_bwd_kernel<S>
+        <<<warp_blocks(BR), kThreads, 0, st>>>(a, b, c, e, gg, BR, N, o1,
+                                               o2));
+#else
+  SEG_LAUNCH(
+    composite_st_bwd_seg_kernel<S, L, VEC>
+        <<<blocks, kSegThreads, 0, st>>>(a, b, c, e, gg, BR, N, o1, o2));
+#endif
 }
 
-// Launches the coarse backward on `stream` as planned (as the forward):
-// g [BR,8] → d_rgb [M,3], d_dens [M,1]; returns cudaGetLastError().
+// Row 9a: rgb_raw [M,3], dens_raw [M,1], dist, depth [BR,N] → packed
+// [BR,8].
+extern "C" int composite_coarse_fwd(const void* rgb, const void* dens,
+                                    const void* dist, const void* depth,
+                                    int BR, int N, int samples, int lanes,
+                                    int vec, int blocks, void* out,
+                                    void* stream) {
+  if (BR <= 0) return 0;
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  const float* a = static_cast<const float*>(rgb);
+  const float* b = static_cast<const float*>(dens);
+  const float* c = static_cast<const float*>(dist);
+  const float* d = static_cast<const float*>(depth);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef COMPOSITE_WARP_PER_RAY
+  WARP_LAUNCH(
+    composite_coarse_fwd_kernel<S>
+        <<<warp_blocks(BR), kThreads, 0, st>>>(a, b, c, d, BR, N, o));
+#else
+  SEG_LAUNCH(
+    composite_coarse_fwd_seg_kernel<S, L, VEC>
+        <<<blocks, kSegThreads, 0, st>>>(a, b, c, d, BR, N, o));
+#endif
+}
+
+// Row 9b: g [BR,8] → d_rgb [M,3], d_dens [M,1].
 extern "C" int composite_coarse_bwd(const void* rgb, const void* dens,
                                     const void* dist, const void* depth,
                                     const void* g, int BR, int N,
@@ -427,6 +374,7 @@ extern "C" int composite_coarse_bwd(const void* rgb, const void* dens,
                                     int blocks, void* d_rgb, void* d_dens,
                                     void* stream) {
   if (BR <= 0) return 0;
+  if (N <= 0) return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(rgb);
   const float* b = static_cast<const float*>(dens);
   const float* c = static_cast<const float*>(dist);
@@ -435,59 +383,14 @@ extern "C" int composite_coarse_bwd(const void* rgb, const void* dens,
   float* o1 = static_cast<float*>(d_rgb);
   float* o2 = static_cast<float*>(d_dens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 0) return (int)cudaErrorInvalidValue;
 #ifdef COMPOSITE_WARP_PER_RAY
-  (void)samples, (void)lanes, (void)vec, (void)blocks;
-  if (N <= 32)
-    launch_coarse_bwd<1>(a, b, c, d, gg, BR, N, o1, o2, st);
-  else if (N <= 64)
-    launch_coarse_bwd<2>(a, b, c, d, gg, BR, N, o1, o2, st);
-  else if (N <= 128)
-    launch_coarse_bwd<4>(a, b, c, d, gg, BR, N, o1, o2, st);
-  else if (N <= 256)
-    launch_coarse_bwd<8>(a, b, c, d, gg, BR, N, o1, o2, st);
-  else
-    return (int)cudaErrorInvalidValue;
+  WARP_LAUNCH(
+    composite_coarse_bwd_kernel<S>
+        <<<warp_blocks(BR), kThreads, 0, st>>>(a, b, c, d, gg, BR, N, o1,
+                                               o2));
 #else
-  if (!seg_plan_ok(BR, N, samples, lanes, blocks))
-    return (int)cudaErrorInvalidValue;
-#define BWD_CASE(S_, L_)                                                    \
-  case S_ * 64 + L_:                                                        \
-    launch_coarse_bwd_seg<S_, L_>(a, b, c, d, gg, BR, N, vec, blocks, o1,   \
-                                  o2, st);                                  \
-    break;
-  switch (samples * 64 + lanes) {
-    SEG_PLANS(BWD_CASE)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef BWD_CASE
+  SEG_LAUNCH(
+    composite_coarse_bwd_seg_kernel<S, L, VEC>
+        <<<blocks, kSegThreads, 0, st>>>(a, b, c, d, gg, BR, N, o1, o2));
 #endif
-  return (int)cudaGetLastError();
-}
-
-// Launches the coarse forward on `stream`: rgb_raw [M,3], dens_raw [M,1],
-// dist, depth [BR,N] → packed [BR,8]; returns cudaGetLastError().
-extern "C" int composite_coarse_fwd(const void* rgb, const void* dens,
-                                    const void* dist, const void* depth,
-                                    int BR, int N, void* out, void* stream) {
-  if (BR <= 0) return 0;
-  const float* a = static_cast<const float*>(rgb);
-  const float* b = static_cast<const float*>(dens);
-  const float* c = static_cast<const float*>(dist);
-  const float* d = static_cast<const float*>(depth);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 0) return (int)cudaErrorInvalidValue;
-  if (N <= 32)
-    launch_coarse_fwd<1>(a, b, c, d, BR, N, o, st);
-  else if (N <= 64)
-    launch_coarse_fwd<2>(a, b, c, d, BR, N, o, st);
-  else if (N <= 128)
-    launch_coarse_fwd<4>(a, b, c, d, BR, N, o, st);
-  else if (N <= 256)
-    launch_coarse_fwd<8>(a, b, c, d, BR, N, o, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
 }

@@ -1,46 +1,57 @@
 // Segmented composites: a segment of L lanes per ray, S consecutive samples
-// per lane, L = the power of two ≥ ⌈N/S⌉ (≤ 32), 32/L rays per warp.  The
-// per-ray bodies of the composite kernels of rows 3 (dual composite
-// forward) and 9b (single-density composite backward) in composite.cu;
-// rows 4 and 9a can take the same bodies.
+// per lane, L = 32 (the launches, kernels/composite.py segment_plan; the
+// bodies take any power of two L ≥ ⌈N/S⌉, 32/L rays a warp).  The per-ray
+// bodies of the four composite kernels in composite.cu: rows 3 (dual
+// composite forward), 4 (its VJP), 9a (single-density composite forward)
+// and 9b (its VJP).
 //
 // Replaces, as device functions: texpose_tpu/kernels/fused_composite.py::
-// _forward_core + _fwd_cols and texpose_tpu/kernels/
-// fused_composite_coarse.py::_bwd_kernel.  The TPU kernels' triangular-
-// matmul cumsums become running sums inside the lane plus segmented shuffle
-// scans (log2 L steps, shfl width L) of the lane totals.  All in float32,
-// with the activations of composite_coarse.cuh (sigmoidf_ with the IEEE
-// division, softplusf_ with jax.nn.softplus's formula), as the twins and
-// the per-ray bodies of the fused epilogues.
+// _forward_core + _fwd_cols and _bwd_cols, texpose_tpu/kernels/
+// fused_composite_coarse.py::_fwd_kernel and _bwd_kernel.  The TPU
+// kernels' triangular-matmul cumsums become running sums inside the lane
+// plus segmented shuffle scans (log2 L steps, shfl width L) of the lane
+// totals.  All in float32, with the activations of composite_coarse.cuh
+// (sigmoidf_ with the IEEE division, softplusf_ with jax.nn.softplus's
+// formula), as the twins and the per-ray bodies of the fused epilogues.
 //
-// What bounds them: by their bytes, memory (rows 3 / 9b: 44 / 24 B read
-// per sample, 64 B per ray / 16 B per sample written); measured (PERF.md),
-// the issue of their instructions, most of them the expf / division /
-// log1pf sequences of the activations and transmittances, then, with the
-// inputs in device memory, their loads: the whole grid is one wave, so the
-// loads and the arithmetic do not overlap, and neither coalescing the
-// loads through shared memory, another block size nor issuing two rays'
-// loads a segment before any arithmetic made them faster.  So the samples
-// a lane are chosen for threads, not for load width: the wrapper
-// (kernels/composite.py segment_plan) takes S = 2 up to 64 samples a ray,
-// 4 up to 128, 8 up to 256, so 2048 rays × 64 samples keep 65,536
+// What bounds them: by their bytes, memory (per sample, rows 3 / 4 / 9a /
+// 9b read 44 / 40 / 24 / 24 B; row 3 writes 64 B a ray, row 4 32 B a
+// sample, 9a 32 B a ray, 9b 16 B a sample); measured (PERF.md), the issue
+// of their instructions, most of them the expf / division / log1pf
+// sequences of the activations and transmittances, then, with the inputs
+// in device memory, their loads: the whole grid is one wave, so the loads
+// and the arithmetic do not overlap, and neither coalescing the loads
+// through shared memory, another block size nor issuing two rays' loads a
+// segment before any arithmetic made them faster.  So the samples a lane
+// are chosen for threads, not for load width: S = 2 up to 64 samples a
+// ray, 4 up to 128, 8 up to 256, so 2048 rays × 64 samples keep 65,536
 // threads, 16 warps an SM; S = 8 there left one warp per scheduler and ran
-// 1.3-1.9× slower.  The rest of the design:
-//  - vector loads when VEC: a lane's S rows are contiguous and whole when
-//    every input's base is 16-byte aligned and N % S == 0, so a vector load
-//    never reads past the ray's last row (rgb 3·S floats, trans 5·S, dens /
-//    dist / depth S each: float4s at S ≥ 4, float2s at S = 2); otherwise
-//    (N = 99, an offset view) the same body with scalar loads;
-//  - fewer instructions: the forward's transmittances come from two
-//    exclusive sums (static, transient) taken in the same log2 L shuffle
-//    steps (no "inclusive − own": see seg_exclusive), then by products
-//    inside the lane (T = T_s·T_t, T_{n+1} = T_n·e^{−σδ_n}); the
-//    forward's 16 columns are reduced by recursive halving (8 + 4 + 2 + 1 + 1 = 16 shuffles at
-//    L = 32, against 75 butterflies) and the segment writes its packed row
-//    with coalesced stores by its lanes, not by lane 0;
+// 1.3-1.9× slower, and row 4 at S = 1 over two warps a ray (131,072
+// threads, the warps' totals exchanged through shared memory) ran slower
+// than at S = 2 (PERF.md).  The rest of the design:
+//  - vector loads and stores when VEC: a lane's S rows are contiguous and
+//    whole when every input's base is 16-byte aligned and N % S == 0, so a
+//    vector access never passes the ray's last row (rgb 3·S floats, trans
+//    5·S, dens / dist / depth S each: float4s at S ≥ 4, float2s at S = 2);
+//    otherwise (N = 99, an offset view) the same body with scalar loads;
+//  - fewer instructions: the transmittances come from one exclusive scan
+//    of the lane totals (both densities' at once in rows 3 and 4; no
+//    "inclusive − own": see seg_exclusive), then, in rows 3, 4 and 9a, by
+//    products inside the lane (T = T_s·T_t, T_{n+1} = T_n·e^{−σδ_n},
+//    e = e_s·e_t): one expf a sample and density instead of one per
+//    transmittance and weight; the VJPs' suffix sums are one
+//    seg_strict_suffix of the lane totals;
+//  - the forwards' columns are reduced by recursive halving (row 3's 16:
+//    8 + 4 + 2 + 1 + 1 = 16 shuffles at L = 32, against 75 butterflies;
+//    9a's 8, three of them zero: 4 + 2 + 1 + 2 = 9, against 25) and the
+//    segment writes its packed row with coalesced stores by the lanes that
+//    hold the sums, not by lane 0;
+//  - the VJPs' cotangent row is read by every lane of the segment (row 4:
+//    four broadcast float4 loads) or by lane 0 and broadcast by shuffle
+//    (9b);
 //  - no branch per sample: a sample past N loads zeros, and its zero
-//    interval δ makes every weight it carries zero, so only the forward's
-//    sum of transient densities (column 14) masks it.
+//    interval δ makes every weight it carries zero, so only row 3's sum of
+//    transient densities (column 14) masks it; nothing past N is stored.
 // Every lane of the warp reaches every shuffle: a lane past the last ray
 // computes on zeros and stores nothing.
 
@@ -67,6 +78,7 @@ struct SegLog<1> {
 template <int n, bool VEC>
 __device__ __forceinline__ void seg_load(const float* __restrict__ p,
                                          bool live, float (&v)[n]) {
+  static_assert(!VEC || n % 2 == 0, "vector loads of an even count");
 #pragma unroll
   for (int i = 0; i < n; ++i) v[i] = 0.f;
   if (!live) return;
@@ -120,6 +132,7 @@ template <int n, bool VEC>
 __device__ __forceinline__ void seg_store(float* __restrict__ p, bool live,
                                           int first, int N, int C,
                                           const float (&v)[n]) {
+  static_assert(!VEC || n % 2 == 0, "vector stores of an even count");
   if (!live) return;
   if constexpr (VEC && n % 4 == 0) {
     float4* q = reinterpret_cast<float4*>(p);
@@ -179,21 +192,31 @@ __device__ __forceinline__ float seg_strict_suffix(float v, int seg_lane) {
   return e;
 }
 
-// Sums acc[0..15] over the segment's L lanes by recursive halving.  Step i
-// (offset L >> (i+1), the first min(log2 L, 4) steps) halves the columns a
-// lane holds: a lane whose offset bit is clear keeps the lower half and
+// The halving steps of seg_halve<L, C> (C a power of two): min(log2 L,
+// log2 C); W = C >> H columns a lane holds after them, shared by groups of
+// 2^R lanes, R = log2 L − H.
+template <int L, int C>
+struct SegHalve {
+  static constexpr int H = SegLog<L>::value < SegLog<C>::value
+                               ? SegLog<L>::value
+                               : SegLog<C>::value;
+  static constexpr int W = C >> H, R = SegLog<L>::value - H;
+};
+
+// Sums acc[0..C-1] over the segment's L lanes: H steps of recursive
+// halving, then butterflies.  Step i (offset L >> (i+1)) halves the columns
+// a lane holds: a lane whose offset bit is clear keeps the lower half and
 // sends the upper, its partner the reverse, and each adds what it receives.
-// Past 16 columns (L = 32) the last steps are plain butterflies.  After it
-// lane ℓ holds columns (ℓ >> R)·W .. (ℓ >> R)·W + W − 1 in acc[0..W−1], with
-// W = 16 >> H, H = min(log2 L, 4), R = log2 L − H; the 2^R lanes of a group
-// hold the same sums.
-template <int L>
-__device__ __forceinline__ void seg_halve16(float (&acc)[16], int seg_lane) {
-  constexpr int H = SegLog<L>::value < 4 ? SegLog<L>::value : 4;
+// Past C lanes the last R steps are plain butterflies on the W columns
+// left.  After it lane ℓ holds columns (ℓ >> R)·W .. (ℓ >> R)·W + W − 1 in
+// acc[0..W−1]; the 2^R lanes of a group hold the same sums.
+template <int L, int C>
+__device__ __forceinline__ void seg_halve(float (&acc)[C], int seg_lane) {
+  constexpr int H = SegHalve<L, C>::H, W = SegHalve<L, C>::W;
 #pragma unroll
   for (int i = 0; i < H; ++i) {
     const int o = L >> (i + 1);
-    const int half = 8 >> i;
+    const int half = (C / 2) >> i;
     const bool up = (seg_lane & o) != 0;
 #pragma unroll
     for (int j = 0; j < half; ++j) {
@@ -204,7 +227,32 @@ __device__ __forceinline__ void seg_halve16(float (&acc)[16], int seg_lane) {
   }
 #pragma unroll
   for (int o = (L >> H) >> 1; o > 0; o >>= 1)
-    acc[0] += __shfl_xor_sync(kFull, acc[0], o, L);
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      acc[j] += __shfl_xor_sync(kFull, acc[j], o, L);
+}
+
+// Stores what seg_halve<L, C> left: the first lane of each group of 2^R
+// writes its W columns to row[(ℓ >> R)·W ..] (as float4s, a float2 or a
+// float; row 16-byte aligned: the wrapper's), if `live`.
+template <int L, int C>
+__device__ __forceinline__ void seg_store_cols(const float (&acc)[C],
+                                               bool live, int seg_lane,
+                                               float* __restrict__ row) {
+  constexpr int W = SegHalve<L, C>::W, R = SegHalve<L, C>::R;
+  if (!live || (seg_lane & ((1 << R) - 1)) != 0) return;
+  float* o = row + (seg_lane >> R) * W;
+  if constexpr (W >= 4) {
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i)
+      reinterpret_cast<float4*>(o)[i] =
+          make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                      acc[4 * i + 3]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
+  } else {
+    *o = acc[0];
+  }
 }
 
 // Row 3 per segment: the NeRF-W dual-density composite of ray `ray` (< BR
@@ -279,26 +327,13 @@ __device__ __forceinline__ void composite_st_seg(
     Tt *= e_t;
   }
 
-  seg_halve16<L>(acc, seg_lane);
-  constexpr int H = SegLog<L>::value < 4 ? SegLog<L>::value : 4;
-  constexpr int W = 16 >> H, R = SegLog<L>::value - H;
+  seg_halve<L, 16>(acc, seg_lane);
+  constexpr int W = SegHalve<L, 16>::W, R = SegHalve<L, 16>::R;
   const int c0 = (seg_lane >> R) * W;
 #pragma unroll
   for (int j = 0; j < W; ++j)
     if (c0 + j == 13) acc[j] += min_uncert;
-  if (ray >= BR || (seg_lane & ((1 << R) - 1)) != 0) return;
-  float* o = out + (size_t)ray * 16 + c0;     // out: the wrapper's, aligned
-  if constexpr (W >= 4) {
-#pragma unroll
-    for (int i = 0; i < W / 4; ++i)
-      reinterpret_cast<float4*>(o)[i] =
-          make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                      acc[4 * i + 3]);
-  } else if constexpr (W == 2) {
-    *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
-  } else {
-    *o = acc[0];
-  }
+  seg_store_cols<L, 16>(acc, ray < BR, seg_lane, out + (size_t)ray * 16);
 }
 
 // Row 9b per segment: the closed-form VJP of the single-density composite
@@ -373,6 +408,157 @@ __device__ __forceinline__ void composite_coarse_bwd_seg(
   }
   seg_store<3 * S, VEC>(d_rgb + row * 3, live, first, N, 3, o_rgb);
   seg_store<S, VEC>(d_dens + row, live, first, N, 1, o_dens);
+}
+
+// Row 4 per segment: the closed-form VJP of the dual composite
+// (_bwd_cols) of ray `ray` from its packed cotangent g[ray·16 .. +14]
+// (columns as row 3's output) → d rgb_raw [M,3] and d trans_raw [M,5]; the
+// static density is frozen-trunk output and gets no gradient.  With c_s,
+// c_t the colors, σ_sδ, σ_tδ the densities times δ, T_s, T_t their
+// transmittances, T = T_s·T_t, e_x = e^{−σ_xδ}, e = e_s·e_t and the weights
+// p_s = T(1−e_s), p_t = T(1−e_t), p = T(1−e), w_s = T_s(1−e_s),
+// w_t = T_t(1−e_t):
+//   d rgb_raw_c   = (p_s·g_c + w_s·g_{3+c})·c_s(1−c_s)
+//   d trans_raw_c = (p_t·g_c + w_t·g_{6+c})·c_t(1−c_t)
+//   d trans_raw_3 = (dL/dσ_tδ · δ + g_14)·sigmoid(trans_raw_3)
+//   d trans_raw_4 = p_t·g_13·sigmoid(trans_raw_4)    (softplus' = sigmoid)
+//   dL/dσ_tδ = F_pt·T·e_t + F_wt·T_t·e_t + g_10·T·e − Σ_{n'>n} v_n'
+// with F_pt = Σ_c c_t·g_c + u·g_13, F_wt = Σ_c c_t·g_{6+c} + g_12,
+// F_ps = Σ_c c_s·g_c and v = F_ps·p_s + F_pt·p_t + g_10·p + F_wt·w_t, what
+// the sample's T and T_t pass to every earlier σ_tδ (one sum: both enter
+// with a minus sign).  The transmittances as in row 3: one 2-value
+// segmented scan of the lane totals, then products inside the lane; the
+// suffix sum one seg_strict_suffix of the lane totals of v.  Every lane
+// reads the cotangent row itself (the lanes of a ray read the same
+// address: one broadcast load per float4).  A sample past N (zero loads,
+// δ = 0) has zero weights and v, so it moves no sum, and is not stored.
+template <int S, int L, bool VEC>
+__device__ __forceinline__ void composite_st_bwd_seg(
+    const float* __restrict__ rgb, const float* __restrict__ tr,
+    const float* __restrict__ dens, const float* __restrict__ dist,
+    const float* __restrict__ gpk, int ray, int BR, int N, int seg_lane,
+    float* __restrict__ d_rgb, float* __restrict__ d_tr) {
+  const int first = seg_lane * S;
+  const bool live = ray < BR && first < N;
+  const size_t row = (size_t)ray * N + first;
+  float g[16];                                // column 15 is padding
+  seg_load<16, VEC>(gpk + (size_t)ray * 16, ray < BR, g);
+  float r[3 * S], t[5 * S], dn[S], dd[S];
+  seg_rows<S, 3, VEC>(rgb + row * 3, live, first, N, r);
+  seg_rows<S, 5, VEC>(tr + row * 5, live, first, N, t);
+  seg_rows<S, 1, VEC>(dens + row, live, first, N, dn);
+  seg_rows<S, 1, VEC>(dist + row, live, first, N, dd);
+
+  float cs[3][S], ct[3][S], u[S], sg3[S], sg4[S], sds[S], sdt[S];
+  float tot[2] = {0.f, 0.f};                  // static, transient
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      cs[c][s] = sigmoidf_(r[3 * s + c]);
+      ct[c][s] = sigmoidf_(t[5 * s + c]);
+    }
+    u[s] = softplusf_(t[5 * s + 4]);
+    sg3[s] = sigmoidf_(t[5 * s + 3]);
+    sg4[s] = sigmoidf_(t[5 * s + 4]);
+    sds[s] = softplusf_(dn[s]) * dd[s];
+    sdt[s] = softplusf_(t[5 * s + 3]) * dd[s];
+    tot[0] += sds[s];
+    tot[1] += sdt[s];
+  }
+  seg_exclusive<L, 2>(tot, seg_lane);
+  float Ts = expf(-tot[0]), Tt = expf(-tot[1]);
+
+  float ps[S], pt[S], ws[S], wt[S], loc[S], v[S];
+  float vtot = 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float e_s = expf(-sds[s]), e_t = expf(-sdt[s]), e = e_s * e_t;
+    const float T = Ts * Tt;
+    ps[s] = T * (1.f - e_s);
+    pt[s] = T * (1.f - e_t);
+    ws[s] = Ts * (1.f - e_s);
+    wt[s] = Tt * (1.f - e_t);
+    const float pj = T * (1.f - e);
+    float F_ps = 0.f, F_pt = u[s] * g[13], F_wt = g[12];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      F_ps += cs[c][s] * g[c];
+      F_pt += ct[c][s] * g[c];
+      F_wt += ct[c][s] * g[6 + c];
+    }
+    loc[s] = F_pt * T * e_t + F_wt * Tt * e_t + g[10] * T * e;
+    v[s] = F_ps * ps[s] + F_pt * pt[s] + g[10] * pj + F_wt * wt[s];
+    vtot += v[s];
+    Ts *= e_s;
+    Tt *= e_t;
+  }
+  float suf = seg_strict_suffix<L>(vtot, seg_lane);
+  float o_rgb[3 * S], o_tr[5 * S];
+#pragma unroll
+  for (int s = S - 1; s >= 0; --s) {
+    const float strict = suf;                 // Σ_{n' > n} v_n'
+    suf += v[s];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o_rgb[3 * s + c] =
+          (ps[s] * g[c] + ws[s] * g[3 + c]) * cs[c][s] * (1.f - cs[c][s]);
+      o_tr[5 * s + c] =
+          (pt[s] * g[c] + wt[s] * g[6 + c]) * ct[c][s] * (1.f - ct[c][s]);
+    }
+    o_tr[5 * s + 3] = ((loc[s] - strict) * dd[s] + g[14]) * sg3[s];
+    o_tr[5 * s + 4] = pt[s] * g[13] * sg4[s];
+  }
+  seg_store<3 * S, VEC>(d_rgb + row * 3, live, first, N, 3, o_rgb);
+  seg_store<5 * S, VEC>(d_tr + row * 5, live, first, N, 5, o_tr);
+}
+
+// Row 9a per segment: the single-density composite of ray `ray` → the
+// packed row out[ray·8 .. +7] = Σ w·c (0-2) | Σ w·depth (3) | Σ w (4) |
+// 0, 0, 0, with c = sigmoid(rgb_raw), σδ = softplus(dens_raw)·δ,
+// w = T·(1 − e^{−σδ}).  T from one segmented scan of the lane totals,
+// then T_{n+1} = T_n·e^{−σδ_n} inside the lane (one expf a sample for
+// the weights).  The 8 columns (three of them zero) are reduced by
+// recursive halving and written by the lanes that hold them.  A sample
+// past N (zero loads, δ = 0) weighs nothing.
+template <int S, int L, bool VEC>
+__device__ __forceinline__ void composite_coarse_seg(
+    const float* __restrict__ rgb, const float* __restrict__ dens,
+    const float* __restrict__ dist, const float* __restrict__ depth,
+    int ray, int BR, int N, int seg_lane, float* __restrict__ out) {
+  const int first = seg_lane * S;
+  const bool live = ray < BR && first < N;
+  const size_t row = (size_t)ray * N + first;
+  float r[3 * S], x[S], dd[S], dp[S];
+  seg_rows<S, 3, VEC>(rgb + row * 3, live, first, N, r);
+  seg_rows<S, 1, VEC>(dens + row, live, first, N, x);
+  seg_rows<S, 1, VEC>(dist + row, live, first, N, dd);
+  seg_rows<S, 1, VEC>(depth + row, live, first, N, dp);
+
+  float cs[3][S], sd[S];
+  float tot[1] = {0.f};
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cs[c][s] = sigmoidf_(r[3 * s + c]);
+    sd[s] = softplusf_(x[s]) * dd[s];
+    tot[0] += sd[s];
+  }
+  seg_exclusive<L, 1>(tot, seg_lane);
+  float T = expf(-tot[0]);
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float e = expf(-sd[s]);
+    const float w = T * (1.f - e);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[c] += w * cs[c][s];
+    acc[3] += w * dp[s];
+    acc[4] += w;
+    T *= e;
+  }
+  seg_halve<L, 8>(acc, seg_lane);
+  seg_store_cols<L, 8>(acc, ray < BR, seg_lane, out + (size_t)ray * 8);
 }
 
 }  // namespace

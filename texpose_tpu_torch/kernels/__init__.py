@@ -23,6 +23,11 @@ wrapper counts its kernel launches in a ``launches`` attribute.
                                     fwd (field + composite)
   st_render.st_render_bwd         ← texpose_tpu/kernels/fused_st_render.py
                                     bwd (fully fused)
+The four composites (``composite_st_fwd``/``_bwd``, rows 3/4;
+``composite_coarse_fwd``/``_bwd``, rows 9a/9b) are segmented kernels of
+``csrc/composite.cu`` on the bodies of ``csrc/composite_seg.cuh``, launched
+as ``composite.segment_plan`` plans them (32 lanes a ray, 2-8 samples a
+lane).
 ``st_field.st_field``, ``composite.fused_composite_st``,
 ``coarse_field.coarse_render``, ``coarse_field.coarse_field`` and
 ``st_render.fused_st_render`` pair each forward with its backward in a

@@ -20,9 +20,9 @@ Packed output columns [BR,16]:
 The single-density composite replaces texpose_tpu/kernels/
 fused_composite_coarse.py (``fused_composite_coarse``): its forward
 (``_run_fwd``, and ``_run_fwd_flat`` with ``kernels.composite_flat``) is
-``composite_coarse_fwd`` (twin ``composite_coarse_plain``; the same device
-function runs as the epilogue of the coarse mega forward,
-``csrc/coarse_field.cu``), its backward (``_run_bwd`` / ``_run_bwd_flat``,
+``composite_coarse_fwd`` (twin ``composite_coarse_plain``; the warp-per-ray
+device function of the same composite runs as the epilogue of the coarse
+mega forward, ``csrc/field_fwd.cuh``), its backward (``_run_bwd`` / ``_run_bwd_flat``,
 the closed-form VJP to rgb AND density) is ``composite_coarse_bwd``.  Both
 read the field's flat [M,3]/[M,1] outputs, N ≤ 256 samples per ray.
 Packed columns [BR,8]: 0-2 rgb | 3 depth | 4 opacity | 5-7 zero.
@@ -147,26 +147,26 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "composite_st_fwd": [_P] * 5 + [_I, _I, ctypes.c_float] + [_I] * 4
     + [_P, _P],
-    "composite_st_bwd": [_P] * 5 + [_I, _I] + [_P] * 3,
+    "composite_st_bwd": [_P] * 5 + [_I] * 6 + [_P] * 3,
     "composite_coarse_bwd": [_P] * 5 + [_I] * 6 + [_P] * 3,
-    "composite_coarse_fwd": [_P] * 4 + [_I, _I] + [_P] * 2,
+    "composite_coarse_fwd": [_P] * 4 + [_I] * 6 + [_P] * 2,
 }
 MAX_SAMPLES = 256      # the composite kernels' samples per ray
 SEG_THREADS = 256      # csrc/composite.cu kSegThreads
 
 
 def segment_plan(BR, N, ptrs):
-    """The launch of a segmented composite kernel (rows 3 and 9b): (S
-    samples a lane, L lanes a ray, vector loads?, blocks of SEG_THREADS).
-    S is 2 up to 64 samples a ray, 4 up to 128, 8 up to 256: the kernels
-    are bound by issuing their instructions, so S is the least that keeps
-    a ray inside one warp (csrc/composite_seg.cuh).  L is the power of two
-    ≥ ⌈N/S⌉; 32/L rays share a warp.  The vector-load variant needs every
-    base pointer in ``ptrs`` 16-byte aligned and N % S == 0: then a lane's
-    S rows are whole and aligned, so no vector load reads past the ray's
+    """The launch of a segmented composite kernel (rows 3, 4, 9a and 9b):
+    (S samples a lane, L lanes a ray, vector loads?, blocks of
+    SEG_THREADS).  L is 32, one ray a warp; S is 2 up to 64 samples a ray,
+    4 up to 128, 8 up to 256: the kernels are bound by issuing their
+    instructions, so S is the least that keeps a ray inside one warp
+    (csrc/composite_seg.cuh).  The vector-load variant needs every base
+    pointer in ``ptrs`` 16-byte aligned and N % S == 0: then a lane's S
+    rows are whole and aligned, so no vector load reads past the ray's
     last row; otherwise the scalar-load variant of the same kernel runs."""
     samples = 2 if N <= 64 else 4 if N <= 128 else 8
-    lanes = 1 << ((N + samples - 1) // samples - 1).bit_length()
+    lanes = 32
     bits = 0
     for p in ptrs:
         bits |= p
@@ -244,7 +244,8 @@ composite_st_fwd.launches = 0
 def composite_st_bwd(rgb_raw, trans_raw, dens_raw, dist, g):
     """(d rgb_raw [M,3], d trans_raw [M,5]) from the packed cotangent g
     [BR,16].  CPU tensors take ``composite_st_bwd_plain``; CUDA tensors
-    launch the kernel or raise."""
+    launch the segmented kernel (vector or scalar loads, as
+    ``segment_plan`` finds) or raise."""
     if not _on_card(rgb_raw, "composite_st_bwd"):
         return composite_st_bwd_plain(rgb_raw, trans_raw, dens_raw, dist, g)
     BR, N = dist.shape
@@ -256,9 +257,9 @@ def composite_st_bwd(rgb_raw, trans_raw, dens_raw, dist, g):
     d_rgb = rgb_raw.new_empty((M, 3))
     d_tr = rgb_raw.new_empty((M, 5))
     _build.check(_kernels().composite_st_bwd(
-        *ptrs, BR, N, d_rgb.data_ptr(), d_tr.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(rgb_raw.get_device())),
-        "composite_st_bwd")
+        *ptrs, BR, N, *segment_plan(BR, N, ptrs), d_rgb.data_ptr(),
+        d_tr.data_ptr(), torch._C._cuda_getCurrentRawStream(
+            rgb_raw.get_device())), "composite_st_bwd")
     composite_st_bwd.launches += 1
     return d_rgb, d_tr
 
@@ -275,7 +276,8 @@ def _check_samples(what, N):
 def composite_coarse_fwd(rgb_raw, dens_raw, depth, dist):
     """Packed [BR,8] single-density composite of the raw field outputs.
     CPU tensors take ``composite_coarse_plain``; CUDA tensors launch the
-    kernel (N ≤ 256) or raise."""
+    segmented kernel (vector or scalar loads, as ``segment_plan`` finds;
+    N ≤ 256) or raise."""
     if not _on_card(rgb_raw, "composite_coarse_fwd"):
         return composite_coarse_plain(rgb_raw, dens_raw, depth, dist)
     BR, N = depth.shape
@@ -285,7 +287,7 @@ def composite_coarse_fwd(rgb_raw, dens_raw, depth, dist):
                         (rgb_raw, dens_raw, dist, depth), (3 * M, M, M, M))
     out = rgb_raw.new_empty((BR, N_OUT_COARSE))
     _build.check(_kernels().composite_coarse_fwd(
-        *ptrs, BR, N, out.data_ptr(),
+        *ptrs, BR, N, *segment_plan(BR, N, ptrs), out.data_ptr(),
         torch._C._cuda_getCurrentRawStream(rgb_raw.get_device())),
         "composite_coarse_fwd")
     composite_coarse_fwd.launches += 1

@@ -21,16 +21,18 @@ Per row, beside its bound (chip_smoke.py's ``bound``):
   event    one call between two CUDA events (median of 20), the figure
            the earlier records give.
 First the graph's floor per launch (a 1-element fill, the least a kernel
-alone can read). With --ab, rows 3 and 9b also run in turns old / new /
-new / old: old is csrc/composite.cu built with -DCOMPOSITE_WARP_PER_RAY
-(the warp-per-ray forms the segmented kernels replaced) into
-build/probe_composite/, launched through ``legacy_*`` below, a copy of
-the wrappers' host path as it stood before the segmented kernels
-(checks, ``.contiguous()``, ``_build``-style lookup under a lock, a new
-``ctypes.c_void_p`` stream per call); new is the package's build through
-the package's wrappers. chip_smoke.py loads this file for the same
-comparison. With --host it times the pieces of composite_st_fwd's launch
-path on the host. Prints the card's name and power limit.
+alone can read). With --ab, rows 4, 9a and 9b (9a at both sample counts)
+also run in turns old / new / new / old: old is
+csrc/composite.cu built with -DCOMPOSITE_WARP_PER_RAY (the warp-per-ray
+forms the segmented kernels replaced) into build/probe_composite/,
+launched through ``legacy_*`` below, a copy of the wrappers' host path as
+it stood before the segmented kernels (checks, ``.contiguous()``,
+``_build``-style lookup under a lock, a new ``ctypes.c_void_p`` stream
+per call); new is the package's build through the package's wrappers.
+chip_smoke.py loads this file for the same comparison. With --host it
+times the pieces of composite_st_fwd's launch path on the host, then
+rows 4, 9a and 9b's old host paths and wrappers in turns. Prints the
+card's name and power limit.
 """
 
 import argparse
@@ -98,7 +100,7 @@ def calls(dev):
 
 def build_old():
     """csrc/composite.cu with -DCOMPOSITE_WARP_PER_RAY → the library's path
-    (rows 3 and 9b as one warp per ray; rows 4 and 9a as shipped)."""
+    (rows 4, 9a and 9b as one warp per ray; row 3 as shipped)."""
     sys.path.insert(0, os.path.join(HERE, "tools"))
     from probe_field_bwd_atomics import build_copy
     return build_copy("composite", OLD, out_dir=OUT_DIR)
@@ -131,24 +133,39 @@ def _legacy_planes(what, device, args, numels):
     return [x.contiguous() for x in args]
 
 
-def legacy_st_fwd(lib, rgb_raw, trans_raw, dens_raw, depth, dist,
-                  min_uncert=0.05):
-    """composite_st_fwd's host path before the segmented kernels, launching
-    ``lib``'s entry (its lanes and vector arguments unused by the old
-    form)."""
+def legacy_st_bwd(lib, rgb_raw, trans_raw, dens_raw, dist, g):
+    """composite_st_bwd's host path before the segmented kernels."""
+    import torch
+    BR, N = dist.shape
+    M = BR * N
+    args = _legacy_planes("composite_st_bwd", rgb_raw.device,
+                          (rgb_raw, trans_raw, dens_raw, dist, g),
+                          (3 * M, 5 * M, M, M, BR * 16))
+    d_rgb = torch.empty((M, 3), dtype=torch.float32, device=rgb_raw.device)
+    d_tr = torch.empty((M, 5), dtype=torch.float32, device=rgb_raw.device)
+    err = _legacy_lib(lib).composite_st_bwd(
+        *(x.data_ptr() for x in args), BR, N, 0, 0, 0, 0, d_rgb.data_ptr(),
+        d_tr.data_ptr(), ctypes.c_void_p(
+            torch.cuda.current_stream(rgb_raw.device).cuda_stream))
+    if err:
+        raise RuntimeError(f"composite_st_bwd: cudaError_t {err}")
+    return d_rgb, d_tr
+
+
+def legacy_coarse_fwd(lib, rgb_raw, dens_raw, depth, dist):
+    """composite_coarse_fwd's host path before the segmented kernels."""
     import torch
     BR, N = depth.shape
     M = BR * N
-    args = _legacy_planes("composite_st_fwd", rgb_raw.device,
-                          (rgb_raw, trans_raw, dens_raw, depth, dist),
-                          (3 * M, 5 * M, M, M, M))
-    out = torch.empty((BR, 16), dtype=torch.float32, device=rgb_raw.device)
-    err = _legacy_lib(lib).composite_st_fwd(
-        *(x.data_ptr() for x in args), BR, N, float(min_uncert), 0, 0, 0, 0,
-        out.data_ptr(), ctypes.c_void_p(
+    args = _legacy_planes("composite_coarse_fwd", rgb_raw.device,
+                          (rgb_raw, dens_raw, dist, depth), (3 * M, M, M, M))
+    out = torch.empty((BR, 8), dtype=torch.float32, device=rgb_raw.device)
+    err = _legacy_lib(lib).composite_coarse_fwd(
+        *(x.data_ptr() for x in args), BR, N, 0, 0, 0, 0, out.data_ptr(),
+        ctypes.c_void_p(
             torch.cuda.current_stream(rgb_raw.device).cuda_stream))
     if err:
-        raise RuntimeError(f"composite_st_fwd: cudaError_t {err}")
+        raise RuntimeError(f"composite_coarse_fwd: cudaError_t {err}")
     return out
 
 
@@ -188,32 +205,47 @@ def turns_text(t):
             + " / ".join(f"{x:.5f}" for x in t["wrapper"]) + " ms")
 
 
+def legacy(old_lib):
+    """{row: the warp-per-ray form of the row through its old host path,
+    returning a tuple as the package's wrapper does}."""
+    return {
+        "4": lambda *a: legacy_st_bwd(old_lib, *a),
+        "9a": lambda *a: (legacy_coarse_fwd(old_lib, *a),),
+        "9b": lambda *a: legacy_coarse_bwd(old_lib, *a)}
+
+
 def ab(dev, old_lib, k=200):
-    """Rows 3 and 9b (2048 × 64) in turns, the warp-per-ray form through
-    its old host path against the package's: {row: (turns, the old form's
-    and the new one's max |err| / max |twin|)}."""
+    """Rows 4, 9a and 9b (2048 × 64; 9a also × 192) in turns, the
+    warp-per-ray form through its old host path against the package's:
+    {row: (turns, the old form's and the new one's max |err| / max
+    |twin|)}."""
     import chip_smoke as cs
     import torch
     from texpose_tpu_torch.kernels import composite as C
-    rgb, tr, dens, depth, dist, _ = inputs(dev, 2048, 64, 1, True)
-    fa = (rgb, tr, dens, depth, dist, 0.05)
+    rgb, tr, dens, depth, dist, cot = inputs(dev, 2048, 64, 1, True)
+    sb = (rgb, tr, dens, dist, cot)
     crgb, cdens, cdepth, cdist, cot = inputs(dev, 2048, 64, 64, False)
     ba = (crgb, cdens, cdist, cdepth, cot)
+    old = legacy(old_lib)
     pairs = {
-        "3": (lambda *a: (legacy_st_fwd(old_lib, *a),),
-              lambda *a: (C.composite_st_fwd(*a),), fa,
-              (C.composite_st_plain(*fa),)),
-        "9b": (lambda *a: legacy_coarse_bwd(old_lib, *a),
-               C.composite_coarse_bwd, ba,
+        "4": (old["4"], C.composite_st_bwd, sb,
+              C.composite_st_bwd_plain(*sb)),
+        "9b": (old["9b"], C.composite_coarse_bwd, ba,
                C.composite_coarse_bwd_plain(*ba))}
+    for n in (64, 192):
+        frgb, fdens, fdepth, fdist, _ = inputs(dev, 2048, n, n, False)
+        ca = (frgb, fdens, fdepth, fdist)
+        pairs[f"9a N={n}"] = (old["9a"],
+                              lambda *a: (C.composite_coarse_fwd(*a),), ca,
+                              (C.composite_coarse_plain(*ca),))
     out = {}
-    for row, (old, new, args, want) in pairs.items():
+    for row, (old_fn, new, args, want) in pairs.items():
         errs = []
-        for fn in (old, new):
+        for fn in (old_fn, new):
             got = fn(*args)
             torch.cuda.synchronize()
             errs.append(max(cs.rel_max(a, b) for a, b in zip(got, want)))
-        out[row] = (turns(old, new, args, k), *errs)
+        out[row] = (turns(old_fn, new, args, k), *errs)
     return out
 
 
@@ -221,7 +253,8 @@ def host(dev, old_lib, k, rounds=4):
     """Where the wrappers' host time goes (µs a call, host clock over k
     calls then a synchronize, median of 5): each piece of
     composite_st_fwd's launch path on row 3's 2048 × 64 inputs; then rows
-    3 and 9b's old host path and wrapper in turns, ``rounds`` times."""
+    4, 9a and 9b's old host paths and wrappers in turns, ``rounds``
+    times."""
     import time
     import torch
     from texpose_tpu_torch.kernels import composite as C
@@ -246,17 +279,22 @@ def host(dev, old_lib, k, rounds=4):
         "ctypes entry with its launch": lambda: lib.composite_st_fwd(
             *ptrs, 2048, 64, 0.05, *plan, out.data_ptr(), stream),
         "the wrapper": lambda: C.composite_st_fwd(*args),
-        "the old host path": lambda: legacy_st_fwd(old_lib, *args),
     }
     crgb, cdens, cdepth, cdist, cot = inputs(dev, 2048, 64, 64, False)
     bargs = (crgb, cdens, cdist, cdepth, cot)
+    sargs = (rgb, tr, dens, dist, torch.cat([cot, cot], 1))
+    fargs = (crgb, cdens, cdepth, cdist)
+    legacy_paths = legacy(old_lib)
     pieces.update({
         "row 9b: new_empty [M,3] and [M,1]": lambda: (
             crgb.new_empty((M, 3)), crgb.new_empty((M, 1))),
         "row 9b: one new_empty [4M]": lambda: crgb.new_empty((4 * M,)),
+        "row 4: the wrapper": lambda: C.composite_st_bwd(*sargs),
+        "row 4: the old host path": lambda: legacy_paths["4"](*sargs),
+        "row 9a: the wrapper": lambda: C.composite_coarse_fwd(*fargs),
+        "row 9a: the old host path": lambda: legacy_paths["9a"](*fargs),
         "row 9b: the wrapper": lambda: C.composite_coarse_bwd(*bargs),
-        "row 9b: the old host path": lambda: legacy_coarse_bwd(old_lib,
-                                                               *bargs),
+        "row 9b: the old host path": lambda: legacy_paths["9b"](*bargs),
     })
     for name, fn in pieces.items():
         for _ in range(3):
@@ -274,10 +312,9 @@ def host(dev, old_lib, k, rounds=4):
     # the two host paths of each row in turns, several rounds: the host
     # clock moves between runs more than the paths differ
     import chip_smoke as cs
-    for row, old, new in (("3", pieces["the old host path"],
-                           pieces["the wrapper"]),
-                          ("9b", pieces["row 9b: the old host path"],
-                           pieces["row 9b: the wrapper"])):
+    for row in ("4", "9a", "9b"):
+        old = pieces[f"row {row}: the old host path"]
+        new = pieces[f"row {row}: the wrapper"]
         for r in range(rounds):
             t = [cs.wrapper_ms(f, k) * 1e3 for f in (old, new, new, old)]
             print(f"host: row {row} round {r}: old host path / wrapper / "

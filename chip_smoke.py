@@ -123,6 +123,27 @@ Phases; any failure exits non-zero and no result line is printed:
      the fused vs the hybrid backward and of the mega vs the two-kernel
      route, warm steps/s of all three; and the eval CLI with the mega route
      on 2 frames of that model, frame 0 against the two-kernel route.
+  10. preprocess + video: a generated 480x640 fixture of 16 train frames
+     whose CAD model is a finer icosphere (20,480 faces, written with the
+     port's save_ply).  ``texpose_tpu_torch.compute_box`` runs on the card
+     (its gt_box/ files feed the video below) and with --device=cpu: the
+     files must agree (max |dt| ≤ 1e-2 mm where both are valid, validity
+     differing only within 1e-3 mm of the edge); the torch rasterizer on
+     the card against the native one on 4 frames (coverage agreement >
+     0.999, depth rtol 1e-3, NOCS median |d| < 1e-3) and the box violation
+     fraction of its depth < 0.05; ``compute_surfelinfo`` at the GAN crop
+     (128x128) on the card and natively, 16 files in each of its three
+     directories, within the same bounds; then ``texpose_tpu_torch.evaluate
+     --model=nerf_pretrain --video`` at the full width of
+     configs/nerf_lm_pretrain.yaml from a seeded JAX-format npz, on a
+     480x480 crop (the pretrain data layer renders square crops only): the
+     launch counters zeroed just before, coarse_render_fwd > 0 after,
+     novel_pose.npy [60,3,4] and 60 RGB and 60 depth PNGs, and orbit frame
+     0 through the kernels (row 8) and through the two-kernel route (rows
+     7a + 9a, --kernels.coarse_mega=false: those two launched, row 8 not)
+     within RENDER_MAX_ERR of max(|ref|, 1) of the plain route.  Seconds per frame of compute_box, both rasterizers and
+     compute_surfelinfo, video frames/s and the rasterizer's peak device
+     memory are printed beside the card's name and power limit.
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers, and last {"ok": true, "device": {...}}.
 """
@@ -2284,6 +2305,350 @@ def gan_loads_trunk(here, tmp, dev, pre_ckpt, root):
           f"({len(eng.nerf.mlp_feat.state_dict())} leaves)", flush=True)
 
 
+# preprocess + video: the generated fixture at 480x640 (16 train frames)
+# with a finer icosphere standing in for a CAD model (20,480 faces at
+# subdiv 5; LineMOD's CAD meshes reach about 100k), the crop of
+# configs/nerf_lm_adapt_gan.yaml for the surfel files, and a 60-frame
+# orbit (the engines' default N).
+PRE_SCALE = 1.0          # of the fixture's 480x640 frames
+PRE_H, PRE_W = 480, 640
+PRE_TRAIN = 16
+PRE_SUBDIV = 5
+SURFEL_CROP = 128
+RASTER_FRAMES = 4
+VIDEO_N = 60
+# the pretrain engines render square crops of the frame (the data layer
+# asserts H == W, as the JAX package's), so the orbit runs at 480x480:
+# 230,400 rays a frame, the 480 rows of the fixture's frames
+VIDEO_HW = 480
+VIDEO_EXTRA = ()          # extra flags of the video run (none on the card)
+# the torch rasterizer vs the native one, as JAX's two backends
+# (tests/test_raster.py): coverage agreement, depth rtol where both
+# cover, NOCS median |Δ|; the box files, card vs CPU, as the CPU parity
+# test holds the port to JAX (tests/test_torch_preprocess_cli.py).
+RASTER_COVER = 0.999
+RASTER_DEPTH_RTOL = 1e-3
+RASTER_NOCS_MEDIAN = 1e-3
+BOX_MAX_ERR = 1e-2        # mm, where both runs are valid
+BOX_EDGE = 1e-3           # mm: valid masks may differ only this near 0
+BOX_VIOLATIONS = 0.05     # tests/test_preprocess_cli.py
+
+
+def _box_argv(root, out, dev, *extra):
+    return ["--data_root", os.path.join(root, "lm"), "--folder", "000001",
+            "--split_file", os.path.join(root, "splits", "lm", "ball",
+                                         "scene_naive", "train.txt"),
+            "--cad_path", os.path.join(root, "lm", "models",
+                                       "obj_000001.ply"),
+            "--height", str(PRE_H), "--width", str(PRE_W),
+            f"--device={dev}", *extra] + (
+                ["--target_folder", out] if out else [])
+
+
+def _compare_boxes(card_dir, cpu_dir):
+    """Box files of the card run (in the scene's gt_box/, beside the
+    fixture's own for the test frames) against the CPU run's → (files, max
+    |Δt| where both valid, pixels whose validity differs off the edge)."""
+    import numpy as np
+    names = sorted(os.listdir(cpu_dir))
+    missing = sorted(set(names) - set(os.listdir(card_dir)))
+    if missing or len(names) != PRE_TRAIN:
+        fail(f"compute_box: CPU files {names}, not written on the card "
+             f"{missing}")
+    worst, off_edge = 0.0, 0
+    for n in names:
+        a = np.load(os.path.join(card_dir, n))["data"]
+        b = np.load(os.path.join(cpu_dir, n))["data"]
+        if a.shape != (2, PRE_H, PRE_W) or a.dtype != np.float32:
+            fail(f"compute_box: {n} is {a.shape} {a.dtype}")
+        va, vb = a[1] > 0, b[1] > 0
+        both = va & vb
+        worst = max(worst, float(np.abs(a[:, both] - b[:, both]).max()))
+        edge = (np.abs(b[1]) < BOX_EDGE) | (np.abs(b[1] - b[0]) < BOX_EDGE)
+        off_edge += int(((va != vb) & ~edge).sum())
+    return names, worst, off_edge
+
+
+def _raster_compare(rt, rn, pose, K):
+    """One frame through the torch (card) and the native (host) renderer:
+    (coverage agreement, worst depth rel err where both cover, NOCS median
+    |Δ|, torch s, native s, torch depth)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    mt, dt = rt.render(pose, K, mode="mask")
+    torch.cuda.synchronize()
+    t_torch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mn, dn = rn.render(pose, K, mode="mask")
+    t_native = time.perf_counter() - t0
+    cover = float(((mt > 0) == (mn > 0)).mean())
+    both = (dt[0] > 0) & (dn[0] > 0)
+    rel = float((np.abs(dt[0][both] - dn[0][both])
+                 / np.abs(dn[0][both])).max())
+    nt, _ = rt.render(pose, K, mode="nocs")
+    nn_, _ = rn.render(pose, K, mode="nocs")
+    med = float(np.median(np.abs(nt[0][both] - nn_[0][both])))
+    return cover, rel, med, t_torch, t_native, dt[0]
+
+
+def _surfel_compare(card, cpu, loop):
+    """The surfel files of the card run against the native run's → worst
+    (coverage agreement, NOCS median |Δ|/255, normal median |Δ|)."""
+    import cv2
+    import numpy as np
+    cover, nocs_med, normal_med = 1.0, 0.0, 0.0
+    for sub in (f"rgbsyn_{loop}", f"nocs_{loop}", f"normal_{loop}"):
+        names = sorted(os.listdir(os.path.join(card, sub)))
+        if len(names) != PRE_TRAIN or names != sorted(
+                os.listdir(os.path.join(cpu, sub))):
+            fail(f"compute_surfelinfo: {sub} holds {names}")
+        for n in names:
+            a, b = (os.path.join(d, sub, n) for d in (card, cpu))
+            if n.endswith(".npz"):
+                a, b = np.load(a)["data"], np.load(b)["data"]
+            else:
+                a, b = cv2.imread(a, -1), cv2.imread(b, -1)
+            if a.shape[:2] != (SURFEL_CROP, SURFEL_CROP) or a.shape != b.shape:
+                fail(f"compute_surfelinfo: {sub}/{n} is {a.shape} vs "
+                     f"{b.shape}")
+            if sub.startswith("rgbsyn"):
+                cover = min(cover, float(((a[..., 3] > 0)
+                                          == (b[..., 3] > 0)).mean()))
+                continue
+            both = (np.abs(a).sum(-1) > 0) & (np.abs(b).sum(-1) > 0)
+            med = float(np.median(np.abs(a[both].astype(np.float64)
+                                         - b[both])))
+            if sub.startswith("nocs"):
+                nocs_med = max(nocs_med, med / 255.0)
+            else:
+                normal_med = max(normal_med, med)
+    return cover, nocs_med, normal_med
+
+
+def preprocess_video_phase(here, tmp, dev, smi):
+    """The preprocessing CLIs and the pretrain engine's --video on the
+    card: compute_box against its CPU run, the torch rasterizer against the
+    native one, compute_surfelinfo against its native run, and the
+    60-frame orbit through the evaluate CLI; returns the launch counts of
+    the video run."""
+    import cv2
+    import numpy as np
+    import torch
+    from texpose_tpu_torch import compute_box, compute_surfelinfo, evaluate
+    from texpose_tpu_torch.data import generate_fixture, save_ply
+    from texpose_tpu_torch.data.cad import CADModel
+    from texpose_tpu_torch.data.fixture import _icosphere, sphere_albedo
+    from texpose_tpu_torch.models.pretrain import PretrainEngine
+    from texpose_tpu_torch.nn.fields import init_nerf
+    from texpose_tpu_torch.raster import MeshRenderer
+    from texpose_tpu_torch.utils.checkpoint import (save_checkpoint_flat,
+                                                    torch_state_to_jax)
+    from texpose_tpu_torch.utils.config import set_options
+
+    t0 = time.perf_counter()
+    root = generate_fixture(os.path.join(tmp, "pre_data"),
+                            n_train=PRE_TRAIN, n_test=2, scene="scene_naive",
+                            image_scale=PRE_SCALE, crop_res=SURFEL_CROP)
+    cad = os.path.join(root, "lm", "models", "obj_000001.ply")
+    verts, faces = _icosphere(60.0, subdiv=PRE_SUBDIV)
+    save_ply(cad, verts, faces, sphere_albedo(verts / 60.0))
+    model = CADModel(cad)
+    print(f"preprocess: fixture of {PRE_TRAIN} train frames at "
+          f"{PRE_H}x{PRE_W} in {time.perf_counter() - t0:.1f} s; CAD "
+          f"icosphere (subdiv {PRE_SUBDIV}) {len(model.faces)} faces, "
+          f"{len(model.vertices)} vertices", flush=True)
+
+    # compute_box on the card (its gt_box/ feeds the video below) and on
+    # the CPU
+    scene = os.path.join(root, "lm", "000001")
+    t0 = time.perf_counter()
+    compute_box.main(_box_argv(root, None, dev, "--use_gt_pose"))
+    torch.cuda.synchronize()
+    box_s = (time.perf_counter() - t0) / PRE_TRAIN
+    t0 = time.perf_counter()
+    compute_box.main(_box_argv(root, os.path.join(tmp, "box_cpu"), "cpu",
+                               "--use_gt_pose"))
+    box_cpu_s = (time.perf_counter() - t0) / PRE_TRAIN
+    names, worst, off_edge = _compare_boxes(
+        os.path.join(scene, "gt_box"), os.path.join(tmp, "box_cpu", "gt_box"))
+    cam = json.load(open(os.path.join(scene, "scene_camera.json")))
+    gt = json.load(open(os.path.join(scene, "scene_gt.json")))
+
+    def pose_K(i):
+        rec = gt[str(i)][0]
+        pose = np.concatenate(
+            [np.float32(rec["cam_R_m2c"]).reshape(3, 3),
+             np.float32(rec["cam_t_m2c"])[:, None]], axis=1)[None]
+        return pose, np.float32(cam[str(i)]["cam_K"]).reshape(1, 3, 3)
+
+    aabb = compute_box.squareify_aabb(model, dev)
+    pose0, K0 = pose_K(0)
+    ms = time_ms(lambda: compute_box.frame_box(*aabb, pose0[0], K0[0],
+                                               PRE_H, PRE_W))
+    print(f"preprocess: compute_box {len(names)} frames at {PRE_H}x{PRE_W}: "
+          f"{box_s:.4f} s/frame on the card with the npz writes "
+          f"(frame_box alone {ms:.3f} ms), {box_cpu_s:.4f} s/frame with "
+          f"--device=cpu; card vs CPU max|dt| {worst:.3g} mm (bound "
+          f"{BOX_MAX_ERR}), validity differs off the edge at {off_edge} "
+          f"pixels [{smi}]", flush=True)
+    if not (worst <= BOX_MAX_ERR and off_edge == 0):
+        fail("compute_box: the card's box files disagree with the CPU's")
+
+    # the torch rasterizer on the card against the native one
+    rt = MeshRenderer(model.vertices, model.faces, H=PRE_H, W=PRE_W,
+                      backend="torch", device=dev)
+    rn = MeshRenderer(model.vertices, model.faces, H=PRE_H, W=PRE_W,
+                      backend="native")
+    _raster_compare(rt, rn, *pose_K(0))               # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()      # what earlier phases hold
+    torch.cuda.reset_peak_memory_stats()
+    rows = [_raster_compare(rt, rn, *pose_K(i)) for i in range(
+        PRE_TRAIN - RASTER_FRAMES, PRE_TRAIN)]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    cover = min(r[0] for r in rows)
+    rel = max(r[1] for r in rows)
+    med = max(r[2] for r in rows)
+    t_torch = statistics.median(r[3] for r in rows)
+    t_native = statistics.median(r[4] for r in rows)
+    box = np.load(os.path.join(scene, "gt_box",
+                               f"{PRE_TRAIN - 1:06d}.npz"))["data"]
+    frac, obj, _ = compute_box.box_violations(rows[-1][5], box)
+    print(f"preprocess: rasterizer, {len(model.faces)} faces at "
+          f"{PRE_H}x{PRE_W}, {RASTER_FRAMES} frames: torch on the card "
+          f"{t_torch:.4f} s/frame, native (host C++) {t_native:.4f} "
+          f"s/frame (median, mask mode); peak device memory "
+          f"{peak:.1f} MiB above the {base / 2 ** 20:.1f} MiB allocated "
+          f"before (max_memory_allocated); coverage agreement "
+          f"{cover:.6f} (bound > {RASTER_COVER}), depth rel err "
+          f"{rel:.3g} (bound {RASTER_DEPTH_RTOL}), NOCS median |d| "
+          f"{med:.3g} (bound {RASTER_NOCS_MEDIAN}); box violation "
+          f"fraction {frac:.4f} of {int(obj.sum())} object pixels "
+          f"(bound {BOX_VIOLATIONS}) [{smi}]", flush=True)
+    if not (cover > RASTER_COVER and rel <= RASTER_DEPTH_RTOL
+            and med < RASTER_NOCS_MEDIAN and frac < BOX_VIOLATIONS
+            and obj.sum() > 0):
+        fail("the torch rasterizer disagrees with the native one, or the "
+             "box misses the CAD depth")
+
+    # compute_surfelinfo at the GAN crop, on the card and natively
+    surf = [f"--yaml={os.path.join(here, 'configs', 'nerf_lm_adapt_gan.yaml')}",
+            f"--data.root={root}", "--data.object=ball",
+            "--data.scene=scene_naive",
+            f"--data.splits_root={os.path.join(root, 'splits')}",
+            f"--data.image_size=[{SURFEL_CROP},{SURFEL_CROP}]",
+            "--data.pose_source=predicted", "--data.pose_loop=init_calib",
+            f"--cad_path={cad}"]
+    card_dir, cpu_dir = (os.path.join(tmp, d) for d in ("geo", "geo_cpu"))
+    t0 = time.perf_counter()
+    compute_surfelinfo.main(surf + [f"--render.geo_save_dir={card_dir}",
+                                    f"--device={dev}"])
+    torch.cuda.synchronize()
+    surf_s = (time.perf_counter() - t0) / PRE_TRAIN
+    t0 = time.perf_counter()
+    compute_surfelinfo.main(surf + [f"--render.geo_save_dir={cpu_dir}",
+                                    "--device=cpu"])
+    surf_cpu_s = (time.perf_counter() - t0) / PRE_TRAIN
+    s_cover, s_nocs, s_normal = _surfel_compare(card_dir, cpu_dir,
+                                                "init_calib")
+    print(f"preprocess: compute_surfelinfo {PRE_TRAIN} frames at "
+          f"{SURFEL_CROP}x{SURFEL_CROP}: {surf_s:.4f} s/frame on the card "
+          f"(torch rasterizer), {surf_cpu_s:.4f} s/frame with --device=cpu "
+          f"(native); card vs native: alpha coverage {s_cover:.6f}, NOCS "
+          f"median |d| {s_nocs:.3g}, normal median |d| {s_normal:.3g} "
+          f"[{smi}]", flush=True)
+    if not (s_cover > RASTER_COVER and s_nocs < RASTER_NOCS_MEDIAN
+            and s_normal < RASTER_NOCS_MEDIAN):
+        fail("compute_surfelinfo: the card's files disagree with the "
+             "native run's")
+
+    # the pretrain engine's --video through the evaluate CLI
+    argv = ["--model=nerf_pretrain",
+            f"--yaml={os.path.join(here, 'configs', 'nerf_lm_pretrain.yaml')}",
+            f"--data.root={root}",
+            f"--data.splits_root={os.path.join(root, 'splits')}",
+            "--data.object=ball", f"--data.image_size=[{VIDEO_HW},{VIDEO_HW}]",
+            f"--output_root={os.path.join(tmp, 'video_out')}",
+            "--name=video", f"--device={dev}", "--video", *VIDEO_EXTRA]
+    cfg = set_options(list(argv))
+    init = os.path.join(tmp, "pretrain_init.npz")
+    save_checkpoint_flat(init, torch_state_to_jax({
+        f"nerf.{k}": v for k, v in init_nerf(
+            cfg, torch.Generator().manual_seed(0)).state_dict().items()}))
+    video_s = []
+    orig = PretrainEngine.generate_videos_synthesis
+
+    def timed(self, N=60, fps=30):
+        t = time.perf_counter()
+        out = orig(self, N=VIDEO_N, fps=fps)
+        torch.cuda.synchronize()
+        video_s.append(time.perf_counter() - t)
+        return out
+
+    PretrainEngine.generate_videos_synthesis = timed
+    zero_launches()
+    try:
+        t0 = time.perf_counter()
+        eng = evaluate.main(argv + [f"--init_weights={init}"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        PretrainEngine.generate_videos_synthesis = orig
+    launches = read_launches()
+    novel = os.path.join(eng.cfg.output_path, "novel_view")
+    poses = np.load(os.path.join(novel, "novel_pose.npy"))
+    shapes = {k: {cv2.imread(os.path.join(novel, f"{k}_{i}.png"), -1).shape
+                  for i in range(VIDEO_N)} for k in ("rgb", "depth")}
+    mp4 = sorted(f for f in os.listdir(eng.cfg.output_path)
+                 if f.endswith(".mp4"))
+    print(f"video: evaluate --video ({len(eng.eval_data)} eval frames, then "
+          f"{VIDEO_N} orbit frames at {VIDEO_HW}x{VIDEO_HW}) {cli_s:.2f} s; the "
+          f"orbit {video_s[0]:.2f} s = {VIDEO_N / video_s[0]:.3f} frames/s "
+          f"(PNG writes included); launches {launches}; mp4 {mp4 or 'none'} "
+          f"[{smi}]", flush=True)
+    if launches["coarse_render_fwd"] <= 0:
+        fail(f"the video did not launch coarse_render_fwd: {launches}")
+    if (poses.shape != (VIDEO_N, 3, 4)
+            or shapes != {"rgb": {(VIDEO_HW, VIDEO_HW, 3)},
+                          "depth": {(VIDEO_HW, VIDEO_HW)}}):
+        fail(f"video: novel_pose.npy {poses.shape}, PNGs {shapes}")
+
+    # orbit frame 0 through the kernels against the plain route
+    # (and through the two-kernel route, rows 7a + 9a, which the video
+    # takes with --kernels.coarse_mega=false)
+    frame = dict(eng.eval_frame(0), pose=torch.as_tensor(poses[:1],
+                                                         device=eng.device))
+    kn = eng.cfg.kernels
+    with torch.inference_mode():
+        k_out = eng._render_frame(frame)
+        kn.coarse_mega = False
+        zero_launches()
+        two_out = eng._render_frame(frame)
+        two = read_launches()
+        kn.coarse_mega = True
+        kn.fused_coarse = False
+        p_out = eng._render_frame(frame)
+        kn.fused_coarse = True
+    for name, out in (("kernel", k_out), ("two-kernel", two_out)):
+        errs = {k: float(((out[k] - p_out[k]).abs()
+                          / p_out[k].abs().clamp(min=1.0)).max())
+                for k in ("rgb", "depth", "opacity")}
+        print(f"video: orbit frame 0 {name} vs plain route, max |err| / "
+              f"max(|ref|, 1): {errs} (bound {RENDER_MAX_ERR})", flush=True)
+        if not all(math.isfinite(v) and v <= RENDER_MAX_ERR
+                   for v in errs.values()):
+            fail(f"video: the {name} route disagrees with the plain route "
+                 "on orbit frame 0")
+    print(f"video: orbit frame 0 with --kernels.coarse_mega=false, "
+          f"launches {two}", flush=True)
+    if min(two["coarse_field_fwd"], two["composite_coarse_fwd"]) <= 0 \
+            or two["coarse_render_fwd"]:
+        fail(f"video: the two-kernel route did not launch rows 7a + 9a "
+             f"alone: {two}")
+    return launches
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "texpose_tpu_torch")):
@@ -2391,6 +2756,7 @@ def main():
         hier_launches = hierarchical_phase(here, tmp, dev)
         two_launches = two_kernel_phase(here, tmp, dev)
         mega_launches = st_mega_phase(here, tmp, dev)
+        preprocess_video_phase(here, tmp, dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's count from the run of the path it was ported for

@@ -38,7 +38,10 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
         for name in ("kernels.coarse_field", "kernels.composite",
                      "kernels.st_field", "kernels.st_render",
                      "kernels.trunk", "nn.fields",
-                     "models.pretrain", "models.render", "ops.render"):
+                     "models.pretrain", "models.render", "ops.render",
+                     "geometry.pose", "raster.shaders", "raster.native",
+                     "raster.torch_raster", "compute_box",
+                     "compute_surfelinfo"):
             assert "texpose_tpu_torch." + name in names, name
         for name in names:
             importlib.import_module(name)
@@ -58,7 +61,7 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split()[-1]) >= 40
+    assert int(r.stdout.split()[-1]) >= 46
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
@@ -127,3 +130,62 @@ def test_entry_points_raise_without_a_card(tmp_path, monkeypatch, entry):
             mod.main([f"--yaml={yml}", f"--output_root={tmp_path}",
                       "--data.root=/nonexistent", *extra])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("entry", ["compute_box", "compute_surfelinfo"])
+def test_preprocessing_entry_points_raise_without_a_card(root, tmp_path,
+                                                         monkeypatch, entry):
+    """The preprocessing CLIs default to --device=cuda as the others: with
+    no card visible they raise before any file is written, with and
+    without --device=cuda."""
+    import importlib
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"texpose_tpu_torch.{entry}")
+    out = str(tmp_path / "out")
+    if entry == "compute_box":
+        argv = ["--data_root", os.path.join(root, "lm"), "--folder",
+                "000001", "--split_file", os.path.join(
+                    root, "splits", "lm", "ball", "scene_all", "train.txt"),
+                "--cad_path", os.path.join(root, "lm", "models",
+                                           "obj_000001.ply"),
+                "--pred_loop", "init_calib", "--target_folder", out]
+    else:
+        argv = [f"--yaml={os.path.join(REPO, 'configs', 'nerf_lm_adapt_gan.yaml')}",
+                f"--data.root={root}", "--data.object=ball",
+                f"--data.splits_root={os.path.join(root, 'splits')}",
+                "--data.pose_source=predicted",
+                "--data.pose_loop=init_calib",
+                f"--render.geo_save_dir={out}"]
+    for extra in ([], ["--device=cuda"]):
+        with pytest.raises(RuntimeError, match="--device=cpu"):
+            mod.main([*argv, *extra])
+    assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("entry", ["train", "evaluate"])
+def test_entry_points_refuse_data_parallel_on_several_cards(tmp_path,
+                                                            monkeypatch,
+                                                            entry):
+    """mesh.dp with more than one visible card: both CLIs refuse up front
+    (no dataset read; the data root does not exist) and name M6; with one
+    card, or with mesh.dp unset, they go on (and then fail on the missing
+    data)."""
+    import importlib
+    import torch
+    from texpose_tpu_torch.models.base import refuse_data_parallel
+    from texpose_tpu_torch.utils.config import Config
+    mod = importlib.import_module(f"texpose_tpu_torch.{entry}")
+    yml = os.path.join(REPO, "configs", "nerf_lm_pretrain.yaml")
+    argv = [f"--yaml={yml}", f"--output_root={tmp_path}",
+            "--data.root=/nonexistent", "--device=cpu"]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="M6"):
+        mod.main([*argv, "--mesh.dp=true"])
+    assert not os.listdir(tmp_path)
+    for count, dp in ((1, "true"), (2, "null")):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+        refuse_data_parallel(Config({"mesh": {"dp": dp == "true"}}))
+        with pytest.raises(Exception) as err:
+            mod.main([*argv, f"--mesh.dp={dp}"])
+        assert not isinstance(err.value, NotImplementedError), err.value

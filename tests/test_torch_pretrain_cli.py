@@ -14,8 +14,9 @@ package's:
     engine's (losses rtol 1e-4, PSNR 0.01 dB, SSIM 1e-4); the port's
     evaluate CLI reloads a checkpoint;
   * the env variant's CLI; the hierarchical pretrain's CLI
-    (``nerf.fine_sampling``) and its evaluation; the unported options are
-    refused before the networks are built.
+    (``nerf.fine_sampling``) and its evaluation; ``visualize`` is refused
+    before the networks are built, and ``evaluate --video`` writes the
+    novel-view orbit.
 """
 
 import json
@@ -239,8 +240,10 @@ def test_env_cli_trains(root, tmp_path):
 def test_cli_refuses_unported_options(root, tmp_path):
     """The hierarchical pretrain runs through the CLI (3 steps, both
     fields' leaves and Adam moments in model.ckpt, the fine render loss
-    logged) and the evaluate CLI reloads its coarse field; visualize and
-    --video are refused before anything is built."""
+    logged) and the evaluate CLI reloads its coarse field; visualize is
+    refused before anything is built; the evaluate CLI's --video renders
+    the 60-frame orbit of the coarse field (novel_pose.npy and the PNGs)
+    and writes no checkpoint."""
     from texpose_tpu_torch import evaluate, train
     cfg = pre_cfg(root, tmp_path)
     cfg.nerf.fine_sampling = True
@@ -249,8 +252,14 @@ def test_cli_refuses_unported_options(root, tmp_path):
     yml = _yaml(cfg, tmp_path / "fine.yaml")
     with pytest.raises(NotImplementedError, match="visualize"):
         train.main([f"--yaml={yml}", "--device=cpu", "--freq.vis=1"])
-    with pytest.raises(NotImplementedError, match="video"):
-        evaluate.main([f"--yaml={yml}", "--device=cpu", "--video"])
+    vid = evaluate.main([f"--yaml={yml}", "--device=cpu", "--video",
+                         "--nerf.rand_rays=1024"])
+    novel = os.path.join(cfg.output_path, "novel_view")
+    assert np.load(os.path.join(novel, "novel_pose.npy")).shape == (60, 3, 4)
+    for kind in ("rgb", "depth"):
+        for i in (0, 59):
+            assert os.path.exists(os.path.join(novel, f"{kind}_{i}.png"))
+    assert vid.start_step == 0
     assert not os.path.exists(os.path.join(cfg.output_path, "model.ckpt"))
 
     eng = _train(yml)

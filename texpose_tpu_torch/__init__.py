@@ -8,8 +8,14 @@ package: its host layer (``data/``, ``utils/config.py``, ``utils/log.py``,
 
 Layer map (bottom → top), the slices ported so far (novel-view evaluation
 and training of the texture model, ``model=nerf_adapt_st_gan``; the
-geometry pretrain, ``model=nerf_pretrain`` and ``nerf_pretrain_env``):
-  geometry/   ray generation (pixel grid, unprojection, NDC)
+geometry pretrain, ``model=nerf_pretrain`` and ``nerf_pretrain_env``, with
+its novel-view video; the preprocessing CLIs):
+  geometry/   pose algebra (Lie so3/se3, quaternions, 6D/9D, Procrustes,
+              novel-view orbits) and ray generation (pixel grid,
+              unprojection, NDC, ray/AABB slabs)
+  raster/     mesh rasterization for preprocessing: the plain PyTorch
+              z-buffer, the native C++ one (built with g++ at first use)
+              and the numpy shaders
   sampling/   patch coordinates and patch rays for training
   ops/        positional encoding, depth sampling + compositing (vanilla
               and dual-density), grid sampling, Lab color, SSIM, resize
@@ -24,6 +30,7 @@ geometry pretrain, ``model=nerf_pretrain`` and ``nerf_pretrain_env``):
               prefetch and the PNG writer thread, config and log
   train.py    the ``python -m texpose_tpu_torch.train`` entry point
   evaluate.py the ``python -m texpose_tpu_torch.evaluate`` entry point
+  compute_box.py, compute_surfelinfo.py  the preprocessing entry points
 """
 
 __version__ = "0.1.0"

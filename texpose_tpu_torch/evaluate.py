@@ -17,7 +17,7 @@ built.
 import sys
 
 from .models import get_engine
-from .models.base import resolve_device
+from .models.base import Engine, refuse_data_parallel, resolve_device
 from .utils.config import set_options
 from .utils.log import log
 
@@ -25,17 +25,22 @@ from .utils.log import log
 def main(argv=None):
     cfg = set_options(argv)
     log.title(f"[{' '.join(sys.argv)}]")
-    if cfg.get("video"):
+    refuse_data_parallel(cfg)
+    engine_cls = get_engine(cfg.model)
+    if cfg.get("video") and (engine_cls.generate_videos_synthesis
+                             is Engine.generate_videos_synthesis):
         raise NotImplementedError(
-            "--video: novel-view video synthesis is not ported to "
-            "texpose_tpu_torch yet (ROADMAP.md), and the GAN model has none")
+            f"--video: {engine_cls.__name__} has no novel-view video "
+            "synthesis (the pretrain engines do)")
     device = resolve_device(cfg)
-    engine = get_engine(cfg.model)(cfg, device)
+    engine = engine_cls(cfg, device)
     engine.load_dataset(eval_split=cfg.get("eval_split", "test"))
     engine.build_networks()
     engine.load_initial_weights()
     engine.restore_checkpoint()
     engine.evaluate_full()
+    if cfg.get("video"):
+        engine.generate_videos_synthesis()
     return engine
 
 

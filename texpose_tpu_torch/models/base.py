@@ -40,6 +40,19 @@ def resolve_device(cfg):
     return device
 
 
+def refuse_data_parallel(cfg):
+    """``mesh.dp`` on a host with more than one visible card raises: the
+    JAX engine shards over its device mesh there, and the port has no data
+    parallelism yet (ROADMAP.md, Queue 1, M6), so such a run would use one
+    card without a word."""
+    if (cfg.get("mesh") or {}).get("dp") and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"mesh.dp is set and {torch.cuda.device_count()} CUDA devices "
+            "are visible, but data parallelism is not ported to "
+            "texpose_tpu_torch yet (ROADMAP.md, M6): unset mesh.dp or "
+            "expose one card (CUDA_VISIBLE_DEVICES)")
+
+
 def compute_dtype(cfg):
     return {"bfloat16": torch.bfloat16,
             "float32": torch.float32}[str(cfg.get("compute_dtype",
@@ -321,6 +334,13 @@ class Engine:
                          "(fixed) AlexNet features; quant.txt will name "
                          "the column lpips_uncal")
         return self._lpips_params, self.lpips_key
+
+    def generate_videos_synthesis(self, N=60, fps=30):
+        """Novel-view orbit videos; the pretrain engines implement it (the
+        GAN engine has none, as in the JAX package)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement novel-view video "
+            f"synthesis")
 
     def build_networks(self, seed=None):
         raise NotImplementedError

@@ -26,13 +26,15 @@ Evaluation: ``validate`` renders val_sub whole frames and logs the losses
 and PSNR; ``evaluate_full`` renders every eval frame from a compact uint8
 payload, with PSNR/SSIM/LPIPS, an RGB and an opacity PNG per frame and
 quant.txt.  Both render the coarse field only, as the JAX package's.
-``visualize`` and ``generate_videos_synthesis`` are later slices of the
-port.
+``generate_videos_synthesis`` (``evaluate --video``) renders an N-frame
+novel-view orbit around eval frame 0 through the same whole-frame render.
+``visualize`` is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import os
+import subprocess
 from collections import deque
 
 import cv2
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..geometry.pose import get_novel_view_poses
 from ..nn.fields import init_nerf
 from ..nn.lpips import lpips_distance
 from ..ops.ssim import ssim
@@ -404,6 +407,49 @@ class PretrainEngine(Engine):
         log.info(f"SSIM: {mean_ssim:8.2f}")
         write_quant(cfg.output_path, rows)
         return dict(psnr=mean_psnr, ssim=mean_ssim)
+
+    def generate_videos_synthesis(self, N=60, fps=30):
+        """Render an N-frame novel-view orbit ("gentle" motion, radius
+        depth.scale·0.03) around eval frame 0's pose, with frame 0's
+        intrinsics and depth range, and write <output_path>/novel_view/:
+        novel_pose.npy [N,3,4] (the poses, for the pose estimator),
+        rgb_<i>.png and depth_<i>.png (depth mapped from [0.7, 1.3]·scale
+        to [0, 255]); then novel_view_{rgb,depth}.mp4 through ffmpeg, or a
+        warning and the PNGs alone where ffmpeg is missing or fails."""
+        cfg = self.cfg
+        novel_path = os.path.join(cfg.output_path, "novel_view")
+        os.makedirs(novel_path, exist_ok=True)
+        frame = self.eval_frame(0)
+        zs = cfg.nerf.depth.scale
+        pose_novel = get_novel_view_poses(frame["pose"][0], N=N,
+                                          scale=zs * 0.03, motion="gentle")
+        np.save(os.path.join(novel_path, "novel_pose.npy"),
+                pose_novel.cpu().numpy())
+        with torch.inference_mode(), AsyncWriter() as writer:
+            for i in range(N):
+                out = self._render_frame(dict(frame,
+                                              pose=pose_novel[i:i + 1]))
+                rgb = out["rgb"].reshape(cfg.H, cfg.W, 3)
+                depth = out["depth"].reshape(cfg.H, cfg.W)
+                rgb = (torch.clamp(rgb, 0, 1) * 255).flip(-1).to(torch.uint8)
+                dvis = torch.clamp((depth - 0.7 * zs) / (0.6 * zs), 0, 1)
+                dvis = (dvis * 255).to(torch.uint8)
+                for kind, img in (("rgb", rgb), ("depth", dvis)):
+                    writer.submit(cv2.imwrite,
+                                  os.path.join(novel_path, f"{kind}_{i}.png"),
+                                  np.ascontiguousarray(img.cpu().numpy()))
+        for kind in ("rgb", "depth"):
+            try:
+                subprocess.run(
+                    ["ffmpeg", "-y", "-framerate", str(fps), "-i",
+                     os.path.join(novel_path, f"{kind}_%d.png"),
+                     "-pix_fmt", "yuv420p",
+                     os.path.join(cfg.output_path,
+                                  f"novel_view_{kind}.mp4")],
+                    check=True, capture_output=True, timeout=300)
+            except (FileNotFoundError, subprocess.SubprocessError):
+                log.warn(f"ffmpeg unavailable — kept {kind} PNG frames only")
+        return novel_path
 
 
 class PretrainEnvEngine(PretrainEngine):

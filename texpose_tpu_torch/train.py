@@ -17,13 +17,14 @@ resume_real → resume → train.  Checkpoints are the JAX package's npz
 files, both ways.  ``--device=`` picks the device (default: cuda; with no
 card visible the run raises unless ``--device=cpu`` asks for the CPU).
 Not ported yet, and refused before anything is built: ``visualize`` (a run
-whose freq.vis would fire within max_iter).
+whose freq.vis would fire within max_iter) and ``mesh.dp`` with more than
+one visible card (data parallelism).
 """
 
 import sys
 
 from .models import get_engine
-from .models.base import resolve_device
+from .models.base import refuse_data_parallel, resolve_device
 from .utils.config import save_options_file, set_options
 from .utils.log import log
 
@@ -40,6 +41,7 @@ def _check_unported(cfg, engine):
 def main(argv=None):
     cfg = set_options(argv)
     log.title(f"[{' '.join(sys.argv)}]")
+    refuse_data_parallel(cfg)
     device = resolve_device(cfg)
     engine = get_engine(cfg.model)(cfg, device)
     engine.load_dataset()

@@ -144,6 +144,23 @@ Phases; any failure exits non-zero and no result line is printed:
      within RENDER_MAX_ERR of max(|ref|, 1) of the plain route.  Seconds per frame of compute_box, both rasterizers and
      compute_surfelinfo, video frames/s and the rasterizer's peak device
      memory are printed beside the card's name and power limit.
+  11. visualize + scene_vis + knn: the pretrain CLI at phase 6's full
+     width with --freq.vis=5 for VIS_PRE_STEPS steps and the env variant
+     for VIS_ENV_STEPS (one firing): the nine panels a firing, and row 8
+     launched ⌈H·W/rand_rays⌉ times inside each visualize; the texture
+     train CLI at phase 4's settings with --freq.vis=5 for VIS_GAN_STEPS
+     steps: the thirteen panels, rows 1 and 3 launched inside each
+     visualize, cameras.png written where matplotlib is found and else
+     skipped with one warning, and the last firing's float render (the
+     weights after the last update) within RENDER_MAX_ERR of the plain
+     twins on the same state; ``evaluate --syn2real
+     --data.scene=scene_vis`` on 2 fixture frames at 480×640 (the 256-px
+     crops of the render, the GT and the depth: three PNGs a frame, rows 1
+     and 3 launched, finite quant rows, frame 0 against the kernels-off
+     route); ``knn_points`` (K = 4) and ``chamfer_distance`` on 10^4 points
+     a side on the card against the CPU: the same indices, distances within
+     rtol 1e-5.  visualize's wall time per call and the export's warm
+     frames/s are printed beside the card's name and power limit.
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers, and last {"ok": true, "device": {...}}.
 """
@@ -2649,6 +2666,251 @@ def preprocess_video_phase(here, tmp, dev, smi):
     return launches
 
 
+VIS_EVERY = 5             # --freq.vis of the phase's training runs
+VIS_PRE_STEPS = 10
+VIS_ENV_STEPS = 5
+VIS_GAN_STEPS = 10
+VIS_FRAMES = 2
+VIS_CROP = 256            # render.vis_crop's default
+KNN_P = 10_000            # points a side (the workload's ~1e4)
+KNN_K = 4
+KNN_RTOL = 1e-5
+
+
+class _WatchVisualize:
+    """Within ``with``: wraps ``cls.visualize`` and the render method it
+    calls (``render``), and records per visualize call its wall time
+    (ending in a sync), the kernel launches inside it and the render's
+    float rgb."""
+
+    def __init__(self, cls, render):
+        self.cls, self.render, self.calls = cls, render, []
+        self._orig = (cls.__dict__["visualize"], cls.__dict__[render])
+        self._outs = None
+
+    def __enter__(self):
+        import torch
+        visualize, render = self._orig
+        watch = self
+
+        def watched(eng, it, split="train"):
+            torch.cuda.synchronize()
+            before = read_launches()
+            watch._outs = []
+            t0 = time.perf_counter()
+            visualize(eng, it, split)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = read_launches()
+            watch.calls.append({
+                "it": it, "s": secs, "rgb": watch._outs[-1],
+                "launches": {k: after[k] - before[k] for k in after}})
+            watch._outs = None
+
+        def rendered(eng, *args, **kw):
+            out = render(eng, *args, **kw)
+            if watch._outs is not None:
+                watch._outs.append(out["rgb"].detach().clone())
+            return out
+
+        self.cls.visualize = watched
+        setattr(self.cls, self.render, rendered)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.visualize = self._orig[0]
+        setattr(self.cls, self.render, self._orig[1])
+        return False
+
+
+def _check_panels(what, out_path, calls, names, every, steps):
+    """visualize fired at every ``every`` steps and wrote each panel."""
+    its = [c["it"] for c in calls]
+    if its != list(range(every, steps + 1, every)):
+        fail(f"{what}: visualize fired at {its}")
+    vis_dir = os.path.join(out_path, "vis")
+    missing = [f"{it:06d}_{n}.png" for it in its for n in names
+               if not os.path.exists(os.path.join(vis_dir,
+                                                  f"{it:06d}_{n}.png"))]
+    if missing:
+        fail(f"{what}: panels missing: {missing}")
+    return vis_dir
+
+
+def vis_phase(here, tmp, dev, smi):
+    """visualize on the card in the pretrain, env and GAN train CLIs
+    (freq.vis), the scene_vis export through the evaluate CLI, and the KNN
+    against its CPU result.  Prints visualize's wall time per engine and
+    the export's frames/s beside ``smi``."""
+    import importlib.util
+
+    import cv2
+    import numpy as np
+    import torch
+    from texpose_tpu_torch import evaluate, train
+    from texpose_tpu_torch.models.pretrain import PretrainEngine
+    from texpose_tpu_torch.models.texture_gan import TextureGANEngine
+    from texpose_tpu_torch.ops.knn import chamfer_distance, knn_points
+    from texpose_tpu_torch.utils.log import log
+
+    pre_panels = ("image", "rgb", "image_masked", "pred_mask", "gt_mask",
+                  "depth", "depth_gt", "depth_error", "z_near")
+    gan_panels = ("image", "image_masked", "rgb", "rgb_static",
+                  "rgb_transient", "pred_mask", "gt_mask", "depth",
+                  "depth_gt", "z_near", "depth_error", "color_error",
+                  "uncert")
+
+    # the pretrain and env CLIs: row 8 renders eval frame 0 at each firing
+    for env, steps in ((False, VIS_PRE_STEPS), (True, VIS_ENV_STEPS)):
+        what = "vis_env" if env else "vis_pretrain"
+        argv, _ = pretrain_argv(here, tmp, dev, steps, env=env, name=what,
+                                extra=(f"--freq.vis={VIS_EVERY}",))
+        with _WatchVisualize(PretrainEngine, "_render_frame") as w:
+            eng = train.main(argv)
+        cfg = eng.cfg
+        _check_panels(what, cfg.output_path, w.calls, pre_panels, VIS_EVERY,
+                      steps)
+        chunks = math.ceil(cfg.H * cfg.W / int(cfg.nerf.rand_rays))
+        got = [c["launches"]["coarse_render_fwd"] for c in w.calls]
+        print(f"{what}: visualize at steps {[c['it'] for c in w.calls]}, "
+              f"{cfg.H}x{cfg.W} frame, wall s "
+              f"{[round(c['s'], 4) for c in w.calls]}; coarse_render_fwd "
+              f"launches {got} (want {chunks} each) [{smi}]", flush=True)
+        if got != [chunks] * len(w.calls):
+            fail(f"{what}: visualize launched row 8 {got} times, expected "
+                 f"{chunks} a firing")
+
+    # the GAN CLI: rows 1 + 3 render eval frame 0 at each firing
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    warns = []
+    argv, _ = train_argv(here, tmp, dev, VIS_GAN_STEPS, out="vis_gan_out",
+                         extra=(f"--freq.vis={VIS_EVERY}",))
+    warn = log.warn
+    log.warn = lambda msg: (warns.append(msg), warn(msg))
+    try:
+        with _WatchVisualize(TextureGANEngine, "_render_frame_st") as w:
+            eng = train.main(argv)
+    finally:
+        log.warn = warn
+    vis_dir = _check_panels("vis_gan", eng.cfg.output_path, w.calls,
+                            gan_panels, VIS_EVERY, VIS_GAN_STEPS)
+    cam = os.path.exists(os.path.join(vis_dir, "cameras.png"))
+    cam_warns = [m for m in warns if "cameras.png" in m]
+    print(f"vis_gan: visualize at steps {[c['it'] for c in w.calls]}, wall s "
+          f"{[round(c['s'], 4) for c in w.calls]}; launches "
+          f"{[{k: v for k, v in c['launches'].items() if v} for c in w.calls]}"
+          f"; matplotlib {'found' if has_mpl else 'missing'}, cameras.png "
+          f"{'written' if cam else 'absent'}, warnings {cam_warns} [{smi}]",
+          flush=True)
+    if any(min(c["launches"]["st_field_fwd"],
+               c["launches"]["composite_st_fwd"]) <= 0 for c in w.calls):
+        fail("vis_gan: visualize did not launch rows 1 and 3")
+    if cam != has_mpl or len(cam_warns) != (0 if has_mpl else 1):
+        fail("vis_gan: cameras.png must be written with matplotlib, or "
+             "skipped with one warning without it")
+    # the last firing's render (the weights after the last step) against
+    # the plain twins on the same state
+    frame = eng.eval_frame(0)
+    with torch.inference_mode():
+        eng.cfg.kernels.fused_st = False
+        p_rgb = eng._render_frame_st(
+            frame, eng.latents["trans"][0:1].detach(),
+            eng.latents["light"][0:1].detach())["rgb"]
+        eng.cfg.kernels.fused_st = True
+    err = float((w.calls[-1]["rgb"] - p_rgb).abs().max())
+    print(f"vis_gan: the step-{w.calls[-1]['it']} panel's rgb vs the plain "
+          f"route on the same state, max|err|={err:.3g} (bound "
+          f"{RENDER_MAX_ERR})", flush=True)
+    if not err <= RENDER_MAX_ERR:
+        fail("vis_gan: visualize's render disagrees with the plain route")
+
+    # the scene_vis export: 256-px crops of the render, the GT and the depth
+    argv = fixture_argv(here, tmp, dev, VIS_FRAMES, sub="vis")
+    root = next(a.split("=", 1)[1] for a in argv
+                if a.startswith("--data.root="))
+    split = os.path.join(root, "splits", "lm", "ball")
+    shutil.copytree(os.path.join(split, "scene_all"),
+                    os.path.join(split, "scene_vis"), dirs_exist_ok=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    eng = evaluate.main(argv + ["--data.scene=scene_vis"])
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = read_launches()
+    if min(launches["st_field_fwd"], launches["composite_st_fwd"]) <= 0:
+        fail(f"scene_vis: the export did not launch rows 1 and 3: "
+             f"{launches}")
+    out_dir = os.path.join(eng.cfg.output_path, "test_view_last")
+    files = sorted(os.listdir(out_dir))
+    shapes = {cv2.imread(os.path.join(out_dir, f)).shape for f in files}
+    kinds = {k: len([f for f in files if f.startswith(k)])
+             for k in ("syn_", "depth_vis_")}
+    if (len(files) != 3 * VIS_FRAMES or shapes != {(VIS_CROP, VIS_CROP, 3)}
+            or kinds != {"syn_": VIS_FRAMES, "depth_vis_": VIS_FRAMES}):
+        fail(f"scene_vis: export {files} {shapes}")
+    rows = [ln.split() for ln in open(os.path.join(eng.cfg.output_path,
+                                                   "quant.txt"))][1:]
+    if len(rows) != VIS_FRAMES or not all(
+            math.isfinite(float(v)) for r in rows for v in r[1:]):
+        fail(f"scene_vis: quant.txt {rows}")
+    frame = eng.eval_frame(0)
+    sample = eng.eval_data[0]
+    lt = np.zeros((1, int(eng.cfg.nerf.N_latent_trans)), np.float32)
+    ll = eng.latents["light"][0:1]
+    obj = torch.as_tensor(sample["obj_mask"].reshape(-1) > 0,
+                          device=eng.device)
+    with torch.inference_mode():
+        k_out = eng._render_frame_st(frame, lt, ll,
+                                     obj_host=sample["obj_mask"])
+        eng.cfg.kernels.fused_st = False
+        p_out = eng._render_frame_st(frame, lt, ll,
+                                     obj_host=sample["obj_mask"])
+        eng.cfg.kernels.fused_st = True
+    err = float((k_out["rgb_static"][0][obj]
+                 - p_out["rgb_static"][0][obj]).abs().max())
+    t0 = time.perf_counter()
+    eng.evaluate_full()
+    torch.cuda.synchronize()
+    fps = VIS_FRAMES / (time.perf_counter() - t0)
+    print(f"scene_vis: evaluate (cold, {VIS_FRAMES} frames at "
+          f"{eng.cfg.H}x{eng.cfg.W}) {cold_s:.2f} s; launches {launches}; "
+          f"{len(files)} PNGs {sorted(shapes)}; quant {rows}; frame 0 "
+          f"rgb_static kernel vs plain route max|err|={err:.3g} over "
+          f"{int(obj.sum())} object pixels (bound {RENDER_MAX_ERR}); warm "
+          f"export {fps:.3f} frames/s (PNG writes in) [{smi}]", flush=True)
+    if not err <= RENDER_MAX_ERR:
+        fail("scene_vis: the kernel route disagrees with the plain route "
+             "on frame 0")
+
+    # KNN on the card against the CPU: the same indices (ties included)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1, KNN_P, 3)).astype(np.float32)
+    y = rng.normal(size=(1, KNN_P, 3)).astype(np.float32)
+    y[:, KNN_P // 2:KNN_P // 2 + 100] = y[:, :100]     # tied neighbours
+    x[:, :50] = y[:, 20:70]
+    xc, yc = torch.as_tensor(x), torch.as_tensor(y)
+    d_cpu, i_cpu = knn_points(xc, yc, K=KNN_K)
+    ch_cpu = chamfer_distance(xc, yc)
+    xg, yg = xc.to(dev), yc.to(dev)
+    knn_points(xg, yg, K=KNN_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_gpu, i_gpu = knn_points(xg, yg, K=KNN_K)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    ch_gpu = chamfer_distance(xg, yg)
+    same = int((i_gpu.cpu() == i_cpu).all(dim=-1).sum())
+    d_rel = float(((d_gpu.cpu() - d_cpu).abs()
+                   / d_cpu.abs().clamp(min=1e-30)).max())
+    ch_rel = abs(float(ch_gpu) - float(ch_cpu)) / abs(float(ch_cpu))
+    print(f"knn: P={KNN_P} x {KNN_P}, K={KNN_K}: {same}/{KNN_P} rows with "
+          f"the CPU's indices; distances max rel {d_rel:.3g}, chamfer rel "
+          f"{ch_rel:.3g} (rtol {KNN_RTOL}); card knn_points "
+          f"{knn_s * 1e3:.2f} ms (host clock, one call) [{smi}]", flush=True)
+    if same != KNN_P or not (d_rel <= KNN_RTOL and ch_rel <= KNN_RTOL):
+        fail("knn: the card's neighbours disagree with the CPU's")
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "texpose_tpu_torch")):
@@ -2757,6 +3019,7 @@ def main():
         two_launches = two_kernel_phase(here, tmp, dev)
         mega_launches = st_mega_phase(here, tmp, dev)
         preprocess_video_phase(here, tmp, dev, smi)
+        vis_phase(here, tmp, dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's count from the run of the path it was ported for

@@ -14,8 +14,8 @@ package's:
     engine's (losses rtol 1e-4, PSNR 0.01 dB, SSIM 1e-4); the port's
     evaluate CLI reloads a checkpoint;
   * the env variant's CLI; the hierarchical pretrain's CLI
-    (``nerf.fine_sampling``) and its evaluation; ``visualize`` is refused
-    before the networks are built, and ``evaluate --video`` writes the
+    (``nerf.fine_sampling``) and its evaluation, with ``--freq.vis=1``
+    writing the nine panels at every step; ``evaluate --video`` writes the
     novel-view orbit.
 """
 
@@ -240,18 +240,17 @@ def test_env_cli_trains(root, tmp_path):
 def test_cli_refuses_unported_options(root, tmp_path):
     """The hierarchical pretrain runs through the CLI (3 steps, both
     fields' leaves and Adam moments in model.ckpt, the fine render loss
-    logged) and the evaluate CLI reloads its coarse field; visualize is
-    refused before anything is built; the evaluate CLI's --video renders
-    the 60-frame orbit of the coarse field (novel_pose.npy and the PNGs)
-    and writes no checkpoint."""
+    logged), with --freq.vis=1 once refused and now writing the nine
+    panels of the coarse field at every step, and the evaluate CLI reloads
+    its coarse field; the evaluate CLI's --video renders the 60-frame
+    orbit of the coarse field (novel_pose.npy and the PNGs) and writes no
+    checkpoint."""
     from texpose_tpu_torch import evaluate, train
     cfg = pre_cfg(root, tmp_path)
     cfg.nerf.fine_sampling = True
     cfg.nerf.sample_intvs_fine = 16
     cfg.loss_weight.render_fine = 0
     yml = _yaml(cfg, tmp_path / "fine.yaml")
-    with pytest.raises(NotImplementedError, match="visualize"):
-        train.main([f"--yaml={yml}", "--device=cpu", "--freq.vis=1"])
     vid = evaluate.main([f"--yaml={yml}", "--device=cpu", "--video",
                          "--nerf.rand_rays=1024"])
     novel = os.path.join(cfg.output_path, "novel_view")
@@ -262,8 +261,12 @@ def test_cli_refuses_unported_options(root, tmp_path):
     assert vid.start_step == 0
     assert not os.path.exists(os.path.join(cfg.output_path, "model.ckpt"))
 
-    eng = _train(yml)
+    eng = train.main([f"--yaml={yml}", "--device=cpu", "--freq.vis=1"])
     assert eng.it == 3 and eng.nerf_fine is not None
+    panels = ("image", "rgb", "image_masked", "pred_mask", "gt_mask",
+              "depth", "depth_gt", "depth_error", "z_near")
+    assert sorted(os.listdir(os.path.join(cfg.output_path, "vis"))) == \
+        sorted(f"{it:06d}_{p}.png" for it in (1, 2, 3) for p in panels)
     out = load_checkpoint_flat(os.path.join(cfg.output_path, "model.ckpt"))
     for field in ("nerf", "nerf_fine"):
         for k in ("params/{}/mlp_feat/0/w", "params/{}/mlp_rgb/1/b",

@@ -8,14 +8,15 @@ CPU at a tiny size, and its checkpoints in both directions:
     its train state, optimizer moments included, present with its shape),
     holds the same values and trains on; the port resumes from the
     checkpoint the JAX engine then writes, and goes on;
-  * a run whose freq.vis would fire is refused before the networks are
-    built, with the flag that avoids it.
+  * a run whose freq.vis fires (once refused) trains and writes the
+    thirteen panels at each firing and the anchors' cameras.png once.
 """
 
 import json
 import os
 import sys
 
+import cv2
 import jax
 import numpy as np
 import pytest
@@ -116,6 +117,15 @@ def test_train_cli_refuses_vis(root, tmp_path):
     cfg.max_iter = 3
     cfg.freq.vis = 2
     yml = _yaml(cfg, tmp_path / "train.yaml")
-    with pytest.raises(NotImplementedError, match="--freq.vis=null"):
-        train.main([f"--yaml={yml}", "--device=cpu"])
-    assert not os.path.exists(os.path.join(cfg.output_path, "model.ckpt"))
+    eng = train.main([f"--yaml={yml}", "--device=cpu", "--batch_size=2"])
+    assert eng.it == 3
+    assert os.path.exists(os.path.join(cfg.output_path, "model.ckpt"))
+    panels = ("image", "image_masked", "rgb", "rgb_static", "rgb_transient",
+              "pred_mask", "gt_mask", "depth", "depth_gt", "z_near",
+              "depth_error", "color_error", "uncert")
+    vis_dir = os.path.join(cfg.output_path, "vis")
+    assert sorted(os.listdir(vis_dir)) == sorted(
+        [f"000002_{p}.png" for p in panels] + ["cameras.png"])
+    for p in panels:
+        img = cv2.imread(os.path.join(vis_dir, f"000002_{p}.png"))
+        assert img.shape == (36, 36, 3), p

@@ -7,8 +7,8 @@ JAX package's npz files in both directions (utils/checkpoint.py).
 
 Training: the whole train split is uploaded once (``train_batch``); each
 step's random draws come from one seeded device generator; the loop fires
-the freq.scalar / freq.val / freq.ckpt hooks at the iterations the JAX
-loop does (``scan_steps`` fuses steps there and is read and ignored here:
+the freq.scalar / freq.vis / freq.val / freq.ckpt hooks at the
+iterations the JAX loop does (``scan_steps`` fuses steps there and is read and ignored here:
 one step per iteration).  Losses reach the host only at freq.scalar, where
 a non-finite one stops the run.
 """
@@ -225,8 +225,8 @@ class Engine:
 
     def train(self):
         """The JAX loop's schedule, one step per iteration: scalars at
-        done % freq.scalar (and the first step), val at freq.val, ckpt at
-        freq.ckpt, and a final checkpoint."""
+        done % freq.scalar (and the first step), panels at freq.vis, val at
+        freq.val, ckpt at freq.ckpt, and a final checkpoint."""
         cfg = self.cfg
         max_iter = self.max_iter()
         log.title(f"TRAINING START ({type(self).__name__}, "
@@ -294,9 +294,9 @@ class Engine:
         return host
 
     def visualize(self, it, split="train"):
-        raise NotImplementedError(
-            "visualize is not ported to texpose_tpu_torch yet: pass "
-            "--freq.vis=null")
+        """The freq.vis hook: panels of the current state under
+        <output_path>/vis (and TensorBoard); engines override it.  Default:
+        no-op."""
 
     def load_initial_weights(self):
         """cfg.init_weights=<npz>: overlay every matching field/latent leaf

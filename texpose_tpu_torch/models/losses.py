@@ -1,13 +1,18 @@
-"""The training losses (port of texpose_tpu/models/losses.py): MSE, the
-pretrain's masked MSE and scale-invariant depth loss, the uncertainty
-regularizer, the Lab chromaticity loss, the GAN losses with the R1 and
-WGAN-GP penalties, and the 10**w log-scale weighting."""
+"""The training losses (port of texpose_tpu/models/losses.py): L1 and
+MSE, the pretrain's masked MSE and scale-invariant depth loss, the robust
+point loss, the uncertainty-weighted render loss and regularizer, the
+transient density regularizer, the Lab chromaticity loss, the GAN losses
+with the R1 and WGAN-GP penalties, and the 10**w log-scale weighting."""
 
 from __future__ import annotations
 
 import torch
 
 from ..ops.color import normalize_lab, rgb_to_lab
+
+
+def l1_loss(pred, label=0.0):
+    return (pred - label).abs().mean()
 
 
 def mse_loss(pred, label=0.0):
@@ -31,9 +36,32 @@ def scale_invariant_depth_loss(depth_pred, depth_target, mask=None):
     return loss.mean()
 
 
+def point_loss(point_pred, point_target, mask):
+    """Robust Geman-McClure-style point loss on [B,P,D] points: the
+    per-point error's scale c is twice its median over P (no gradient
+    through c); mask [B,P,1]."""
+    e = torch.linalg.vector_norm(point_pred - point_target, dim=-1,
+                                 keepdim=True)
+    c = 2 * torch.quantile(e.detach(), 0.5, dim=1, keepdim=True)
+    loss = -torch.expm1(-0.5 * (e / c) ** 2)
+    mask = mask.to(loss.dtype)
+    return (loss * mask).sum() / (mask.sum() + 1e-5)
+
+
+def uncertainty_render_loss(rgb, image, uncert, mask, eps=1e-5):
+    """σ²-weighted masked MSE."""
+    return (mask * ((image - rgb) ** 2 / uncert ** 2)).sum() \
+        / (mask.sum() + eps)
+
+
 def uncertainty_reg_loss(uncert):
     """5 + E[log σ²]/2."""
     return 5.0 + torch.log(uncert ** 2).mean() / 2
+
+
+def transient_reg_loss(density_samples):
+    """Mean transient density (the last channel of density_samples)."""
+    return density_samples[..., -1].mean()
 
 
 def smooth_l1(x, y, beta=1.0):

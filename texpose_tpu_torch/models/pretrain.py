@@ -27,8 +27,8 @@ and PSNR; ``evaluate_full`` renders every eval frame from a compact uint8
 payload, with PSNR/SSIM/LPIPS, an RGB and an opacity PNG per frame and
 quant.txt.  Both render the coarse field only, as the JAX package's.
 ``generate_videos_synthesis`` (``evaluate --video``) renders an N-frame
-novel-view orbit around eval frame 0 through the same whole-frame render.
-``visualize`` is a later slice of the port.
+novel-view orbit around eval frame 0 through the same whole-frame render,
+and ``visualize`` (the freq.vis hook) eval frame 0's panels.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from ..nn.fields import init_nerf
 from ..nn.lpips import lpips_distance
 from ..ops.ssim import ssim
 from ..utils import checkpoint as ckpt
+from ..utils import vis
 from ..utils.log import log
 from ..utils.metrics import mse_to_psnr, write_quant
 from ..utils.pipeline import AsyncWriter
@@ -321,6 +322,65 @@ class PretrainEngine(Engine):
                                            for k, v in mean.items()))
         return mean
 
+    def _depth_gt_range(self, zs, dmax):
+        """Heatmap range of the depth_gt panel (the env variant overrides
+        it with fixed fractions of depth.scale)."""
+        return (0.7 * zs, dmax)
+
+    def _z_near_range(self, zs, z_near):
+        """Heatmap range of the z_near panel."""
+        return (0.9 * zs, float(z_near.max()))
+
+    def visualize(self, it, split="train"):
+        """Render eval frame 0 with the current field and write nine panels
+        as <output_path>/vis/<it>_<name>.png (and TensorBoard images):
+        image, rgb, image_masked, pred_mask, gt_mask and the plasma/turbo
+        depth heatmaps.  Draws nothing from the step's generator and
+        builds no graph."""
+        cfg = self.cfg
+        progress = it / self.max_iter() if cfg.get("c2f") is not None else 1.0
+        with torch.inference_mode():
+            frame = self.eval_frame(0)
+            out = self._render_frame(frame, progress)
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            fr = {k: frame[k].cpu().numpy()
+                  for k in ("image", "obj_mask", "erode_mask", "depth_gt",
+                            "z_near") if k in frame}
+        H, W = cfg.H, cfg.W
+        rgb = host["rgb"].reshape(1, H, W, 3).transpose(0, 3, 1, 2)
+        depth = host["depth"].reshape(1, 1, H, W)
+        opac = host["opacity"].reshape(1, 1, H, W)
+        image = fr["image"]
+        mask = fr["obj_mask"].reshape(1, 1, H, W)
+        # the masked display takes the eroded mask when the loss does
+        lmask = (fr["erode_mask"].reshape(1, 1, H, W)
+                 if cfg.data.get("erode_mask_loss") and "erode_mask" in fr
+                 else mask)
+        depth_gt = fr["depth_gt"].reshape(1, 1, H, W)
+        z_near = fr["z_near"].reshape(1, 1, H, W)
+        depth_err = np.abs(depth - depth_gt) * mask
+        vis_dir = os.path.join(cfg.output_path, "vis")
+        zs = cfg.nerf.depth.scale
+        dmax = max(float(depth.max()), 1e-6)
+        panels = {
+            "image": (image, (0, 1), None),
+            "rgb": (rgb, (0, 1), None),
+            "image_masked": (image * lmask + (1 - lmask), (0, 1), None),
+            "pred_mask": (opac, (0, 1), None),
+            "gt_mask": (mask, (0, 1), None),
+            "depth": (depth * mask, (0.7 * zs, dmax), "plasma"),
+            "depth_gt": (depth_gt, self._depth_gt_range(zs, dmax), "plasma"),
+            "depth_error": (depth_err,
+                            (0, float(np.quantile(depth_err, 0.99))),
+                            "turbo"),
+            "z_near": (z_near, self._z_near_range(zs, z_near), "plasma"),
+        }
+        for name, (img, rng, cmap) in panels.items():
+            vis.tb_image(self.writer, it, split, name,
+                         vis.preprocess_vis_image(img, rng, cmap))
+            vis.dump_image_grid(
+                os.path.join(vis_dir, f"{it:06d}_{name}.png"), img, rng, cmap)
+
     # ------------------------------------------------------------ evaluation
 
     def _eval_compact_transform(self):
@@ -455,6 +515,13 @@ class PretrainEngine(Engine):
 class PretrainEnvEngine(PretrainEngine):
     """model=nerf_pretrain_env: the same skeleton with poses always GT and
     the view-dependent field of nerf_lm_env.yaml (its optimizer decays to
-    lr_end continuously: models/optim.py)."""
+    lr_end continuously: models/optim.py); its depth_gt and z_near panels
+    span the fixed range [0.6, 0.8]·depth.scale."""
 
     pose_source_fixed = "gt"
+
+    def _depth_gt_range(self, zs, dmax):
+        return (0.6 * zs, 0.8 * zs)
+
+    def _z_near_range(self, zs, z_near):
+        return (0.6 * zs, 0.8 * zs)

@@ -20,9 +20,11 @@ the host, the object rays only (bucketed to a multiple of the 2048-ray
 chunk), each chunk through the ST-field kernel and the composite kernel,
 then scatter, metrics and the PNG payload on the device.  Frame i+1 loads
 and uploads on a worker thread while frame i renders; results are pulled
-one frame behind the dispatch; PNG encodes run on a writer thread.
-The scene_vis export, ``visualize`` and the multi-device paths are later
-slices of the port.
+one frame behind the dispatch; PNG encodes run on a writer thread.  The
+paper-visual export (``--data.scene=scene_vis``) renders whole frames and
+writes 256-px crops of the render, the GT and the depth; ``visualize``
+(the freq.vis hook) writes eval frame 0's panels during training.  The
+multi-device paths are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -47,12 +49,14 @@ from ..sampling.patch import (current_scale_bounds, flex_patch_coords,
                               patch_uniforms)
 from ..sampling.ray_sampler import get_bounds, get_rays
 from ..utils import checkpoint as ckpt
+from ..utils import vis
 from ..utils.log import log
 from ..utils.metrics import mse_to_psnr, write_quant
 from ..utils.pipeline import AsyncWriter, to_device
 from .base import Engine, compute_dtype
 from .losses import (gan_loss, lab_loss, mse_loss, r1_penalty,
-                     summarize_loss, uncertainty_reg_loss, wgan_gp_reg)
+                     summarize_loss, uncertainty_reg_loss,
+                     uncertainty_render_loss, wgan_gp_reg)
 from .optim import make_disc_optimizer, make_generator_optimizer, set_lrs
 from .render import (masked_ray_indices, render_full_nerf_st,
                      render_rays_masked_st_pre, render_st_core,
@@ -256,8 +260,8 @@ class TextureGANEngine(Engine):
         loss = {}
         if lw.get("render") is not None:
             if cfg.nerf.get("mask_obj"):
-                loss["render"] = (mask * ((image - rgb) ** 2 / uncert ** 2)
-                                  ).sum() / (mask.sum() + 1e-5)
+                loss["render"] = uncertainty_render_loss(rgb, image, uncert,
+                                                         mask)
             else:
                 loss["render"] = mse_loss(rgb, image)
         if lw.get("mask") is not None:
@@ -627,10 +631,8 @@ class TextureGANEngine(Engine):
                 row = {"PSNR": float(mse_to_psnr(mse_loss(out["rgb"],
                                                           image * mask)))}
                 if lw.get("render") is not None:
-                    row["render"] = float(
-                        (mask * ((image - out["rgb"]) ** 2
-                                 / out["uncert"] ** 2)).sum()
-                        / (mask.sum() + 1e-5))
+                    row["render"] = float(uncertainty_render_loss(
+                        out["rgb"], image, out["uncert"], mask))
                 if lw.get("uncert") is not None:
                     row["uncert"] = float(uncertainty_reg_loss(out["uncert"]))
                 rows.append(row)
@@ -696,6 +698,78 @@ class TextureGANEngine(Engine):
             log.warn(f"latent drift alarm @ {it}: " + "; ".join(alarms))
         self.writer.scalars(it, rec, split="drift")
         return rec
+
+    def visualize(self, it, split="train"):
+        """Render eval frame 0 with latent row 0 of the current tables and
+        write thirteen panels as <output_path>/vis/<it>_<name>.png (and
+        TensorBoard images): the GT image and masks, rgb / rgb_static /
+        rgb_transient / pred_mask, and the depth, error and uncertainty
+        heatmaps; then, once, cameras.png (the train anchors' frusta).
+        Where matplotlib is missing, the camera plot is skipped with one
+        warning and every other panel is still written.  Draws nothing
+        from the step's generator and builds no graph."""
+        cfg = self.cfg
+        with torch.inference_mode():
+            frame = self.eval_frame(0)
+            out = self._render_frame_st(frame,
+                                        self.latents["trans"][0:1].detach(),
+                                        self.latents["light"][0:1].detach())
+            host = {k: out[k].cpu().numpy()
+                    for k in ("rgb", "rgb_static", "rgb_transient",
+                              "opacity_static", "depth", "uncert")}
+            fr = {k: frame[k].cpu().numpy()
+                  for k in ("image", "obj_mask", "depth_gt", "z_near")}
+        H, W = cfg.H, cfg.W
+        vis_dir = os.path.join(cfg.output_path, "vis")
+
+        def img(key, c):
+            return host[key].reshape(1, H, W, c).transpose(0, 3, 1, 2)
+
+        zs = cfg.nerf.depth.scale
+        image = fr["image"].reshape(1, 3, H, W)
+        gt_mask = (fr["obj_mask"].reshape(1, 1, H, W) > 0).astype(np.float32)
+        depth_gt = fr["depth_gt"].reshape(1, 1, H, W)
+        z_near = fr["z_near"].reshape(1, 1, H, W)
+        depth_err = np.abs(img("depth", 1) - depth_gt) * gt_mask
+        color_err = ((img("rgb", 3) - image * gt_mask) ** 2
+                     ).mean(axis=1, keepdims=True)
+        panels = {
+            "image": (image, (0, 1), None),
+            "image_masked": (image * gt_mask, (0, 1), None),
+            "rgb": (img("rgb", 3), (0, 1), None),
+            "rgb_static": (img("rgb_static", 3), (0, 1), None),
+            "rgb_transient": (img("rgb_transient", 3), (0, 1), None),
+            "pred_mask": (img("opacity_static", 1), (0, 1), None),
+            "gt_mask": (gt_mask, (0, 1), None),
+            "depth": (img("depth", 1) * gt_mask, (0.8 * zs, 1.1 * zs),
+                      "plasma"),
+            "depth_gt": (depth_gt, (0.8 * zs, 1.1 * zs), "plasma"),
+            "z_near": (z_near, (0.6 * zs, float(z_near.max())), "plasma"),
+            "depth_error": (depth_err,
+                            (0, float(np.quantile(depth_err, 0.99))),
+                            "turbo"),
+            "color_error": (color_err,
+                            (0, float(np.quantile(color_err, 0.95))),
+                            "turbo"),
+            "uncert": (img("uncert", 1),
+                       (float(host["uncert"].min()),
+                        float(np.quantile(host["uncert"], 0.99))),
+                       "viridis"),
+        }
+        for name, (im, rng, cmap) in panels.items():
+            vis.tb_image(self.writer, it, split, name,
+                         vis.preprocess_vis_image(im, rng, cmap))
+            vis.dump_image_grid(
+                os.path.join(vis_dir, f"{it:06d}_{name}.png"), im, rng, cmap)
+        cam_png = os.path.join(vis_dir, "cameras.png")
+        if not os.path.exists(cam_png) and not getattr(self, "_no_cameras",
+                                                       False):
+            try:
+                vis.plot_cameras(self.pose_anchor, cam_png)
+            except ImportError as e:
+                self._no_cameras = True
+                log.warn(f"visualize: no cameras.png ({e}); the other "
+                         "panels are written")
 
     # --------------------------------------------------------------- render
 
@@ -764,12 +838,14 @@ class TextureGANEngine(Engine):
     # zeros), the [P] indices and the [P] z bounds gathered on the host.
 
     def _eval_compact_transform(self):
-        """EvalPrefetcher transform for the compact payload, or None when
+        """EvalPrefetcher transform for the compact payload, or None for
+        the scene_vis export (it renders and crops whole frames) and when
         render.eval_compact is off.  Frames with coverage outside (0, 0.5)
         keep the standard payload (the whole-frame route needs the full z
         maps)."""
         cfg = self.cfg
-        if not cfg.render.get("eval_compact", True):
+        if cfg.data.scene == "scene_vis" \
+                or not cfg.render.get("eval_compact", True):
             return None
         chunk = int(cfg.nerf.rand_rays)
 
@@ -840,20 +916,72 @@ class TextureGANEngine(Engine):
                 frame = self.eval_frame(i)
                 out = self._render_frame_st(frame, lt, ll,
                                             obj_host=sample["obj_mask"])
+                if cfg.data.scene == "scene_vis":
+                    float(out["rgb_static"].sum())
+                    return
                 res = self._eval_metrics(out["rgb_static"], frame["image"],
                                          frame["obj_mask"], raw_hw)
             float(res[0])
+
+    def _eval_frame_vis(self, frame, out, raw_hw, fi, test_path, writer):
+        """The scene_vis export of one frame: the render composited on
+        white inside the object mask, upscaled to raw_hw (cv2 INTER_LINEAR;
+        INTER_NEAREST for the mask) and center-cropped to render.vis_crop
+        (default 256) px, with PSNR/SSIM/LPIPS on the crop; writes
+        <fi>.png, syn_<fi>.png (the unmasked GT) and depth_vis_<fi>.png
+        (depth/depth.scale over [0.3, 0.5], plasma) → the quant row."""
+        cfg = self.cfg
+        lpips_params, lpips_key = self._ensure_lpips()
+        rgb = out["rgb_static"].reshape(cfg.H, cfg.W, 3).cpu().numpy()
+        mask = frame["obj_mask"].reshape(cfg.H, cfg.W, 1).cpu().numpy()
+        gt = frame["image"][0].permute(1, 2, 0).cpu().numpy()
+        image = gt * mask
+        d = (out["depth"].reshape(cfg.H, cfg.W, 1).cpu().numpy()
+             / cfg.nerf.depth.scale)
+        if raw_hw is not None and tuple(raw_hw) != (cfg.H, cfg.W):
+            size = (raw_hw[1], raw_hw[0])
+            rgb, image, gt = (cv2.resize(a, size,
+                                         interpolation=cv2.INTER_LINEAR)
+                              for a in (rgb, image, gt))
+            mask = cv2.resize(mask, size,
+                              interpolation=cv2.INTER_NEAREST)[..., None]
+            d = cv2.resize(d, size, interpolation=cv2.INTER_LINEAR)[..., None]
+        crop = int(cfg.render.get("vis_crop") or 256)
+        rgb, image, gt, m, d = [vis.center_crop(a, crop)
+                                for a in (rgb, image, gt, mask, d)]
+        rgb = rgb * m + (1.0 - m)
+        rgb_t = torch.as_tensor(rgb.transpose(2, 0, 1),
+                                device=self.device)[None]
+        img_t = torch.as_tensor(image.transpose(2, 0, 1),
+                                device=self.device)[None]
+        row = {"psnr": float(mse_to_psnr(((rgb_t - img_t) ** 2).mean())),
+               "ssim": float(ssim(rgb_t, img_t)),
+               lpips_key: float(lpips_distance(lpips_params, rgb_t * 2 - 1,
+                                               img_t * 2 - 1).mean())}
+        writer.submit(cv2.imwrite, os.path.join(test_path, f"{fi:06d}.png"),
+                      (np.clip(rgb, 0, 1) * 255)[..., ::-1].astype(np.uint8))
+        writer.submit(cv2.imwrite,
+                      os.path.join(test_path, f"syn_{fi:06d}.png"),
+                      (np.clip(gt, 0, 1) * 255)[..., ::-1].astype(np.uint8))
+        dv = vis.preprocess_vis_image(
+            d.transpose(2, 0, 1)[None], from_range=(0.3, 0.5),
+            cmap="plasma")[0].transpose(1, 2, 0)
+        writer.submit(cv2.imwrite,
+                      os.path.join(test_path, f"depth_vis_{fi:06d}.png"),
+                      (dv * 255)[..., ::-1].astype(np.uint8))
+        return row
 
     # ------------------------------------------------------------- evaluate
 
     def evaluate_full(self):
         """Novel-view synthesis over the eval split → quant.txt and one PNG
         per frame under <output_path>/test_view_last (or
-        render.save_path); returns the mean PSNR and SSIM."""
+        render.save_path); returns the mean PSNR and SSIM.  Under
+        data.scene=scene_vis each frame is the paper-visual export
+        (``_eval_frame_vis``): three 256-px crops, quant rows on the
+        crop."""
         cfg = self.cfg
-        if cfg.data.scene == "scene_vis":
-            raise NotImplementedError(
-                "scene_vis export is not ported to texpose_tpu_torch yet")
+        vis_mode = cfg.data.scene == "scene_vis"
         test_path = cfg.render.get("save_path") or os.path.join(
             cfg.output_path, "test_view_last")
         os.makedirs(test_path, exist_ok=True)
@@ -896,6 +1024,11 @@ class TextureGANEngine(Engine):
                 else:
                     out = self._render_frame_st(frame, lt, ll,
                                                 obj_host=sample["obj_mask"])
+                    if vis_mode:
+                        rows[i] = self._eval_frame_vis(
+                            frame, out, raw_hw, int(sample["frame_index"]),
+                            test_path, writer)
+                        continue
                     res = self._eval_metrics(out["rgb_static"],
                                              frame["image"],
                                              frame["obj_mask"], raw_hw)

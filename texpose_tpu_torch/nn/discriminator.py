@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.posenc import positional_encoding
+from .mlp import leaky_relu
 
 
 def _normalize(v):
@@ -43,10 +44,6 @@ def instance_norm(x, eps=1e-5):
 def _conv(x, w, stride, padding):
     return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride,
                     padding=padding)
-
-
-def leaky_relu(x, slope=0.2):
-    return F.leaky_relu(x, slope)
 
 
 def _main_spec(imsize, nc, ndf, final_dim):

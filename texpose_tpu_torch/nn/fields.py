@@ -124,9 +124,11 @@ def _layers(generator, dims, first_in, last_mode):
     return nn.ModuleList(out)
 
 
-def _trunk(cfg, generator):
-    """The trunk's Dense layers: layers_feat with skip connections, the last
-    layer emitting [density, feat...]."""
+def init_trunk(cfg, generator=None):
+    """The trunk's Dense layers (an ``nn.ModuleList``): layers_feat with
+    skip connections, the last layer emitting [density, feat...]."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     in3d = input_3d_dim(cfg)
     tf_init = bool(cfg.arch.tf_init)
     trunk = []
@@ -152,7 +154,7 @@ class NerfCoarse(nn.Module):
 
     def __init__(self, cfg, generator):
         super().__init__()
-        self.mlp_feat = _trunk(cfg, generator)
+        self.mlp_feat = init_trunk(cfg, generator)
         self.mlp_rgb = _layers(
             generator, get_layer_dims(cfg.arch.layers_rgb),
             cfg.arch.layers_feat[-1]
@@ -181,7 +183,7 @@ class NerfDensity(nn.Module):
 
     def __init__(self, cfg, generator):
         super().__init__()
-        self.mlp_feat = _trunk(cfg, generator)
+        self.mlp_feat = init_trunk(cfg, generator)
         self.skip = tuple(cfg.arch.skip)
         self._kernel_weights = None
 
@@ -204,7 +206,7 @@ class NerfST(nn.Module):
 
     def __init__(self, cfg, generator):
         super().__init__()
-        self.mlp_feat = _trunk(cfg, generator)
+        self.mlp_feat = init_trunk(cfg, generator)
         feat_dim = cfg.arch.layers_feat[-1]
         last_mode = "all" if cfg.arch.tf_init else None
         self.mlp_rgb = _layers(

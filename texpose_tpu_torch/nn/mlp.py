@@ -11,6 +11,7 @@ Parameters live in float32.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -37,6 +38,10 @@ def dense(layer, x, compute_dtype=None):
 
 def relu(x):
     return torch.clamp_min(x, 0.0)
+
+
+def leaky_relu(x, slope=0.2):
+    return F.leaky_relu(x, slope)
 
 
 def softplus(x):

@@ -96,3 +96,17 @@ def perceptual_loss_pairs(params, pairs, loss_type="l2", dtype=None):
             d = (f_fake - f_real).abs().mean() + ((f_fake - f_real) ** 2).mean()
         total = total + w * d
     return total
+
+
+def perceptual_loss(params, fake, real, loss_type="l2"):
+    """Feature-space distance of fake to real ([B,3,H,W] in [0,1]): "l1",
+    "l2" or "both"; the real features carry no gradient."""
+    f_fake = vgg19_features(params, fake)
+    f_real = vgg19_features(params, real).detach()
+    if loss_type == "l1":
+        return (f_fake - f_real).abs().mean()
+    if loss_type == "l2":
+        return ((f_fake - f_real) ** 2).mean()
+    if loss_type == "both":
+        return (f_fake - f_real).abs().mean() + ((f_fake - f_real) ** 2).mean()
+    raise NotImplementedError(loss_type)

@@ -19,6 +19,13 @@ def srgb_to_linear(rgb):
     return torch.where(rgb > 0.04045, hi, rgb / 12.92)
 
 
+def linear_to_srgb(lin):
+    """sRGB gamma of linear RGB, clipped to [0,1] first."""
+    lin = torch.clamp(lin, 0.0, 1.0)
+    hi = 1.055 * torch.clamp(lin, min=0.0031308) ** (1 / 2.4) - 0.055
+    return torch.where(lin > 0.0031308, hi, 12.92 * lin)
+
+
 def rgb_to_lab(rgb):
     """rgb [B,3,H,W] in [0,1] → Lab [B,3,H,W], L∈[0,100], ab∈[−127,127]."""
     lin = srgb_to_linear(rgb)

@@ -15,3 +15,12 @@ def grid_sample(image, grid, mode="bilinear", align_corners=False):
         raise NotImplementedError(mode)
     return F.grid_sample(image, grid.to(image.dtype), mode=mode,
                          padding_mode="zeros", align_corners=align_corners)
+
+
+def grid_sample_table(images, frame_idx, grid, mode="bilinear",
+                      align_corners=False):
+    """images [N,C,H,W], frame_idx [B] int, grid [B,h,w,2] → [B,C,h,w]:
+    exactly ``grid_sample(images[frame_idx], grid, ...)``.  The JAX package
+    folds the frame index into its gather so that the B frames are never
+    materialized; here the gathered batch goes to ``F.grid_sample``."""
+    return grid_sample(images[frame_idx], grid, mode, align_corners)

@@ -71,3 +71,22 @@ def current_scale_bounds(iteration, min_scale=0.25, max_scale=1.0,
     else:
         lo = min_scale
     return lo, max_scale
+
+
+def full_image_coords(nbatch, H, W, device=None):
+    """The identity sampling grid of an H×W image → (coords [B,H,W,2],
+    unit scales [B,1,1,1])."""
+    ly = torch.linspace(-1.0, 1.0, H, device=device)
+    lx = torch.linspace(-1.0, 1.0, W, device=device)
+    coords = torch.stack([lx[None, :].expand(H, W),
+                          ly[:, None].expand(H, W)], dim=-1)
+    return (coords[None].repeat(nbatch, 1, 1, 1),
+            torch.ones((nbatch, 1, 1, 1), device=device))
+
+
+def rescale_patch_coords(nbatch, patch_size, scale=1.0, device=None):
+    """The centered patch grid scaled by ``scale`` → (coords [B,p,p,2],
+    unit scales [B,1,1,1])."""
+    coords = base_grid(patch_size, device)[None] * scale
+    return (coords.repeat(nbatch, 1, 1, 1),
+            torch.ones((nbatch, 1, 1, 1), device=device))

@@ -1,7 +1,8 @@
 """Continuous-coordinate ray sampling for patch training (port of
 texpose_tpu/sampling/ray_sampler.py): world rays at normalized patch
 coords via the closed-form align_corners=True pixel map (no +0.5 pixel
-center, as the reference), and bilinearly sampled depth bounds."""
+center, as the reference), and bilinearly sampled depth bounds and image
+patches."""
 
 from __future__ import annotations
 
@@ -37,3 +38,9 @@ def get_bounds(coords, z_near, z_far, H, W):
     zf = z_far.reshape(B, 1, H, W).float()
     return (grid_sample(zn, coords, "bilinear", align_corners=True)[:, 0],
             grid_sample(zf, coords, "bilinear", align_corners=True)[:, 0])
+
+
+def get_image(coords, image):
+    """Bilinear patch extraction from image [B,C,H,W] at coords [B,h,w,2]
+    (align_corners=True) → [B,C,h,w]."""
+    return grid_sample(image, coords, "bilinear", align_corners=True)

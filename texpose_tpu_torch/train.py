@@ -2,23 +2,22 @@
 package's ``train.py``:
 
     python -m texpose_tpu_torch.train --model=nerf_pretrain \\
-        --yaml=configs/nerf_lm_pretrain.yaml --group=Duck --name=pre \\
-        --freq.vis=null
+        --yaml=configs/nerf_lm_pretrain.yaml --group=Duck --name=pre
     python -m texpose_tpu_torch.train --model=nerf_adapt_st_gan \\
         --yaml=configs/nerf_lm_adapt_gan.yaml --group=Duck --name=run0 \\
-        --resume_pretrain --freq.vis=null
+        --resume_pretrain
     python -m texpose_tpu_torch.train --yaml=configs/nerf_lm_pretrain.yaml \\
         --nerf.fine_sampling=true --nerf.sample_intvs_fine=128 \\
-        --loss_weight.render_fine=0 --freq.vis=null   (hierarchical)
+        --loss_weight.render_fine=0   (hierarchical)
 
 Bootstraps: options → engine → load_dataset (train split uploaded once) →
 build_networks → setup_optimizer → init_weights / resume_pretrain /
 resume_real → resume → train.  Checkpoints are the JAX package's npz
 files, both ways.  ``--device=`` picks the device (default: cuda; with no
 card visible the run raises unless ``--device=cpu`` asks for the CPU).
-Not ported yet, and refused before anything is built: ``visualize`` (a run
-whose freq.vis would fire within max_iter) and ``mesh.dp`` with more than
-one visible card (data parallelism).
+``freq.vis`` writes the engines' panels under <output_path>/vis.  Not
+ported yet, and refused before anything is built: ``mesh.dp`` with more
+than one visible card (data parallelism).
 """
 
 import sys
@@ -29,15 +28,6 @@ from .utils.config import save_options_file, set_options
 from .utils.log import log
 
 
-def _check_unported(cfg, engine):
-    vis = (cfg.get("freq") or {}).get("vis")
-    if vis and int(vis) <= engine.max_iter():
-        raise NotImplementedError(
-            f"freq.vis={vis} fires within max_iter={engine.max_iter()}, but "
-            "visualize is not ported to texpose_tpu_torch yet: pass "
-            "--freq.vis=null")
-
-
 def main(argv=None):
     cfg = set_options(argv)
     log.title(f"[{' '.join(sys.argv)}]")
@@ -45,7 +35,6 @@ def main(argv=None):
     device = resolve_device(cfg)
     engine = get_engine(cfg.model)(cfg, device)
     engine.load_dataset()
-    _check_unported(cfg, engine)
     engine.upload_train_split()
     engine.build_networks()
     engine.setup_optimizer()

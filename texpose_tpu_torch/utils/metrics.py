@@ -1,5 +1,6 @@
-"""Image metrics, the quant.txt dump, the metrics.jsonl writer and the
-step timer (port of texpose_tpu/utils/metrics.py, which imports jax)."""
+"""Image metrics, the quant.txt dump, the metrics.jsonl writer (with
+TensorBoard scalars and images) and the step timer (port of
+texpose_tpu/utils/metrics.py, which imports jax)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,22 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
+
+
+def psnr(pred, target, mask=None):
+    """−10·log10(MSE).  With a mask, the MSE over the masked elements: the
+    mask broadcasts against pred (e.g. [H,W,1] against [H,W,3]) and the
+    denominator counts the broadcast elements, so a channel-less mask does
+    not inflate the MSE by the channel count."""
+    if mask is not None:
+        m = torch.broadcast_to(mask, torch.broadcast_shapes(mask.shape,
+                                                            pred.shape))
+        mse = ((pred - target) ** 2 * m).sum() / (m.sum() + 1e-10)
+    else:
+        mse = ((pred - target) ** 2).mean()
+    return -10.0 * torch.log10(mse + 1e-10)
 
 
 def mse_to_psnr(mse):
@@ -51,6 +67,12 @@ class MetricsWriter:
                 self.tb.add_scalar(f"{split}/{k}", v, step)
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+
+    def image(self, step, name, img, split="train"):
+        """img [C,H,W] float in [0,1]; TensorBoard only (the JSONL stream
+        stays scalar)."""
+        if self.tb is not None:
+            self.tb.add_image(f"{split}/{name}", np.asarray(img), step)
 
     def close(self):
         self._f.close()

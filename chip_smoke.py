@@ -161,10 +161,30 @@ Phases; any failure exits non-zero and no result line is printed:
      a side on the card against the CPU: the same indices, distances within
      rtol 1e-5.  visualize's wall time per call and the export's warm
      frames/s are printed beside the card's name and power limit.
+  12. data parallelism (texpose_tpu_torch/parallel/mesh.py) at phase 6's
+     and phase 4's full widths and on a 480x640 frame: (a) the pretrain
+     and texture train CLIs for DP_STEPS steps and the evaluate CLI on
+     frame 0 with --mesh.dp=true under torchrun's environment at world
+     size 1 (NCCL on the card): the run joins the group, the counters of
+     rows 8, 9b, 7b and the dW GEMM (pretrain), rows 1, 3, 4 and 2 (GAN)
+     and rows 1 and 3 (eval) are > 0, rank 0 writes model.ckpt,
+     options.yaml and metrics.jsonl with finite losses and quant.txt;
+     (b) two ranks spawned on the one card over gloo on CUDA tensors
+     drive the engines from the same argv: from one state and one set of
+     global draws each step's losses and summed gradients agree with a
+     one-rank engine's within ROUTE_LOSS_RTOL / ROUTE_GRAD_NORM, the
+     ranks' train states are bit-identical after 3 steps, and the sharded
+     masked eval of frame 0 agrees with one rank within RENDER_MAX_ERR;
+     the gradient bytes all-reduced a step and the all-reduce's host ms
+     are printed, and the two ranks' steps/s, which share one card over a
+     host collective and are no data-parallel rate; (c) the same with NCCL,
+     one rank per card, where at least two cards are visible, else one
+     line says it did not run.
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers, and last {"ok": true, "device": {...}}.
 """
 
+import datetime
 import json
 import math
 import os
@@ -2911,6 +2931,357 @@ def vis_phase(here, tmp, dev, smi):
         fail("knn: the card's neighbours disagree with the CPU's")
 
 
+DP_STEPS = 10              # steps of each CLI run in phase 12 (a)
+DP_RANKS = 2
+DP_RATE_STEPS = 10         # timed steps of the two-rank engines in (b)
+DP_DEADLINE_S = 600        # (b) and (c) each; a rank that hangs is killed
+
+
+class _AllReduceClock:
+    """Wraps the engines' gradient all-reduce (models/base.py's
+    ``all_reduce_grads``) to record its bytes and its host ms per call,
+    synchronized on both sides so the host clock spans the collective."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.calls = []
+
+    def __enter__(self):
+        from texpose_tpu_torch.models import base
+        real = self._real = base.all_reduce_grads
+
+        def timed(params, mesh):
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            n = real(params, mesh)
+            _sync(self.dev)
+            self.calls.append((n, (time.perf_counter() - t0) * 1e3))
+            return n
+
+        base.all_reduce_grads = timed
+        return self
+
+    def __exit__(self, *exc):
+        from texpose_tpu_torch.models import base
+        base.all_reduce_grads = self._real
+        return False
+
+    def text(self, steps):
+        """Bytes and host ms per step, over ``steps`` steps."""
+        per = len(self.calls) // steps
+        if not per or per * steps != len(self.calls):
+            fail(f"{len(self.calls)} gradient all-reduces in {steps} steps")
+        steps_ms = sorted(sum(ms for _, ms in self.calls[i:i + per])
+                          for i in range(0, len(self.calls), per))
+        nbytes = sum(n for n, _ in self.calls[:per])
+        return (f"{nbytes} gradient bytes all-reduced a step in {per} "
+                f"call(s), host ms a step median "
+                f"{statistics.median(steps_ms):.3f} (min {steps_ms[0]:.3f}, "
+                f"max {steps_ms[-1]:.3f})")
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_engine(argv, dev, mesh, eval_split=None):
+    """An engine built from the CLI's argv as the entry points build it,
+    with or without the mesh (weights from the seeded init, or from
+    --init_weights)."""
+    from texpose_tpu_torch.models import get_engine
+    from texpose_tpu_torch.utils.config import set_options
+    cfg = set_options(list(argv))
+    eng = get_engine(cfg.model)(cfg, dev, mesh=mesh)
+    if eval_split:
+        eng.load_dataset(eval_split=eval_split)
+        eng.build_networks()
+        eng.load_initial_weights()
+        return eng
+    eng.load_dataset()
+    eng.upload_train_split()
+    eng.build_networks()
+    eng.setup_optimizer()
+    return eng
+
+
+def _dp_grads(eng):
+    if hasattr(eng, "opt_nerf"):
+        return gan_grads(eng)
+    return {k: p.grad.clone() for k, p in eng._all_params()}
+
+
+def _dp_same_on_every_rank(eng, mesh):
+    """Leaves of the train state (parameters, optimizer moments and counts,
+    latent EMA, spectral-norm state) that differ from rank 0's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    bad = []
+    for k, v in sorted(eng.train_state_flat(0).items()):
+        raw = np.atleast_1d(np.ascontiguousarray(v)).view(np.uint8)
+        t = torch.from_numpy(raw.copy()).to(mesh.device)
+        ref = t.clone()
+        dist.broadcast(ref, 0)
+        if not torch.equal(ref, t):
+            bad.append(k)
+    return bad
+
+
+def _dp_rank(rank, world, init, backend, dev_kind, spec, out_json):
+    """Phase 12 (b)/(c) on one rank: each training engine's step from one
+    state and one set of global draws against a one-rank engine on the same
+    card, the ranks' states after 3 steps, the warm two-rank rate, the
+    sharded eval frame against the one-rank frame."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from texpose_tpu_torch.parallel.mesh import make_mesh
+    dev = f"cuda:{rank}" if dev_kind == "cuda" and backend == "nccl" \
+        else ("cuda:0" if dev_kind == "cuda" else "cpu")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(world, dev)
+        res = {}
+        for kind in ("pretrain", "gan"):
+            one = _dp_engine(spec[kind], dev, None)
+            eng = _dp_engine(spec[kind], dev, mesh)
+            draws = one.make_draws(0)
+            l1 = one.train_step(draws)
+            g1 = _dp_grads(one)
+            del one
+            l2 = eng.train_step(draws)
+            g2 = _dp_grads(eng)
+            loss_err = max(abs(float(l2[k]) - float(l1[k]))
+                           / max(abs(float(l1[k])), 1e-12) for k in l1)
+            grad_err = {k: rel_norm(g2[k], g1[k]) for k in g1}
+            worst = max(grad_err, key=grad_err.get)
+            for _ in range(2):
+                eng.train_step(eng.make_draws(eng.it))
+            differ = _dp_same_on_every_rank(eng, mesh)
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(DP_RATE_STEPS):
+                eng.train_step(eng.make_draws(eng.it))
+            _sync(dev)
+            rate = DP_RATE_STEPS / (time.perf_counter() - t0)
+            with _AllReduceClock(dev) as clock:
+                for _ in range(DP_RATE_STEPS):
+                    eng.train_step(eng.make_draws(eng.it))
+            res[kind] = {"loss_rel": loss_err, "grad_rel": grad_err[worst],
+                         "worst": worst, "differ": differ,
+                         "steps_s": rate, "all_reduce":
+                         clock.text(DP_RATE_STEPS),
+                         "losses": {k: float(v) for k, v in l2.items()}}
+            del eng
+            if torch.device(dev).type == "cuda":
+                torch.cuda.empty_cache()
+        # the eval frame: the sharded masked route against one rank
+        engs = [_dp_engine(spec["eval"], dev, m, eval_split="test")
+                for m in (mesh, None)]
+        sample = engs[0].eval_data[0]
+        frame = engs[0].eval_frame(0)
+        lt = np.zeros((1, int(engs[0].cfg.nerf.N_latent_trans)), np.float32)
+        ll = engs[0].latents["light"][0:1]
+        with torch.inference_mode():
+            outs = [e._render_frame_st(frame, lt, ll,
+                                       obj_host=sample["obj_mask"])
+                    for e in engs]
+            _sync(dev)
+            t0 = time.perf_counter()
+            engs[0]._render_frame_st(frame, lt, ll,
+                                     obj_host=sample["obj_mask"])
+            _sync(dev)
+            frame_ms = (time.perf_counter() - t0) * 1e3
+        obj = sample["obj_mask"].reshape(-1) > 0
+        res["eval"] = {
+            "hw": [engs[0].cfg.H, engs[0].cfg.W],
+            "err": max(float((outs[0][k] - outs[1][k]).abs().max())
+                       for k in outs[1]),
+            "object_pixels": int(obj.sum()), "frame_ms": frame_ms,
+            "coverage": float(obj.mean())}
+        if rank == 0:
+            with open(out_json, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_spawn(tmp, backend, dev_kind, spec, what):
+    """Run _dp_rank in DP_RANKS spawned processes → rank 0's results."""
+    import torch.multiprocessing as mp
+    out_json = os.path.join(tmp, f"dp_{what}.json")
+    init = f"file://{os.path.join(tmp, f'dp_{what}_rendezvous')}"
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dp_rank, args=(DP_RANKS, init, backend,
+                                             dev_kind, spec, out_json),
+                             nprocs=DP_RANKS, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > DP_DEADLINE_S:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"dp ({what}): the ranks did not finish in "
+                     f"{DP_DEADLINE_S} s")
+    except (mp.ProcessExitedException, mp.ProcessRaisedException) as e:
+        fail(f"dp ({what}): a rank failed: {e}")
+    with open(out_json) as f:
+        res = json.load(f)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _dp_check(res, what, smi, label):
+    """Holds (b)/(c)'s results to route_check's bounds and RENDER_MAX_ERR
+    and prints them."""
+    for kind in ("pretrain", "gan"):
+        r = res[kind]
+        print(f"dp ({what}) {kind}: {DP_RANKS}-rank step vs one rank, one "
+              f"state and one set of global draws: worst loss rel "
+              f"{r['loss_rel']:.3g} (bound {ROUTE_LOSS_RTOL}); worst "
+              f"gradient ‖err‖/‖ref‖ {r['grad_rel']:.3g} at {r['worst']} "
+              f"(bound {ROUTE_GRAD_NORM}); state leaves differing across "
+              f"ranks after 3 steps: {r['differ']}; {r['all_reduce']}; "
+              f"{r['steps_s']:.3f} steps/s {label} [{smi}]", flush=True)
+        if not (r["loss_rel"] <= ROUTE_LOSS_RTOL
+                and r["grad_rel"] <= ROUTE_GRAD_NORM):
+            fail(f"dp ({what}) {kind}: the {DP_RANKS}-rank step disagrees "
+                 "with the one-rank step")
+        if r["differ"]:
+            fail(f"dp ({what}) {kind}: the ranks' states differ after 3 "
+                 f"steps: {r['differ']}")
+    e = res["eval"]
+    print(f"dp ({what}) eval: frame 0 at {e['hw'][0]}x{e['hw'][1]}, "
+          f"{e['object_pixels']} "
+          f"object pixels (coverage {e['coverage']:.4f}, sharded masked "
+          f"route), {DP_RANKS} ranks vs one rank max|err| {e['err']:.3g} "
+          f"(bound {RENDER_MAX_ERR}); the {DP_RANKS}-rank frame "
+          f"{e['frame_ms']:.2f} ms host clock {label}; phase wall "
+          f"{res['wall_s']:.1f} s [{smi}]", flush=True)
+    if not e["err"] <= RENDER_MAX_ERR:
+        fail(f"dp ({what}) eval: the sharded frame disagrees with one rank")
+
+
+def dp_phase(here, tmp, dev, smi):
+    """Phase 12, data parallelism: (a) the pretrain, GAN train and eval
+    CLIs with --mesh.dp=true under torchrun's environment at world size 1
+    (NCCL on the card), (b) two spawned ranks on one card over gloo,
+    driving the engines, (c) NCCL across two cards where two are
+    visible."""
+    import numpy as np
+    import torch
+    from texpose_tpu_torch import evaluate, train
+    from texpose_tpu_torch.utils.checkpoint import load_checkpoint_flat
+
+    pre_argv, _ = pretrain_argv(here, tmp, dev, DP_STEPS, name="dp_pre",
+                                extra=("--mesh.dp=true",))
+    gan_argv, _ = train_argv(here, tmp, dev, DP_STEPS, out="dp_gan_out",
+                             extra=("--mesh.dp=true",))
+    eval_argv = fixture_argv(here, tmp, dev, 1, sub="dp") \
+        + ["--mesh.dp=true"]
+
+    # (a) the CLIs under torchrun's environment, world size 1
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        for what, argv, rows in (
+                ("pretrain", pre_argv, ("coarse_render_fwd",
+                                        "composite_coarse_bwd",
+                                        "coarse_field_bwd") + DW_KERNELS),
+                ("gan", gan_argv, TEXTURE_KERNELS)):
+            zero_launches()
+            with _AllReduceClock(dev) as clock:
+                t0 = time.perf_counter()
+                eng = train.main(argv)
+                _sync(dev)
+                wall = time.perf_counter() - t0
+            launches = read_launches()
+            cfg = eng.cfg
+            files = sorted(os.listdir(cfg.output_path))
+            print(f"dp (a) {what}: train CLI --mesh.dp=true under torchrun's "
+                  f"environment, world size 1 ({eng.mesh}), {DP_STEPS} steps "
+                  f"{wall:.2f} s cold; launches "
+                  f"{ {k: launches[k] for k in rows} }; rank 0 wrote "
+                  f"{files}; losses {_train_losses(cfg, DP_STEPS)}; "
+                  f"{clock.text(DP_STEPS)} [{smi}]", flush=True)
+            if eng.mesh is None or eng.mesh.size != 1:
+                fail(f"dp (a) {what}: the run did not join the group")
+            if min(launches[k] for k in rows) <= 0:
+                fail(f"dp (a) {what}: the path did not launch {rows}: "
+                     f"{launches}")
+            if not {"model.ckpt", "options.yaml", "metrics.jsonl"} <= set(
+                    files):
+                fail(f"dp (a) {what}: rank 0 did not write its files: "
+                     f"{files}")
+            flat = load_checkpoint_flat(os.path.join(cfg.output_path,
+                                                     "model.ckpt"))
+            if int(flat["step"]) != DP_STEPS:
+                fail(f"dp (a) {what}: model.ckpt at step {flat['step']}")
+        zero_launches()
+        t0 = time.perf_counter()
+        ev = evaluate.main(eval_argv)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        q = [ln.split() for ln in open(os.path.join(ev.cfg.output_path,
+                                                    "quant.txt"))][1:]
+        obj = int((np.asarray(ev.eval_data[0]["obj_mask"]) > 0).sum())
+        print(f"dp (a) eval: evaluate CLI --mesh.dp=true, frame 0 at "
+              f"{ev.cfg.H}x{ev.cfg.W} ({obj} object pixels) {wall:.2f} s "
+              f"cold; launches { {k: launches[k] for k in ('st_field_fwd', 'composite_st_fwd')} }; "
+              f"quant {q} [{smi}]", flush=True)
+        if ev.mesh is None or min(launches["st_field_fwd"],
+                                  launches["composite_st_fwd"]) <= 0:
+            fail(f"dp (a) eval: rows 1 and 3 not launched under the mesh: "
+                 f"{launches}")
+        if len(q) != 1 or not all(math.isfinite(float(v)) for v in q[0][1:]):
+            fail(f"dp (a) eval: quant.txt {q}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (b) two ranks on one card, gloo on CUDA tensors, the engines driven
+    # directly from the same argv; the kernels were built above
+    dev_kind = torch.device(dev).type
+    spec = {"pretrain": pre_argv, "gan": gan_argv,
+            "eval": [a for a in eval_argv if a != "--mesh.dp=true"]}
+    res = _dp_spawn(tmp, "gloo", dev_kind, spec, "b")
+    _dp_check(res, "b", smi, f"(two ranks sharing one card over a host "
+              f"collective: not a data-parallel rate)")
+
+    # (c) NCCL, one rank per card, where two cards are visible
+    cards = torch.cuda.device_count() if dev_kind == "cuda" else 0
+    if cards >= DP_RANKS:
+        res = _dp_spawn(tmp, "nccl", dev_kind, spec, "c")
+        _dp_check(res, "c", smi, f"({DP_RANKS} ranks on {DP_RANKS} cards, "
+                  "NCCL)")
+    else:
+        print(f"dp (c): NCCL across {DP_RANKS} ranks on {DP_RANKS} cards did "
+              f"not run: torch.cuda.device_count() = {cards} on this "
+              f"machine [{smi}]", flush=True)
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "texpose_tpu_torch")):
@@ -3020,6 +3391,7 @@ def main():
         mega_launches = st_mega_phase(here, tmp, dev)
         preprocess_video_phase(here, tmp, dev, smi)
         vis_phase(here, tmp, dev, smi)
+        dp_phase(here, tmp, dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's count from the run of the path it was ported for

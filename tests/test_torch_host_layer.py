@@ -41,7 +41,8 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
                      "models.pretrain", "models.render", "ops.render",
                      "geometry.pose", "raster.shaders", "raster.native",
                      "raster.torch_raster", "compute_box",
-                     "compute_surfelinfo", "utils.vis", "ops.knn"):
+                     "compute_surfelinfo", "utils.vis", "ops.knn",
+                     "parallel.mesh", "fleet"):
             assert "texpose_tpu_torch." + name in names, name
         for name in names:
             importlib.import_module(name)
@@ -61,7 +62,7 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split()[-1]) >= 48
+    assert int(r.stdout.split()[-1]) >= 65
 
 
 @pytest.mark.parametrize("package", ["nn", "ops", "sampling"])
@@ -184,25 +185,36 @@ def test_preprocessing_entry_points_raise_without_a_card(root, tmp_path,
 def test_entry_points_refuse_data_parallel_on_several_cards(tmp_path,
                                                             monkeypatch,
                                                             entry):
-    """mesh.dp with more than one visible card: both CLIs refuse up front
-    (no dataset read; the data root does not exist) and name M6; with one
-    card, or with mesh.dp unset, they go on (and then fail on the missing
-    data)."""
+    """mesh.dp with more than one visible card (and no process group): both
+    CLIs start one worker per card on the same argv up front (stubbed here;
+    no dataset read, the data root does not exist) where they once refused;
+    with one card, or with mesh.dp unset, they stay single-process (and
+    then fail on the missing data)."""
     import importlib
     import torch
-    from texpose_tpu_torch.models.base import refuse_data_parallel
+    import torch.multiprocessing as mp
+    from texpose_tpu_torch.parallel.mesh import worker_count
     from texpose_tpu_torch.utils.config import Config
     mod = importlib.import_module(f"texpose_tpu_torch.{entry}")
     yml = os.path.join(REPO, "configs", "nerf_lm_pretrain.yaml")
     argv = [f"--yaml={yml}", f"--output_root={tmp_path}",
             "--data.root=/nonexistent", "--device=cpu"]
+    starts = []
+    monkeypatch.setattr(mp, "start_processes",
+                        lambda fn, args, nprocs, **kw: starts.append(
+                            (args, nprocs, kw)))
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="M6"):
-        mod.main([*argv, "--mesh.dp=true"])
+    mod.main([*argv, "--mesh.dp=true"])
     assert not os.listdir(tmp_path)
+    (args, nprocs, kw), = starts
+    assert nprocs == 2 and kw["start_method"] == "spawn"
+    assert args[:3] == (f"texpose_tpu_torch.{entry}",
+                        [*argv, "--mesh.dp=true"], 2)
     for count, dp in ((1, "true"), (2, "null")):
         monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
-        refuse_data_parallel(Config({"mesh": {"dp": dp == "true"}}))
+        assert worker_count(Config({"mesh": {"dp": dp == "true"}})) == 0
         with pytest.raises(Exception) as err:
             mod.main([*argv, f"--mesh.dp={dp}"])
-        assert not isinstance(err.value, NotImplementedError), err.value
+        assert "nonexistent" in str(err.value), err.value
+    assert len(starts) == 1

@@ -11,6 +11,12 @@ the freq.scalar / freq.vis / freq.val / freq.ckpt hooks at the
 iterations the JAX loop does (``scan_steps`` fuses steps there and is read and ignored here:
 one step per iteration).  Losses reach the host only at freq.scalar, where
 a non-finite one stops the run.
+
+Data parallelism (``mesh``, a parallel.mesh.Mesh; the entry points build
+it under mesh.dp): every rank holds the same state on its own card, draws
+the same global draws and steps its shard; rank 0 alone writes files
+(checkpoints, metrics, panels, PNGs, quant.txt), and every other rank runs
+the same renders and collectives and writes nothing.
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.mesh import (all_reduce_grads, all_reduce_scalars,
+                             replicate, shard_axis)
 from ..utils import checkpoint as ckpt
 from ..utils.log import log
-from ..utils.metrics import MetricsWriter, StepTimer
+from ..utils.metrics import MetricsWriter, NullWriter, StepTimer
 from ..utils.pipeline import EvalPrefetcher, to_device
 
 
@@ -40,19 +48,6 @@ def resolve_device(cfg):
     return device
 
 
-def refuse_data_parallel(cfg):
-    """``mesh.dp`` on a host with more than one visible card raises: the
-    JAX engine shards over its device mesh there, and the port has no data
-    parallelism yet (ROADMAP.md, Queue 1, M6), so such a run would use one
-    card without a word."""
-    if (cfg.get("mesh") or {}).get("dp") and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"mesh.dp is set and {torch.cuda.device_count()} CUDA devices "
-            "are visible, but data parallelism is not ported to "
-            "texpose_tpu_torch yet (ROADMAP.md, M6): unset mesh.dp or "
-            "expose one card (CUDA_VISIBLE_DEVICES)")
-
-
 def compute_dtype(cfg):
     return {"bfloat16": torch.bfloat16,
             "float32": torch.float32}[str(cfg.get("compute_dtype",
@@ -62,17 +57,23 @@ def compute_dtype(cfg):
 class Engine:
     """Evaluation engine base; subclasses build the networks."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, mesh=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(
+            device)
+        self.is_writer = mesh is None or mesh.rank == 0
         if self.device.type == "cuda":
             # metrics compare against float32 references: no TF32 in the
             # SSIM/LPIPS convolutions or the plain matmuls (process-wide)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        os.makedirs(cfg.output_path, exist_ok=True)
-        self.writer = MetricsWriter(cfg.output_path,
-                                    use_tb=cfg.get("tb", False))
+        if self.is_writer:
+            os.makedirs(cfg.output_path, exist_ok=True)
+            self.writer = MetricsWriter(cfg.output_path,
+                                        use_tb=cfg.get("tb", False))
+        else:
+            self.writer = NullWriter()
         self.timer = StepTimer()
         self.nerf = None
         self.latents = None
@@ -209,6 +210,12 @@ class Engine:
             str(cfg.output_root), str(cfg.group), "pretrain_model.ckpt")
         return self._load_subtree(fname, "nerf.", "nerf field")
 
+    def save_checkpoint(self, it):
+        """The train state as <output_path>/model.ckpt (rank 0 only)."""
+        if not self.is_writer:
+            return None
+        return self.save_flat_checkpoint(self.train_state_flat(it), it)
+
     def save_flat_checkpoint(self, flat, it):
         """<output_path>/model.ckpt (atomically) plus model/<it>.ckpt."""
         fname = os.path.join(self.cfg.output_path, "model.ckpt")
@@ -231,9 +238,12 @@ class Engine:
         max_iter = self.max_iter()
         log.title(f"TRAINING START ({type(self).__name__}, "
                   f"{max_iter} steps)")
+        if self.mesh is not None:
+            replicate(self.state_tensors(), self.mesh)
         if self.start_step == 0:
             self.validate(0)
-        prof = self._start_profiler() if cfg.get("profile") else None
+        prof = self._start_profiler() \
+            if cfg.get("profile") and self.is_writer else None
         t_start = time.time()
         for it in range(self.start_step, max_iter):
             loss = self.train_step(self.make_draws(it))
@@ -253,6 +263,31 @@ class Engine:
         wall = time.time() - t_start
         rate = (max_iter - self.start_step) / max(wall, 1e-9)
         log.title(f"TRAINING DONE in {wall:.1f}s ({rate:.2f} it/s)")
+
+    # ------------------------------------------------ data parallelism
+
+    def shard_draws(self, draws, dims=None):
+        """This rank's slice of the step's global draws along their batch
+        axis (dims {name: axis}, default 0); unchanged without a mesh."""
+        if self.mesh is None:
+            return draws
+        dims = dims or {}
+        return {k: shard_axis(v, self.mesh, dims.get(k, 0))
+                for k, v in draws.items()}
+
+    def reduce_grads(self, opt):
+        """Sum the ranks' gradient shares of the optimizer's parameters into
+        the global gradient (no-op without a mesh)."""
+        if self.mesh is not None:
+            all_reduce_grads([p for g in opt.param_groups
+                              for p in g["params"]], self.mesh)
+
+    def reduce_losses(self, loss):
+        """The step's loss terms summed over the ranks' shares: the global
+        losses (unchanged without a mesh)."""
+        if self.mesh is None:
+            return loss
+        return all_reduce_scalars(loss, self.mesh)
 
     def _start_profiler(self):
         """--profile: a torch.profiler trace of the training loop (host,
@@ -358,9 +393,6 @@ class Engine:
         raise NotImplementedError
 
     def train_step(self, draws):
-        raise NotImplementedError
-
-    def save_checkpoint(self, it):
         raise NotImplementedError
 
     def validate(self, it):

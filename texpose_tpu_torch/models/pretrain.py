@@ -29,6 +29,14 @@ quant.txt.  Both render the coarse field only, as the JAX package's.
 ``generate_videos_synthesis`` (``evaluate --video``) renders an N-frame
 novel-view orbit around eval frame 0 through the same whole-frame render,
 and ``visualize`` (the freq.vis hook) eval frame 0's panels.
+
+Under data parallelism (``mesh``) each rank renders its slice of the
+per-image ray axis (R must divide over the ranks, as in JAX) from the
+global draws, its losses are its shares of the global ones
+(models/losses.py), and the gradients are summed before Adam; every
+whole-frame render shards the frame's rays (parallel/mesh.py
+``render_full_nerf_sharded``), and evaluation uploads the standard
+payload.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from torch.profiler import record_function
 from ..geometry.pose import get_novel_view_poses
 from ..nn.fields import init_nerf
 from ..nn.lpips import lpips_distance
+from ..parallel.mesh import render_full_nerf_sharded
 from ..ops.ssim import ssim
 from ..utils import checkpoint as ckpt
 from ..utils import vis
@@ -109,6 +118,9 @@ class PretrainEngine(Engine):
         cfg = self.cfg
         self.opt = make_pretrain_optimizer(
             cfg, [p for _, p in self._all_params()], self.max_iter())
+        if self.mesh is not None and self.rays_per_image() % self.mesh.size:
+            raise ValueError(f"rays-per-image {self.rays_per_image()} must "
+                             f"divide the mesh ({self.mesh.size} ranks)")
         self.it = 0
         self.draw_gen = torch.Generator(self.device)
         self.draw_gen.manual_seed(int(cfg.get("seed", 0)))
@@ -121,9 +133,10 @@ class PretrainEngine(Engine):
             return batch["pose_init"]
         return batch["pose"]
 
-    def compute_loss(self, cfg, out, batch, ray_idx=None):
+    def compute_loss(self, cfg, out, batch, ray_idx=None, mesh=None):
         """The train/val losses: out holds rgb/depth/opacity [B,R,C];
-        ray_idx None means whole-frame (validation) tensors."""
+        ray_idx None means whole-frame (validation) tensors; with ``mesh``
+        each loss is this rank's share of the global one."""
         B = batch["image"].shape[0]
         HW = cfg.H * cfg.W
         image = batch["image"].reshape(B, 3, HW).permute(0, 2, 1)
@@ -139,15 +152,16 @@ class PretrainEngine(Engine):
         loss = {}
         lw = cfg.loss_weight
         if lw.get("mask") is not None:
-            loss["mask"] = mse_loss(out["opacity"], mask)
+            loss["mask"] = mse_loss(out["opacity"], mask, mesh=mesh)
         if lw.get("depth") is not None:
-            loss["depth"] = scale_invariant_depth_loss(out["depth"], depth_gt,
-                                                       mask_obj)
+            loss["depth"] = scale_invariant_depth_loss(
+                out["depth"], depth_gt, mask_obj, mesh=mesh)
         for key, rgb in (("render", "rgb"), ("render_fine", "rgb_fine")):
             if rgb in out and lw.get(key) is not None:
-                loss[key] = (masked_mse_loss(out[rgb], image, mask_obj)
+                loss[key] = (masked_mse_loss(out[rgb], image, mask_obj,
+                                             mesh=mesh)
                              if cfg.nerf.get("mask_obj")
-                             else mse_loss(out[rgb], image))
+                             else mse_loss(out[rgb], image, mesh=mesh))
         return loss
 
     def rays_per_image(self):
@@ -185,9 +199,12 @@ class PretrainEngine(Engine):
     def train_step(self, draws):
         """One step on the whole train split → the step's losses (device
         scalars, with 'all').  Its stages are named profiler ranges
-        (``step/...``)."""
+        (``step/...``).  Under data parallelism ``draws`` are the global
+        draws; this rank renders its slice of the ray axis."""
         cfg = self.cfg
         it = self.it
+        draws = self.shard_draws(draws, {k: 1 for k in draws
+                                         if k != "ray_idx"})
         progress = it / self.max_iter() if cfg.get("c2f") is not None \
             else None
         batch = self.train_batch
@@ -207,15 +224,17 @@ class PretrainEngine(Engine):
                                        draws.get("density_noise"),
                                        training=True)
             total, loss = summarize_loss(
-                self.compute_loss(cfg, out, batch, ray_idx), cfg.loss_weight)
+                self.compute_loss(cfg, out, batch, ray_idx, self.mesh),
+                cfg.loss_weight)
         with record_function("step/backward"):
             self.opt.zero_grad(set_to_none=True)
             total.backward()
+            self.reduce_grads(self.opt)
         with record_function("step/update"):
             set_lrs(self.opt, it)
             self.opt.step()
         self.it = it + 1
-        return {k: v.detach() for k, v in loss.items()}
+        return self.reduce_losses({k: v.detach() for k, v in loss.items()})
 
     # ------------------------------------------------- train-state bridge
 
@@ -276,9 +295,6 @@ class PretrainEngine(Engine):
                                   + self.it)
         return int(get("step", ()).item())
 
-    def save_checkpoint(self, it):
-        return self.save_flat_checkpoint(self.train_state_flat(it), it)
-
     def restore_checkpoint(self):
         """With cfg.resume and <output_path>/model.ckpt: the whole train
         state once setup_optimizer has run (training), else the field only
@@ -296,11 +312,15 @@ class PretrainEngine(Engine):
     # ------------------------------------------------------------ validation
 
     def _render_frame(self, frame, progress=None):
-        """Whole-frame render of a [1,...] frame → dict of [1,HW,C]."""
-        return render_full_nerf(
-            self.nerf, self.cfg, frame["pose"], frame["intr"],
-            frame["z_near"], frame["z_far"],
-            1.0 if progress is None else progress, compute_dtype(self.cfg))
+        """Whole-frame render of a [1,...] frame → dict of [1,HW,C], the
+        rays sharded over the ranks under data parallelism."""
+        args = (self.nerf, self.cfg, frame["pose"], frame["intr"],
+                frame["z_near"], frame["z_far"],
+                1.0 if progress is None else progress,
+                compute_dtype(self.cfg))
+        if self.mesh is not None:
+            return render_full_nerf_sharded(self.mesh, *args)
+        return render_full_nerf(*args)
 
     def validate(self, it):
         cfg = self.cfg
@@ -336,12 +356,15 @@ class PretrainEngine(Engine):
         as <output_path>/vis/<it>_<name>.png (and TensorBoard images):
         image, rgb, image_masked, pred_mask, gt_mask and the plasma/turbo
         depth heatmaps.  Draws nothing from the step's generator and
-        builds no graph."""
+        builds no graph.  Every rank renders (a collective under data
+        parallelism); rank 0 writes."""
         cfg = self.cfg
         progress = it / self.max_iter() if cfg.get("c2f") is not None else 1.0
         with torch.inference_mode():
             frame = self.eval_frame(0)
             out = self._render_frame(frame, progress)
+            if not self.is_writer:
+                return
             host = {k: v.cpu().numpy() for k, v in out.items()}
             fr = {k: frame[k].cpu().numpy()
                   for k in ("image", "obj_mask", "erode_mask", "depth_gt",
@@ -386,9 +409,10 @@ class PretrainEngine(Engine):
     def _eval_compact_transform(self):
         """The compact eval payload: uint8 image and mask (lossless: the
         dataset images are uint8/255 PNGs, masks {0,1}) and the f32 z maps
-        the whole-frame render reads at every pixel; None when
-        render.eval_compact is off."""
-        if not (self.cfg.get("render") or {}).get("eval_compact", True):
+        the whole-frame render reads at every pixel; None under data
+        parallelism (as in JAX) and when render.eval_compact is off."""
+        if self.mesh is not None or not (
+                self.cfg.get("render") or {}).get("eval_compact", True):
             return None
 
         def transform(sample):
@@ -433,12 +457,14 @@ class PretrainEngine(Engine):
         """Render every eval frame, metric it, export an RGB and an opacity
         PNG per frame and quant.txt; returns the mean PSNR and SSIM.  Frame
         i+1 loads and uploads while frame i renders; results are pulled one
-        frame behind the dispatch; PNG encodes run on a writer thread."""
+        frame behind the dispatch; PNG encodes run on a writer thread.
+        Under data parallelism every rank renders and rank 0 writes."""
         cfg = self.cfg
         rgb_dir = os.path.join(cfg.output_path, "rgb")
         op_dir = os.path.join(cfg.output_path, "opacity")
-        os.makedirs(rgb_dir, exist_ok=True)
-        os.makedirs(op_dir, exist_ok=True)
+        if self.is_writer:
+            os.makedirs(rgb_dir, exist_ok=True)
+            os.makedirs(op_dir, exist_ok=True)
         _, lpips_key = self._ensure_lpips()
         rows = [None] * len(self.eval_data)
         pending = deque()
@@ -447,6 +473,8 @@ class PretrainEngine(Engine):
             i, fi, (p, s, lp, png, png_op) = pending.popleft()
             rows[i] = {"psnr": float(p), "ssim": float(s),
                        lpips_key: float(lp)}
+            if not self.is_writer:
+                return
             writer.submit(cv2.imwrite, os.path.join(rgb_dir, f"{fi:06d}.png"),
                           np.ascontiguousarray(png.cpu().numpy()))
             writer.submit(cv2.imwrite, os.path.join(op_dir, f"{fi:06d}.png"),
@@ -465,7 +493,8 @@ class PretrainEngine(Engine):
         mean_ssim = float(np.mean([r["ssim"] for r in rows]))
         log.info(f"PSNR: {mean_psnr:8.2f}")
         log.info(f"SSIM: {mean_ssim:8.2f}")
-        write_quant(cfg.output_path, rows)
+        if self.is_writer:
+            write_quant(cfg.output_path, rows)
         return dict(psnr=mean_psnr, ssim=mean_ssim)
 
     def generate_videos_synthesis(self, N=60, fps=30):
@@ -475,16 +504,18 @@ class PretrainEngine(Engine):
         novel_pose.npy [N,3,4] (the poses, for the pose estimator),
         rgb_<i>.png and depth_<i>.png (depth mapped from [0.7, 1.3]·scale
         to [0, 255]); then novel_view_{rgb,depth}.mp4 through ffmpeg, or a
-        warning and the PNGs alone where ffmpeg is missing or fails."""
+        warning and the PNGs alone where ffmpeg is missing or fails.  Under
+        data parallelism every rank renders and rank 0 writes."""
         cfg = self.cfg
         novel_path = os.path.join(cfg.output_path, "novel_view")
-        os.makedirs(novel_path, exist_ok=True)
         frame = self.eval_frame(0)
         zs = cfg.nerf.depth.scale
         pose_novel = get_novel_view_poses(frame["pose"][0], N=N,
                                           scale=zs * 0.03, motion="gentle")
-        np.save(os.path.join(novel_path, "novel_pose.npy"),
-                pose_novel.cpu().numpy())
+        if self.is_writer:
+            os.makedirs(novel_path, exist_ok=True)
+            np.save(os.path.join(novel_path, "novel_pose.npy"),
+                    pose_novel.cpu().numpy())
         with torch.inference_mode(), AsyncWriter() as writer:
             for i in range(N):
                 out = self._render_frame(dict(frame,
@@ -494,11 +525,12 @@ class PretrainEngine(Engine):
                 rgb = (torch.clamp(rgb, 0, 1) * 255).flip(-1).to(torch.uint8)
                 dvis = torch.clamp((depth - 0.7 * zs) / (0.6 * zs), 0, 1)
                 dvis = (dvis * 255).to(torch.uint8)
-                for kind, img in (("rgb", rgb), ("depth", dvis)):
+                for kind, img in ((("rgb", rgb), ("depth", dvis))
+                                  if self.is_writer else ()):
                     writer.submit(cv2.imwrite,
                                   os.path.join(novel_path, f"{kind}_{i}.png"),
                                   np.ascontiguousarray(img.cpu().numpy()))
-        for kind in ("rgb", "depth"):
+        for kind in ("rgb", "depth") if self.is_writer else ():
             try:
                 subprocess.run(
                     ["ffmpeg", "-y", "-framerate", str(fps), "-i",

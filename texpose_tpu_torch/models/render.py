@@ -273,12 +273,19 @@ def render_full_nerf_st(nerf, cfg, pose, intr, z_near, z_far, latent_trans,
     out = _render_chunks(nerf, cfg, pose, intr, chunks, z_near, z_far,
                          latent_trans, latent_light, progress, compute_dtype,
                          z_pregathered=False)
-    out = {k: v[:, :HW] for k, v in out.items()}
-    if obj_mask is not None:
-        m = obj_mask[..., None]
-        min_u = cfg.nerf.get("min_uncert", 0.05)
-        out["uncert"] = out["uncert"] * m + (1 - m) * min_u
-        for k in ("rgb", "rgb_static", "rgb_transient", "opacity",
-                  "opacity_static", "opacity_transient", "depth"):
-            out[k] = out[k] * m
+    return fill_mask_defaults(cfg, {k: v[:, :HW] for k, v in out.items()},
+                              obj_mask)
+
+
+def fill_mask_defaults(cfg, out, obj_mask=None):
+    """The reference's defaults outside obj_mask [B,HW] (None: none):
+    uncert ← min_uncert, the colors, opacities and depth ← 0."""
+    if obj_mask is None:
+        return out
+    m = obj_mask[..., None]
+    min_u = cfg.nerf.get("min_uncert", 0.05)
+    out["uncert"] = out["uncert"] * m + (1 - m) * min_u
+    for k in ("rgb", "rgb_static", "rgb_transient", "opacity",
+              "opacity_static", "opacity_transient", "depth"):
+        out[k] = out[k] * m
     return out

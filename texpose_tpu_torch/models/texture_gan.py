@@ -23,8 +23,17 @@ and uploads on a worker thread while frame i renders; results are pulled
 one frame behind the dispatch; PNG encodes run on a writer thread.  The
 paper-visual export (``--data.scene=scene_vis``) renders whole frames and
 writes 256-px crops of the render, the GT and the depth; ``visualize``
-(the freq.vis hook) writes eval frame 0's panels during training.  The
-multi-device paths are a later slice of the port.
+(the freq.vis hook) writes eval frame 0's panels during training.
+
+Under data parallelism (``mesh``) each rank renders and discriminates its
+slice of the patch batch (B must divide over the ranks, as in JAX) from
+the global draws; its losses are its shares of the global ones
+(models/losses.py), and the gradients of the heads, of the latent tables
+(whose rows the ranks touch apart) and of D are summed before Adam and
+RMSprop, so the optimizers, the latent EMA and the spectral-norm state
+stay identical on every rank.  Whole frames render through the sharded
+routes of parallel/mesh.py (the object-ray set with coverage in (0, 0.5),
+else H·W), and evaluation uploads the standard payload.
 """
 
 from __future__ import annotations
@@ -45,6 +54,9 @@ from ..nn.vgg import init_vgg19, load_vgg19_npz, perceptual_loss_pairs
 from ..ops.grid_sample import grid_sample
 from ..ops.image import resize_bilinear
 from ..ops.ssim import ssim
+from ..parallel.mesh import (masked_ray_indices_sharded,
+                             render_full_nerf_st_sharded,
+                             render_masked_nerf_st_sharded)
 from ..sampling.patch import (current_scale_bounds, flex_patch_coords,
                               patch_uniforms)
 from ..sampling.ray_sampler import get_bounds, get_rays
@@ -54,7 +66,7 @@ from ..utils.log import log
 from ..utils.metrics import mse_to_psnr, write_quant
 from ..utils.pipeline import AsyncWriter, to_device
 from .base import Engine, compute_dtype
-from .losses import (gan_loss, lab_loss, mse_loss, r1_penalty,
+from .losses import (gan_loss, lab_loss, mean_term, mse_loss, r1_penalty,
                      summarize_loss, uncertainty_reg_loss,
                      uncertainty_render_loss, wgan_gp_reg)
 from .optim import make_disc_optimizer, make_generator_optimizer, set_lrs
@@ -184,6 +196,10 @@ class TextureGANEngine(Engine):
         self.opt_nerf = make_generator_optimizer(
             cfg, heads, [self.latents["light"], self.latents["trans"]],
             max_iter, spe)
+        B = int(cfg.batch_size)
+        if self.mesh is not None and B % self.mesh.size:
+            raise ValueError(f"batch_size {B} must divide the mesh "
+                             f"({self.mesh.size} ranks)")
         self.opt_disc = None
         if self.disc is not None:
             for grp in self.disc.values():
@@ -241,10 +257,12 @@ class TextureGANEngine(Engine):
 
     def _gen_losses(self, batch, idx, coords, scales, draws, progress):
         """The generator's forward: render, supervision and losses →
-        (total, loss dict, rgb [B,3,h,w], sup)."""
+        (total, loss dict, rgb [B,3,h,w], sup); under data parallelism B is
+        this rank's shard and each loss its share of the global one."""
         cfg = self.cfg
         lw = cfg.loss_weight
-        B, p = int(cfg.batch_size), int(cfg.patch_size)
+        mesh = self.mesh
+        B, p = idx.shape[0], int(cfg.patch_size)
         lat_t = self.latents["trans"][idx]
         lat_l = self.latents["light"][idx]
         pose = batch["pose_init"] if cfg.data.pose_source == "predicted" \
@@ -260,34 +278,36 @@ class TextureGANEngine(Engine):
         loss = {}
         if lw.get("render") is not None:
             if cfg.nerf.get("mask_obj"):
-                loss["render"] = uncertainty_render_loss(rgb, image, uncert,
-                                                         mask)
+                loss["render"] = uncertainty_render_loss(
+                    rgb, image, uncert, mask, mesh=mesh)
             else:
-                loss["render"] = mse_loss(rgb, image)
+                loss["render"] = mse_loss(rgb, image, mesh=mesh)
         if lw.get("mask") is not None:
             opac = out["opacity"].reshape(B, p, p, 1).permute(0, 3, 1, 2)
-            loss["mask"] = mse_loss(opac, mask)
+            loss["mask"] = mse_loss(opac, mask, mesh=mesh)
         if lw.get("uncert") is not None:
-            loss["uncert"] = uncertainty_reg_loss(out["uncert"])
+            loss["uncert"] = uncertainty_reg_loss(out["uncert"], mesh=mesh)
         if lw.get("trans_reg") is not None:
-            loss["trans_reg"] = out["trans_density_mean"]
+            loss["trans_reg"] = mean_term(out["trans_density_mean"], mesh)
         if lw.get("latent_reg") is not None:
-            loss["latent_reg"] = (lat_t ** 2).mean() + (lat_l ** 2).mean()
+            loss["latent_reg"] = mean_term((lat_t ** 2).mean()
+                                           + (lat_l ** 2).mean(), mesh)
         if lw.get("latent_nbr_reg") is not None:
             nt = self.nbr_table[idx]
             nm_l = self.latents["light"][nt].mean(dim=1).detach()
             nm_t = self.latents["trans"][nt].mean(dim=1).detach()
-            loss["latent_nbr_reg"] = (((lat_l - nm_l) ** 2).mean()
-                                      + ((lat_t - nm_t) ** 2).mean())
+            loss["latent_nbr_reg"] = mean_term(
+                ((lat_l - nm_l) ** 2).mean() + ((lat_t - nm_t) ** 2).mean(),
+                mesh)
         if lw.get("feat") is not None:
             mask_pad = ((sup["mask_syn"] == 1) & (mask == 0)).to(rgb.dtype)
-            loss["feat"] = perceptual_loss_pairs(self.vgg, [
+            loss["feat"] = mean_term(perceptual_loss_pairs(self.vgg, [
                 (rgb, image * mask + sup["image_syn"] * mask_pad, 1.0),
                 (rgb * mask + image * (1 - mask), image, 5.0)],
-                dtype=compute_dtype(cfg))
+                dtype=compute_dtype(cfg)), mesh)
         if lw.get("lab") is not None:
             loss["lab"], _, _ = lab_loss(rgb, sup["image_syn"],
-                                         mask=sup["mask_syn"])
+                                         mask=sup["mask_syn"], mesh=mesh)
         if self.disc is not None and lw.get("gan_nerf") is not None:
             fake = rgb
             if cfg.gan.geo_conditional:
@@ -296,15 +316,17 @@ class TextureGANEngine(Engine):
                       for k, v in self.disc.items()}
             d_fake, _ = apply_discriminator(frozen, self.sn_state, cfg, fake,
                                             scales, progress, training=False)
-            loss["gan_nerf"] = gan_loss(d_fake, 1, cfg.gan.type)
+            loss["gan_nerf"] = gan_loss(d_fake, 1, cfg.gan.type, mesh=mesh)
         total, loss = summarize_loss(loss, lw)
         return total, loss, rgb, sup
 
     def _disc_losses(self, rgb_d, sup, scales, draws, progress):
         """The discriminator's loss on [real; fake] from one spectral
-        normalization and one forward → (total, loss dict, new sn_state)."""
+        normalization and one forward → (total, loss dict, new sn_state);
+        under data parallelism each loss is this rank's share."""
         cfg = self.cfg
         lw = cfg.loss_weight
+        mesh = self.mesh
         B = rgb_d.shape[0]
         mask, mask_syn = sup["mask"], sup["mask_syn"]
         mask_pad = ((mask_syn == 1) & (mask == 0)).to(rgb_d.dtype)
@@ -322,14 +344,14 @@ class TextureGANEngine(Engine):
         d_both, _ = apply_discriminator(psn, sn2, cfg, both,
                                         torch.cat([scales, scales], dim=0),
                                         progress, normalized=True)
-        loss = {"gan_disc_real": gan_loss(d_both[:B], 1, cfg.gan.type),
-                "gan_disc_fake": gan_loss(d_both[B:], 0, cfg.gan.type)}
+        loss = {"gan_disc_real": gan_loss(d_both[:B], 1, cfg.gan.type, mesh),
+                "gan_disc_fake": gan_loss(d_both[B:], 0, cfg.gan.type, mesh)}
         total = (10.0 ** float(lw.gan_disc_real) * loss["gan_disc_real"]
                  + 10.0 ** float(lw.gan_disc_fake) * loss["gan_disc_fake"])
         if need_r or need_f:
             sel = torch.cat([torch.full((B,), float(need_r)),
                              torch.full((B,), float(need_f))]).to(d_both)
-            reg_r, reg_f = r1_penalty(d_both, both, sel, B)
+            reg_r, reg_f = r1_penalty(d_both, both, sel, B, mesh)
             if need_r:
                 loss["gan_reg_real"] = reg_r
                 total = total + 10.0 ** float(lw.gan_reg_real) * reg_r
@@ -340,7 +362,7 @@ class TextureGANEngine(Engine):
             gp = wgan_gp_reg(
                 lambda x: apply_discriminator(self.disc, self.sn_state, cfg,
                                               x, scales, progress)[0],
-                draws["gp_eps"], real, fake)
+                draws["gp_eps"], real, fake, mesh=mesh)
             loss["gan_gp"] = gp
             total = total + 10.0 ** float(lw.gan_gp) * gp
         return total, loss, sn2
@@ -349,9 +371,12 @@ class TextureGANEngine(Engine):
         """One generator + discriminator step → the step's losses (device
         scalars: G losses with 'all', then the D losses).  Its stages are
         named profiler ranges (``step/...``), which cost nothing without a
-        profiler and split a trace's host and device time by stage."""
+        profiler and split a trace's host and device time by stage.  Under
+        data parallelism ``draws`` are the global draws; this rank steps its
+        slice of the batch."""
         cfg = self.cfg
         it = self.it
+        draws = self.shard_draws(draws, {"patch": 1})
         progress = it / self.max_iter()
         patch_cfg = cfg.get("patch") or {}
         with record_function("step/batch"):
@@ -370,6 +395,7 @@ class TextureGANEngine(Engine):
         with record_function("step/gen_backward"):
             self.opt_nerf.zero_grad(set_to_none=True)
             total.backward()
+            self.reduce_grads(self.opt_nerf)
         with record_function("step/gen_update"):
             set_lrs(self.opt_nerf, it)
             self.opt_nerf.step()
@@ -389,13 +415,14 @@ class TextureGANEngine(Engine):
             with record_function("step/disc_backward"):
                 self.opt_disc.zero_grad(set_to_none=True)
                 dtotal.backward()
+                self.reduce_grads(self.opt_disc)
             with record_function("step/disc_update"):
                 set_lrs(self.opt_disc, it)
                 self.opt_disc.step()
             self.sn_state = sn2
             loss.update({k: v.detach() for k, v in dloss.items()})
         self.it = it + 1
-        return loss
+        return self.reduce_losses(loss)
 
     def log_scalars(self, it, loss, split="train"):
         host = super().log_scalars(it, loss, split=split)
@@ -506,9 +533,6 @@ class TextureGANEngine(Engine):
         self.draw_gen.manual_seed(int(self.cfg.get("seed", 0)) * 1000003
                                   + self.it)
         return int(get("step", ()).item())
-
-    def save_checkpoint(self, it):
-        return self.save_flat_checkpoint(self.train_state_flat(it), it)
 
     def restore_checkpoint(self):
         """With cfg.resume and <output_path>/model.ckpt: the whole train
@@ -707,13 +731,16 @@ class TextureGANEngine(Engine):
         heatmaps; then, once, cameras.png (the train anchors' frusta).
         Where matplotlib is missing, the camera plot is skipped with one
         warning and every other panel is still written.  Draws nothing
-        from the step's generator and builds no graph."""
+        from the step's generator and builds no graph.  Every rank renders
+        (a collective under data parallelism); rank 0 writes."""
         cfg = self.cfg
         with torch.inference_mode():
             frame = self.eval_frame(0)
             out = self._render_frame_st(frame,
                                         self.latents["trans"][0:1].detach(),
                                         self.latents["light"][0:1].detach())
+            if not self.is_writer:
+                return
             host = {k: out[k].cpu().numpy()
                     for k in ("rgb", "rgb_static", "rgb_transient",
                               "opacity_static", "depth", "uncert")}
@@ -777,7 +804,9 @@ class TextureGANEngine(Engine):
                          obj_host=None):
         """Whole-frame render → dict of [1,HW,C].  With object coverage in
         (0, 0.5) only object rays render (bucketed); either way the
-        reference's defaults fill the non-object pixels."""
+        reference's defaults fill the non-object pixels.  Under data
+        parallelism the ranks share the rays: the padded object-ray set
+        (coverage in (0, 0.5)) or H·W."""
         cfg = self.cfg
         obj = np.asarray(obj_host if obj_host is not None
                          else frame["obj_mask"].cpu()).reshape(-1)
@@ -787,6 +816,20 @@ class TextureGANEngine(Engine):
                   for x in (latent_trans, latent_light))
         cdt = compute_dtype(cfg)
         obj_f = (frame["obj_mask"].reshape(1, -1) > 0).float()
+        if self.mesh is not None:
+            args = (self.nerf, cfg, frame["pose"], frame["intr"],
+                    frame["z_near"], frame["z_far"], lt, ll)
+            if 0 < coverage < 0.5:
+                idx_p, _ = masked_ray_indices_sharded(obj, chunk,
+                                                      self.mesh.size)
+                idx = torch.as_tensor(idx_p, device=self.device)
+                out = render_masked_nerf_st_sharded(
+                    self.mesh, *args, idx, progress=1.0, compute_dtype=cdt,
+                    chunk=chunk)
+                return scatter_masked_st(cfg, out, idx, obj_f)
+            return render_full_nerf_st_sharded(
+                self.mesh, *args, progress=1.0, compute_dtype=cdt,
+                chunk=chunk, obj_mask=obj_f)
         if 0 < coverage < 0.5:
             idx_p, _ = masked_ray_indices(obj, chunk)
             idx = torch.as_tensor(idx_p, device=self.device)
@@ -838,13 +881,13 @@ class TextureGANEngine(Engine):
     # zeros), the [P] indices and the [P] z bounds gathered on the host.
 
     def _eval_compact_transform(self):
-        """EvalPrefetcher transform for the compact payload, or None for
-        the scene_vis export (it renders and crops whole frames) and when
-        render.eval_compact is off.  Frames with coverage outside (0, 0.5)
+        """EvalPrefetcher transform for the compact payload, or None under
+        data parallelism (as in JAX), for the scene_vis export (it renders
+        and crops whole frames) and when render.eval_compact is off.  Frames with coverage outside (0, 0.5)
         keep the standard payload (the whole-frame route needs the full z
         maps)."""
         cfg = self.cfg
-        if cfg.data.scene == "scene_vis" \
+        if self.mesh is not None or cfg.data.scene == "scene_vis" \
                 or not cfg.render.get("eval_compact", True):
             return None
         chunk = int(cfg.nerf.rand_rays)
@@ -958,6 +1001,8 @@ class TextureGANEngine(Engine):
                "ssim": float(ssim(rgb_t, img_t)),
                lpips_key: float(lpips_distance(lpips_params, rgb_t * 2 - 1,
                                                img_t * 2 - 1).mean())}
+        if not self.is_writer:
+            return row
         writer.submit(cv2.imwrite, os.path.join(test_path, f"{fi:06d}.png"),
                       (np.clip(rgb, 0, 1) * 255)[..., ::-1].astype(np.uint8))
         writer.submit(cv2.imwrite,
@@ -979,12 +1024,14 @@ class TextureGANEngine(Engine):
         render.save_path); returns the mean PSNR and SSIM.  Under
         data.scene=scene_vis each frame is the paper-visual export
         (``_eval_frame_vis``): three 256-px crops, quant rows on the
-        crop."""
+        crop.  Under data parallelism every rank renders and rank 0
+        writes."""
         cfg = self.cfg
         vis_mode = cfg.data.scene == "scene_vis"
         test_path = cfg.render.get("save_path") or os.path.join(
             cfg.output_path, "test_view_last")
-        os.makedirs(test_path, exist_ok=True)
+        if self.is_writer:
+            os.makedirs(test_path, exist_ok=True)
         # render.eval_seed varies the anchor protocol's random pick
         rng = np.random.default_rng(int(cfg.render.get("eval_seed", 0) or 0))
         raw_hw = getattr(self.eval_data, "raw_hw", None)
@@ -1006,6 +1053,8 @@ class TextureGANEngine(Engine):
             i, fi, idx_p, (p, s, lp, png) = pending.popleft()
             rows[i] = {"psnr": float(p), "ssim": float(s),
                        lpips_key: float(lp)}
+            if not self.is_writer:
+                return
             png = png.cpu().numpy()
             path = os.path.join(test_path, f"{fi:06d}.png")
             if idx_p is not None:
@@ -1043,5 +1092,6 @@ class TextureGANEngine(Engine):
         mean_ssim = float(np.mean([r["ssim"] for r in rows]))
         log.info(f"PSNR:  {mean_psnr:8.2f}")
         log.info(f"SSIM:  {mean_ssim:8.2f}")
-        write_quant(cfg.output_path, rows)
+        if self.is_writer:
+            write_quant(cfg.output_path, rows)
         return dict(psnr=mean_psnr, ssim=mean_ssim)

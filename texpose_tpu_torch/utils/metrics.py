@@ -80,6 +80,20 @@ class MetricsWriter:
             self.tb.close()
 
 
+class NullWriter:
+    """MetricsWriter's interface writing nothing: the writer of every
+    data-parallel rank but rank 0."""
+
+    def scalars(self, step, scalars, split="train"):
+        pass
+
+    def image(self, step, name, img, split="train"):
+        pass
+
+    def close(self):
+        pass
+
+
 class StepTimer:
     """EMA of the host time between ticks, and rays/s from it."""
 

@@ -180,6 +180,25 @@ Phases; any failure exits non-zero and no result line is printed:
      host collective and are no data-parallel rate; (c) the same with NCCL,
      one rank per card, where at least two cards are visible, else one
      line says it did not run.
+  13. training quality (texpose_tpu_torch/tools/quality_check.py): (a)
+     its pretrain (QUAL_PRETRAIN_STEPS steps, full width of
+     configs/nerf_lm_pretrain.yaml, GT poses, gt_box) and its texture GAN
+     (QUAL_GAN_STEPS steps, configs/nerf_lm_adapt_gan.yaml, the trunk
+     handed over through pretrain_model.ckpt) on its 16-view 128x128
+     scene_qual fixture, through the module's entry with the JAX tool's
+     defaults but half its GAN steps: its gates hold (the pretrain's last
+     loss below 0.9x the first and validation PSNR above 14, every GAN
+     loss finite) and its validation and evaluate_full run; (b) from each stage's end state and
+     one set of draws per step, TRAJ_PRETRAIN_STEPS pretrain and
+     TRAJ_GAN_STEPS GAN steps through the kernels and through the plain
+     route (route_check's switch): the per-step relative loss differences
+     (their median over steps and losses; each loss's worst step and its
+     signed mean over the last half, in units of its mean size) and the
+     end states' evaluate_full PSNR (both through the kernels) within the
+     TRAJ_* bounds; (c) each stage's launches of rows 8, 9b, 7b and the dW
+     GEMM and its reduction (pretrain) and rows 1, 3, 4 and 2 with them
+     (GAN): the backwards exactly once a step, the forwards once a step
+     plus the stage's validation and evaluation (counted again alone).
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers, and last {"ok": true, "device": {...}}.
 """
@@ -3282,6 +3301,175 @@ def dp_phase(here, tmp, dev, smi):
               f"machine [{smi}]", flush=True)
 
 
+# tools/tpu_quality_check.py's pretrain default (its PSNR gate needs the
+# steps); its GAN's 2000 cut to 1000, which keeps the whole command
+# within ~120 s of phase 12's end (the GAN gate is finite losses)
+QUAL_PRETRAIN_STEPS = 4000
+QUAL_GAN_STEPS = 1000
+TRAJ_PRETRAIN_STEPS = 200
+TRAJ_GAN_STEPS = 50
+# Bounds of the kernel vs plain trajectories (phase 13 (b)), from one
+# state and one set of draws.  One step agrees within ROUTE_LOSS_RTOL; over
+# many Adam steps the two routes' summation orders part the trajectories
+# the way two seeds do, without a sign.  Measured on the H100 (two calls):
+# median rel 3.6e-4 / 4.4e-4 (pretrain), 1.0e-3 / 1.6e-3 (GAN); a loss's
+# worst step ≤ 0.032 (pretrain) and ≤ 0.086 (GAN) of its mean size, its
+# last-half signed mean ≤ 1.3e-3 / 1.5e-2 of it; |dPSNR| 0.008-0.032 /
+# 0.004-0.069 dB.  Each bound is ≥ 4x the largest reading, and a fault that
+# shifts a loss by a tenth of its size, or costs a quarter dB in 50 steps,
+# crosses it.  The R1 penalty (gan_reg_real, ≈ 0.005 and spiky: its worst
+# step read 1.5x its mean, its signed mean -0.10) is held to the median
+# only.
+TRAJ_LOSS_MEDIAN = 1e-2        # median rel over the run's steps and losses
+TRAJ_LOSS_DEV = 0.5            # a loss's worst step, in its mean size
+TRAJ_LOSS_BIAS = 0.1           # a loss's signed mean over the last half
+TRAJ_PSNR_DB = 0.3             # |dPSNR| of the end states' evaluate_full
+TRAJ_SPIKY = ("gan_reg_real",)
+
+
+def _launches_of(fn):
+    """(fn()'s result, the launch counts of that call)."""
+    import torch
+    zero_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_launches()
+
+
+def _trajectory(eng, switch, steps, what, smi):
+    """``steps`` steps from one state and one set of draws per step through
+    the kernels and through the plain route (cfg.kernels.<switch> off):
+    the per-step relative loss differences, and the end states'
+    evaluate_full PSNR, both states evaluated through the kernels."""
+    import numpy as np
+    start = eng.train_state_flat(0)
+    draws = [eng.make_draws(eng.it + i) for i in range(steps)]
+    runs = {}
+    for route in ("kernels", "plain"):
+        eng.load_train_state_flat(start)
+        was = eng.cfg.kernels.get(switch)
+        if route == "plain":
+            setattr(eng.cfg.kernels, switch, False)
+        try:
+            losses = [eng.train_step(d) for d in draws]
+        finally:
+            setattr(eng.cfg.kernels, switch, was)
+        runs[route] = ([{k: float(v) for k, v in ls.items()}
+                        for ls in losses], eng.train_state_flat(0))
+    names = list(runs["plain"][0][0])
+    k = np.array([[r[n] for n in names] for r in runs["kernels"][0]])
+    p = np.array([[r[n] for n in names] for r in runs["plain"][0]])
+    rel = np.abs(k - p) / np.maximum(np.abs(p), 1e-12)     # [step, loss]
+    # each loss's worst step and its signed mean over the last half, in
+    # units of that loss's mean size over the run (the small GAN terms
+    # pass near zero, where a step's own relative difference is noise); a
+    # bias keeps one sign
+    scale = np.maximum(np.abs(p).mean(axis=0), 1e-12)
+    worst_dev = np.abs(k - p).max(axis=0) / scale
+    bias = (k - p)[steps // 2:].mean(axis=0) / scale
+    held = [i for i, n in enumerate(names) if n not in TRAJ_SPIKY]
+    psnr = {}
+    for route in ("kernels", "plain"):
+        eng.load_train_state_flat(runs[route][1])
+        psnr[route] = eng.evaluate_full()["psnr"]
+    eng.load_train_state_flat(start)
+    marks = sorted({s for s in (1, 2, 5, 10, 20, steps // 2, steps)
+                    if 1 <= s <= steps})
+    dpsnr = abs(psnr["kernels"] - psnr["plain"])
+    per_loss = {n: (float(f"{d:.3g}"), float(f"{b:.3g}"))
+                for n, d, b in zip(names, worst_dev, bias)}
+    print(f"quality (b) {what}: {steps} steps kernels vs plain "
+          f"(kernels.{switch}) from one state and one set of draws: median "
+          f"loss rel over steps and losses {float(np.median(rel)):.3g} "
+          f"(bound {TRAJ_LOSS_MEDIAN}); worst loss rel at steps {marks}: "
+          f"{[float(f'{rel[s - 1].max():.3g}') for s in marks]}; per loss "
+          f"(worst |d| / mean, last-half signed mean / mean; bounds "
+          f"{TRAJ_LOSS_DEV}, {TRAJ_LOSS_BIAS} but for {TRAJ_SPIKY}): "
+          f"{per_loss}; "
+          f"plain 'all' {p[0, names.index('all')]:.4f} -> "
+          f"{p[-1, names.index('all')]:.4f}; evaluate_full PSNR of the end "
+          f"states {psnr['kernels']:.4f} (kernels) vs {psnr['plain']:.4f} "
+          f"(plain), |d| {dpsnr:.4f} dB (bound {TRAJ_PSNR_DB}) [{smi}]",
+          flush=True)
+    if not (np.isfinite(rel).all() and np.median(rel) <= TRAJ_LOSS_MEDIAN
+            and worst_dev[held].max() <= TRAJ_LOSS_DEV
+            and np.abs(bias[held]).max() <= TRAJ_LOSS_BIAS
+            and dpsnr <= TRAJ_PSNR_DB):
+        fail(f"quality (b) {what}: the kernel trajectory leaves the plain "
+             "route's")
+
+
+def quality_phase(here, tmp, dev, smi):
+    """Phase 13, the training-quality gate: (a) quality_check's two stages
+    with the JAX tool's defaults, its gates asserted; (b) kernel vs plain
+    trajectories; (c) the stages' launch counts against steps × the
+    per-step counts."""
+    import tempfile as tf
+    from texpose_tpu_torch.tools import quality_check as qc
+
+    was_tmp = tf.tempdir
+    tf.tempdir = tmp                        # fixture and runs under tmp
+    try:
+        argv = [f"--device={dev}"]
+        t0 = time.perf_counter()
+        pre, la_pre = _launches_of(lambda: _with_env(
+            "QUAL_PRETRAIN_ITERS", str(QUAL_PRETRAIN_STEPS),
+            lambda: _with_env("QUAL_SKIP_GAN", "1",
+                              lambda: qc.main(argv)))["pretrain"])
+        t_pre = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gan, la_gan = _launches_of(lambda: _with_env(
+            "QUAL_GAN_ITERS", str(QUAL_GAN_STEPS),
+            lambda: _with_env("QUAL_SKIP_PRETRAIN", "1",
+                              lambda: qc.main(argv)))["gan"])
+        t_gan = time.perf_counter() - t0
+        print(f"quality (a) pretrain: {QUAL_PRETRAIN_STEPS} steps, loss "
+              f"{pre['first']:.4f} -> {pre['last']:.4f} (gate < "
+              f"{qc.PRETRAIN_LOSS_DROP} x), val PSNR {pre['val']['PSNR']:.3f}"
+              f" (gate > {qc.PRETRAIN_MIN_PSNR}); {pre['it_per_s']:.1f} "
+              f"steps/s, stage {t_pre:.1f} s with the fixture [{smi}]",
+              flush=True)
+        print(f"quality (a) gan: {QUAL_GAN_STEPS} steps, render "
+              f"{gan['first']:.4f} -> {gan['last']['render']:.4f}, every "
+              f"loss finite; val {gan['val']}; evaluate_full "
+              f"{gan['eval']}; {gan['it_per_s']:.1f} steps/s, stage "
+              f"{t_gan:.1f} s [{smi}]", flush=True)
+
+        # (c) launches: the backward rows once a step, the forward rows
+        # once a step plus what the stage's validation and evaluation
+        # launch (measured again alone on the end state)
+        peng, geng = pre["engine"], gan["engine"]
+        _, la_pval = _launches_of(lambda: peng.validate(0))
+        _, la_gval = _launches_of(lambda: geng.validate(0))
+        _, la_gev = _launches_of(geng.evaluate_full)
+        P, G = QUAL_PRETRAIN_STEPS, QUAL_GAN_STEPS
+        want_pre = {"coarse_render_fwd": P + la_pval["coarse_render_fwd"],
+                    "composite_coarse_bwd": P, "coarse_field_bwd": P,
+                    "dw_gemm": P, "dw_reduce": P}
+        fwd_gan = la_gval["st_field_fwd"] + la_gev["st_field_fwd"]
+        want_gan = {"st_field_fwd": G + fwd_gan,
+                    "composite_st_fwd": G + fwd_gan, "st_field_bwd": G,
+                    "composite_st_bwd": G, "dw_gemm": G, "dw_reduce": G}
+        for what, got, want in (("pretrain", la_pre, want_pre),
+                                ("gan", la_gan, want_gan)):
+            seen = {k: got[k] for k in want}
+            print(f"quality (c) {what}: launches {seen}, expected {want} "
+                  f"(1 a step; forwards + validation/evaluation)",
+                  flush=True)
+            if seen != want:
+                fail(f"quality (c) {what}: launches {seen} != {want}")
+        if min(la_pval["coarse_render_fwd"], la_gev["st_field_fwd"],
+               la_gev["composite_st_fwd"]) <= 0:
+            fail("quality (c): validation / evaluation launched no kernel")
+
+        # (b) the trajectories from the stages' end states
+        _trajectory(peng, "fused_coarse", TRAJ_PRETRAIN_STEPS, "pretrain",
+                    smi)
+        _trajectory(geng, "fused_st", TRAJ_GAN_STEPS, "gan", smi)
+    finally:
+        tf.tempdir = was_tmp
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "texpose_tpu_torch")):
@@ -3392,6 +3580,7 @@ def main():
         preprocess_video_phase(here, tmp, dev, smi)
         vis_phase(here, tmp, dev, smi)
         dp_phase(here, tmp, dev, smi)
+        quality_phase(here, tmp, dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's count from the run of the path it was ported for

@@ -42,7 +42,8 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
                      "geometry.pose", "raster.shaders", "raster.native",
                      "raster.torch_raster", "compute_box",
                      "compute_surfelinfo", "utils.vis", "ops.knn",
-                     "parallel.mesh", "fleet"):
+                     "parallel.mesh", "fleet", "tools.quality_check",
+                     "tools.gan_ablate"):
             assert "texpose_tpu_torch." + name in names, name
         for name in names:
             importlib.import_module(name)
@@ -62,7 +63,7 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split()[-1]) >= 65
+    assert int(r.stdout.split()[-1]) >= 68
 
 
 @pytest.mark.parametrize("package", ["nn", "ops", "sampling"])

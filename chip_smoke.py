@@ -198,11 +198,39 @@ Phases; any failure exits non-zero and no result line is printed:
      TRAJ_* bounds; (c) each stage's launches of rows 8, 9b, 7b and the dW
      GEMM and its reduction (pretrain) and rows 1, 3, 4 and 2 with them
      (GAN): the backwards exactly once a step, the forwards once a step
-     plus the stage's validation and evaluation (counted again alone).
+     plus the stage's validation and evaluation (counted again alone);
+     (d) at each stage's end state, on the next step's own batch and
+     draws, every kernel of the step as the step calls it against its
+     plain twin on the same inputs (``twin_checks``): rows 8, 9b and 7b
+     with the dW GEMM and its reduction (pretrain), rows 1, 3, 4 and 2
+     with them (GAN), under the bounds above, each line beside the state's
+     regime (largest raw outputs, opaque rays, rays that reach the 1e10
+     last interval); the state and the draw generator restored after.
+     The field forwards (rows 1 and 8) are held layer by layer: the
+     twin's arithmetic (``walk_plain``) on the kernel's own activations
+     of each layer (row 1's from a measurement launch that stores every
+     hidden layer), each layer's output and the raw outputs against the
+     kernel's under FEAT_REL / FIELD_MEAN_ERR / FIELD_MAX_ERR.  Their
+     end-to-end comparison is printed beside it, with each side's
+     distance from the twin with f64 sums (``f64_sums``), but not held
+     to those bounds: at trained magnitudes (raw outputs ~10^2-10^3) an
+     f32 sum in another order flips bf16 roundings that the layers
+     amplify past any bound set at the init's magnitudes, between JAX's
+     own field kernel and the twin as well
+     (tests/test_torch_probe_f6.py).
+  14. the evaluation envelope (texpose_tpu_torch/tools/eval_envelope.py):
+     the tool's sweep of ENVELOPE_N frames of the cycled 1869-frame split
+     at 480x640 on its 16/1-view fixture (disk → card → masked render →
+     metrics → PNG, one warm frame first): the allocator's growth over
+     the sweep under the tool's 512 MB gate, and rows 1 and 3 launched
+     exactly (ENVELOPE_N + 1) x the chunks of one frame (counted alone);
+     views/s, the allocator's peak and the host RSS printed beside the
+     card's name and power limit.
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers, and last {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import datetime
 import json
 import math
@@ -3399,6 +3427,443 @@ def _trajectory(eng, switch, steps, what, smi):
              "route's")
 
 
+# Phase 13 (d) and tools/probe_f6.py (c): a training step's kernels held
+# against their twins at a trained state, each on the inputs the step
+# gives it.  Beside each check, the regime the state puts the kernels in,
+# from T, a ray's transmittance into its last (1e10) interval: the share
+# of opaque rays (opacity over the other intervals 1 − T > OPACITY_FULL)
+# and the rays that reach the last interval (T ≥ LAST_REACH).
+OPACITY_FULL = 0.999
+LAST_REACH = 1e-6
+GAN_TWINS = ("st_field_fwd", "composite_st_fwd", "composite_st_bwd",
+             "st_field_bwd", "dw_pair")
+PRETRAIN_TWINS = ("coarse_render_fwd", "composite_coarse_bwd",
+                  "coarse_field_bwd", "dw_pair")
+
+
+def _last_interval(regime, dens_raw, dist, extra=None):
+    """The regime's opaque share and the rays reaching the last interval:
+    T from the softplus densities (plus ``extra``, the transient's) times
+    the intervals, summed over all but the last sample."""
+    import torch
+    from texpose_tpu_torch.nn.mlp import softplus
+    BR, N = dist.shape
+    sd = softplus(dens_raw.float()[:, 0]).reshape(BR, N) * dist
+    if extra is not None:
+        sd = sd + softplus(extra.float()).reshape(BR, N) * dist
+    T = torch.exp(-sd[:, :-1].sum(1))
+    regime.update(opaque_share=float((1 - T > OPACITY_FULL).float().mean()),
+                  reach_last=int((T >= LAST_REACH).sum()), rays=BR)
+
+
+def _amax(t):
+    return float(t.abs().max())
+
+
+def _raw_stats(got, ref):
+    """(max |err|, largest mean |err|, max |err| / max(|ref|, 1)) over the
+    raw outputs."""
+    errs = [(a.float() - b.float()).abs() for a, b in zip(got, ref)]
+    return (max(float(e.max()) for e in errs),
+            max(float(e.mean()) for e in errs),
+            max(float((e / b.float().abs().clamp(min=1.0)).max())
+                for e, b in zip(errs, ref)))
+
+
+def _res_stats(acts, ref):
+    """(max |err| / max(|ref|, 1), largest mean |err|) of residual
+    activations."""
+    rel = mean = 0.0
+    for a, b in zip(acts, ref):
+        e = (a.float() - b.float()).abs()
+        rel = max(rel, float((e / b.float().abs().clamp(min=1.0)).max()))
+        mean = max(mean, float(e.mean()))
+    return rel, mean
+
+
+def _grad_stats(got, ref):
+    """(worst tensor ‖err‖/‖ref‖, max|err|/max|ref|, max |err|)."""
+    return (max(rel_norm(a, b) for a, b in zip(got, ref)),
+            max(rel_max(a, b) for a, b in zip(got, ref)),
+            max(float((a - b).abs().max()) for a, b in zip(got, ref)))
+
+
+def _row(rows, kernel, stats, bounds):
+    """One check: each statistic beside its bound; ok when none is past."""
+    rows.append({"kernel": kernel, **{k: float(v) for k, v in stats.items()},
+                 "bounds": bounds,
+                 "ok": all(stats[k] <= b for k, b in bounds.items())})
+
+
+@contextlib.contextmanager
+def f64_sums():
+    """While open, the plain twins keep their bf16 rounding points but hold
+    every value in float64, so each matmul sums exactly (to f64): the
+    reference that tells a kernel's summation error from its twin's."""
+    import torch
+    from texpose_tpu_torch.kernels import coarse_field as cf
+    from texpose_tpu_torch.kernels import st_field as sf
+    from texpose_tpu_torch.kernels import trunk as tk
+
+    def round64(x, compute_dtype):
+        if compute_dtype is None or compute_dtype == torch.float32:
+            return x.double()
+        return x.to(compute_dtype).double()
+
+    saved = [(m, m.round_to) for m in (cf, sf, tk)]
+    for m, _ in saved:
+        m.round_to = round64
+    try:
+        yield
+    finally:
+        for m, real in saved:
+            m.round_to = real
+
+
+def _vs_f64(got, ref, exact, what):
+    """Each side's largest and mean |err| against the f64-sum twin over
+    ``what`` (the kernel's, then the twin's)."""
+    out = {}
+    for side, xs in (("", got), ("twin_", ref)):
+        errs = [(a.double() - e).abs() for a, e in zip(xs, exact)]
+        out[f"{side}{what}_max_vs_f64"] = max(float(e.max()) for e in errs)
+        out[f"{side}{what}_mean_vs_f64"] = max(float(e.mean())
+                                               for e in errs)
+    return out
+
+
+def _st_planes(args, kwargs):
+    """Row 1's staged inputs and every hidden layer's activations as the
+    kernel computes them → (walk, xe, lrow, trow, {plane: walk layer},
+    {plane: [M, 256] bf16}, the raw outputs).  On the card a measurement
+    launch of the kernel (counted nowhere) stores each hidden layer's
+    output as a residual plane; on the CPU the planes are the plain walk's
+    (``walk_plain``)."""
+    import torch
+    from texpose_tpu_torch.kernels import _build, field_fwd
+    from texpose_tpu_torch.kernels import st_field as sf
+    xext, encpts, light, trans, weights, rpi = args[:6]
+    cdt = args[6] if len(args) > 6 else kwargs.get("compute_dtype",
+                                                   torch.bfloat16)
+    walk = weights.fwd_walk(xext.shape[1], encpts.shape[1])
+    lrow, trow = (r.float().contiguous() for r in sf._latent_rows(
+        weights, light, trans, encpts.shape[1], cdt))
+    xe = sf.stage_rows(xext, encpts, walk.kx, walk.ke)
+    hidden = [j for j, layer in enumerate(walk.layers) if layer.rows]
+    pmap = {j: p for p, j in enumerate(hidden)}
+    M, dev = xext.shape[0], xext.device
+    if dev.type != "cuda":
+        raw, res = field_fwd.walk_plain(walk, xe, lrow, trow, rpi, pmap)
+        return (walk, xe, lrow, trow, pmap, res,
+                (raw[field_fwd.NOUT_RGB], raw[field_fwd.NOUT_DENS],
+                 raw[field_fwd.NOUT_TRANS]))
+    out = [torch.empty((M, n), dtype=torch.float32, device=dev)
+           for n in (3, 1, 5)]
+    planes = torch.empty((len(hidden), M, field_fwd.HIDDEN),
+                         dtype=torch.bfloat16, device=dev)
+    _build.check(field_fwd.launch(
+        _build.load("st_field", sf._ARGTYPES).st_field_fwd, walk, xe, pmap,
+        n_res=len(hidden), rows_per_img=rpi, n_img=lrow.shape[0],
+        stream=_build.stream_ptr(dev), lrow=lrow, trow=trow, rgb=out[0],
+        dens=out[1], trans=out[2], res=planes), "st_field_fwd planes")
+    return (walk, xe, lrow, trow, pmap, dict(enumerate(planes)),
+            tuple(out))
+
+
+def _forced(walk, xe, planes, pmap, raw_k, lrow=None, trow=None, rpi=1):
+    """The twin's arithmetic layer by layer on the kernel's activations
+    (``walk_plain`` forced to the kernel's planes): each hidden layer and
+    each raw output computed from the kernel's inputs to that layer, held
+    against the kernel's → (largest |err| / max(|ref|, 1) and mean |err|
+    over the layers, largest and mean |err| over the raw outputs)."""
+    from texpose_tpu_torch.kernels import field_fwd
+    raw_f, res_f = field_fwd.walk_plain(walk, xe, lrow, trow, rpi, pmap,
+                                        forced=planes)
+    lrel, lmean = _res_stats([planes[p] for p in sorted(planes)],
+                             [res_f[p] for p in sorted(planes)])
+    codes = [c for c in (field_fwd.NOUT_RGB, field_fwd.NOUT_DENS,
+                         field_fwd.NOUT_TRANS) if c in raw_f]
+    rmax, rmean, _ = _raw_stats(raw_k, [raw_f[c] for c in codes])
+    return lrel, lmean, rmax, rmean
+
+
+def _check_dw(rows, srcs, g_wide, g_narrow, segs, grads):
+    """The dW pair as a split backward runs it (dw_gemm, then dw_reduce
+    into ``grads``), then held against the segments' direct f32 products
+    and the reduction's twin on the same partials (DW_REL)."""
+    import torch
+    from texpose_tpu_torch.kernels import dw_gemm as dw
+    partial, prob = dw.dw_gemm(srcs, g_wide, g_narrow, segs)
+    out = dw.dw_reduce(partial, prob, grads)
+    want = dw.dw_plain(srcs, g_wide, g_narrow, segs, torch.zeros_like(grads))
+    red = dw.dw_reduce_plain(partial, prob, torch.zeros_like(grads))
+    exact = torch.zeros_like(grads, dtype=torch.float64)
+    for sg in segs:                       # the products summed in f64
+        h = dw._planes(srcs[sg.a])[sg.a_plane][:, sg.a_col:sg.a_col
+                                               + sg.k_in]
+        g = (g_wide[sg.b_plane] if sg.b == dw.WIDE else g_narrow)[
+            :, sg.b_col:sg.b_col + sg.n]
+        exact[sg.out:sg.out + sg.k_in * sg.n] = (
+            h.double().t() @ g.double()).reshape(-1)
+    blocks = [slice(s.out, s.out + s.k_in * s.n) for s in segs]
+    _row(rows, "dw_pair", {
+        "dw_rel_norm": max(rel_norm(out[b], want[b]) for b in blocks),
+        "dw_rel_max": max(rel_max(out[b], want[b]) for b in blocks),
+        "reduce_abs": max(float((out[b] - red[b]).abs().max())
+                          for b in blocks),
+        "rel_norm_vs_f64": max(rel_norm(out[b].double(), exact[b])
+                               for b in blocks),
+        "direct_rel_norm_vs_f64": max(rel_norm(want[b].double(), exact[b])
+                                      for b in blocks)},
+        {"dw_rel_norm": DW_REL, "dw_rel_max": DW_REL,
+         "reduce_abs": DW_REL})
+    return out
+
+
+@contextlib.contextmanager
+def twin_checks(kind):
+    """While open, every kernel of the GAN step (``kind`` "gan": rows 1,
+    3, 4 and 2 with the dW pair) or of the pretrain step ("pretrain": rows
+    8, 9b and 7b with the dW pair), as its autograd Function calls it,
+    launches and is then held against its plain twin on the same inputs
+    under chip_smoke's bounds → (rows, regime): a dict per check, and the
+    state's regime (the largest raw outputs, opaque rays, rays reaching
+    the last interval).  The field forwards are held layer by layer on
+    the kernel's activations (``_forced``); their end-to-end errors
+    (``e2e_*``) and each side's distance from the f64-sum twin are
+    recorded beside, unbounded (phase 13's docstring says why)."""
+    import torch
+    from texpose_tpu_torch.kernels import coarse_field as cf
+    from texpose_tpu_torch.kernels import composite as cp
+    from texpose_tpu_torch.kernels import st_field as sf
+
+    rows, regime, saved = [], {}, []
+
+    def patch(module, name, make):
+        real = getattr(module, name)
+        saved.append((module, name, real))
+
+        def checked(*args, **kwargs):
+            # the wrapper counts its launch on the module's name for
+            # itself, which names this function while the patch holds
+            checked.launches = real.launches
+            out = real(*args, **kwargs)
+            real.launches = checked.launches
+            with torch.no_grad():
+                make(args, kwargs, out)
+            return out
+        setattr(module, name, checked)
+
+    def st_fwd(args, kwargs, got):
+        ref = sf.st_field_plain(*args, **kwargs)
+        with f64_sums():
+            exact = sf.st_field_plain(*args, **kwargs)
+        e_max, e_mean, e_rel = _raw_stats(got[:3], ref[:3])
+        frel, fmean = _res_stats(got[3:], ref[3:])
+        # off the card the wrapper ran the twin: no layer to force
+        lrel, lmean, rmax, rmean, same = frel, fmean, e_max, e_mean, 1.0
+        if got[0].is_cuda:
+            walk, xe, lrow, trow, pmap, planes, raw_k = _st_planes(args,
+                                                                   kwargs)
+            lrel, lmean, rmax, rmean = _forced(walk, xe, planes, pmap, raw_k,
+                                               lrow, trow, args[5])
+            same = float(all(torch.equal(a, b)
+                             for a, b in zip(raw_k, got[:3])))
+        _row(rows, "st_field_fwd", {
+            "layer_rel": lrel, "layer_mean_abs": lmean, "raw_max_abs": rmax,
+            "raw_mean_abs": rmean, "planes_launch_equal": same,
+            "e2e_raw_max_abs": e_max, "e2e_raw_mean_abs": e_mean,
+            "e2e_raw_rel": e_rel, "e2e_feat_rel": frel,
+            "e2e_feat_mean_abs": fmean,
+            **_vs_f64(got[:3], ref[:3], exact[:3], "raw"),
+            **_vs_f64(got[3:], ref[3:], exact[3:], "feat")},
+            {"layer_rel": FEAT_REL, "layer_mean_abs": FIELD_MEAN_ERR,
+             "raw_max_abs": FIELD_MAX_ERR, "raw_mean_abs": FIELD_MEAN_ERR})
+        rgb, dens, tr = got[:3]
+        regime.update(dens_raw_max=_amax(dens), rgb_head_max=_amax(rgb),
+                      trans_rgb_max=_amax(tr[:, :3]),
+                      trans_dens_max=_amax(tr[:, 3]),
+                      uncert_raw_max=_amax(tr[:, 4]))
+
+    def st_comp_fwd(args, kwargs, got):
+        ref = cp.composite_st_plain(*args, **kwargs)
+        exact = cp.composite_st_plain(
+            *[a.double() if torch.is_tensor(a) else a for a in args],
+            **kwargs)
+        err = (got - ref).abs()
+        col = int(err.max(0).values.argmax())
+        _row(rows, "composite_st_fwd", {
+            "max_abs": float(err.max()), "worst_column": col,
+            "ref_max_there": float(ref[:, col].abs().max()),
+            "max_vs_f64": float((got.double() - exact).abs().max()),
+            "twin_max_vs_f64": float((ref.double() - exact).abs().max())},
+            {"max_abs": COMPOSITE_MAX_ERR})
+        rgb, tr, dens, _, dist = args[:5]
+        _last_interval(regime, dens, dist, tr[:, 3])
+
+    def st_comp_bwd(args, kwargs, got):
+        ref = cp.composite_st_bwd_plain(*args, **kwargs)
+        _row(rows, "composite_st_bwd",
+             {"rel_max": max(rel_max(a, b) for a, b in zip(got, ref))},
+             {"rel_max": COMPOSITE_BWD_REL})
+
+    def st_bwd(args, kwargs, got):
+        ref = sf.st_field_bwd_plain(*args, **kwargs)
+        norm, peak, _ = _grad_stats(list(got[0]) + list(got[1:]),
+                                    list(ref[0]) + list(ref[1:]))
+        _row(rows, "st_field_bwd", {"rel_norm": norm, "rel_max": peak},
+             {"rel_norm": FIELD_BWD_NORM, "rel_max": FIELD_BWD_MAX})
+
+    def coarse_fwd(args, kwargs, got):
+        ref = cf.coarse_render_plain(*args, **kwargs)
+        with f64_sums():
+            exact = cf.coarse_render_plain(*args, **kwargs)
+        packed, rgb, dens, (_, acts) = got
+        xext, ep, dist, depth, w = args[:5]
+        comp = cp.composite_coarse_plain(rgb, dens, depth, dist)
+        perr = float(((packed - comp).abs()
+                      / comp.abs().clamp(min=1.0)).max())
+        e_perr = float(((packed - ref[0]).abs()
+                        / ref[0].abs().clamp(min=1.0)).max())
+        e_max, e_mean, e_rel = _raw_stats((rgb, dens), ref[1:3])
+        arel, amean = _res_stats(acts, ref[3])
+        lrel, lmean, rmax, rmean = arel, amean, e_max, e_mean
+        if packed.is_cuda:
+            walk = w.fwd_walk(xext.shape[1], ep.shape[1])
+            lrel, lmean, rmax, rmean = _forced(
+                walk, sf.stage_rows(xext, ep, walk.kx, walk.ke),
+                dict(enumerate(acts)), w.res_planes(), (rgb, dens))
+        _row(rows, "coarse_render_fwd", {
+            "layer_rel": lrel, "layer_mean_abs": lmean, "raw_max_abs": rmax,
+            "raw_mean_abs": rmean, "packed_rel": perr,
+            "e2e_packed_rel": e_perr, "e2e_raw_max_abs": e_max,
+            "e2e_raw_mean_abs": e_mean, "e2e_raw_rel": e_rel,
+            "e2e_act_rel": arel, "e2e_act_mean_abs": amean,
+            **_vs_f64((rgb, dens), ref[1:3], exact[1:3], "raw"),
+            **_vs_f64(acts, ref[3], exact[3], "act")},
+            {"layer_rel": FEAT_REL, "layer_mean_abs": FIELD_MEAN_ERR,
+             "raw_max_abs": FIELD_MAX_ERR, "raw_mean_abs": FIELD_MEAN_ERR,
+             "packed_rel": RENDER_MAX_ERR})
+        regime.update(dens_raw_max=_amax(dens), rgb_head_max=_amax(rgb))
+        _last_interval(regime, dens, args[2])
+
+    def coarse_comp_bwd(args, kwargs, got):
+        ref = cp.composite_coarse_bwd_plain(*args, **kwargs)
+        _row(rows, "composite_coarse_bwd",
+             {"rel_max": max(rel_max(a, b) for a, b in zip(got, ref))},
+             {"rel_max": COMPOSITE_BWD_REL})
+
+    def coarse_bwd(args, kwargs, got):
+        xext, ep, _, acts, w, g_rgb, g_dens = args[:7]
+        ref = cf.coarse_field_bwd_plain(xext, ep, acts, w, g_rgb, g_dens,
+                                        *args[7:], **kwargs)
+        norm, peak, _ = _grad_stats(got, ref)
+        _row(rows, "coarse_field_bwd", {"rel_norm": norm, "rel_max": peak},
+             {"rel_norm": FIELD_BWD_NORM, "rel_max": FIELD_BWD_MAX})
+
+    if kind == "gan":
+        module, field = sf, (("st_field_fwd", st_fwd),
+                             ("st_field_bwd", st_bwd))
+        for name, make in (("composite_st_fwd", st_comp_fwd),
+                           ("composite_st_bwd", st_comp_bwd)):
+            patch(cp, name, make)
+    else:
+        module, field = cf, (("coarse_render_fwd", coarse_fwd),
+                             ("coarse_field_bwd", coarse_bwd),
+                             ("composite_coarse_bwd", coarse_comp_bwd))
+    for name, make in field:
+        patch(module, name, make)
+    saved.append((module, "dw_grads", module.dw_grads))
+    module.dw_grads = lambda *a: _check_dw(rows, *a)
+    try:
+        yield rows, regime
+    finally:
+        for mod, name, real in reversed(saved):
+            setattr(mod, name, real)
+
+
+def grad_groups(k_grad, p_grad):
+    """Per parameter group (a key's first two path parts): the relative
+    norm ‖k − p‖/‖p‖ and the cosine of the concatenated gradients (in
+    float64)."""
+    import torch
+    groups = {}
+    for key in p_grad:
+        groups.setdefault("/".join(key.split("/")[:2]), []).append(key)
+    out = {}
+    for grp, keys in groups.items():
+        k = torch.cat([k_grad[n].double().reshape(-1) for n in keys])
+        p = torch.cat([p_grad[n].double().reshape(-1) for n in keys])
+        out[grp] = {"rel_norm": float((k - p).norm() / p.norm().clamp(
+            min=1e-30)), "cosine": float(torch.nn.functional.cosine_similarity(
+                k, p, dim=0))}
+    return out
+
+
+def trained_parity(eng, kind, switch=None, grads=None):
+    """At the engine's state and on the next step's own batch and draws:
+    that step through the kernels with each kernel held against its twin
+    (``twin_checks``); with ``switch``, the same step through the plain
+    route (cfg.kernels.<switch> off) and both steps' losses and gradients
+    (``grads()`` after a step) compared as ``route_check`` does, per
+    parameter group.  The state and the draw generator are restored, so a
+    run goes on as if nothing ran → {"rows", "regime", "ok"[, "route"]}."""
+    import torch
+    state = eng.train_state_flat(0)
+    gen = eng.draw_gen.get_state()
+    draws = eng.make_draws(eng.it)
+    try:
+        with twin_checks(kind) as (rows, regime):
+            k_loss = eng.train_step(draws)
+        out = {"rows": rows, "regime": regime,
+               "ok": all(r["ok"] for r in rows)}
+        if switch:
+            k_grad = grads()
+            eng.load_train_state_flat(state)
+            was = eng.cfg.kernels.get(switch)
+            setattr(eng.cfg.kernels, switch, False)
+            try:
+                p_loss = eng.train_step(draws)
+            finally:
+                setattr(eng.cfg.kernels, switch, was)
+            p_grad = grads()
+            loss_rel = max(abs(float(k_loss[k]) - float(p_loss[k]))
+                           / max(abs(float(p_loss[k])), 1e-12)
+                           for k in p_loss)
+            per_tensor = max(rel_norm(k_grad[k], p_grad[k]) for k in p_grad)
+            out["route"] = {"loss_rel": loss_rel, "grad_rel_norm": per_tensor,
+                            "groups": grad_groups(k_grad, p_grad)}
+            out["ok"] = out["ok"] and loss_rel <= ROUTE_LOSS_RTOL \
+                and per_tensor <= ROUTE_GRAD_NORM
+    finally:
+        eng.load_train_state_flat(state)
+        eng.draw_gen.set_state(gen)
+    _sync(eng.device)
+    return out
+
+
+def parity_text(res):
+    """The checks of ``trained_parity`` as lines, each with the regime."""
+    reg = res["regime"]
+    regime = ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else
+                       f"{k} {v}" for k, v in reg.items())
+    lines = [f"{r['kernel']}: " + ", ".join(
+        f"{k} {r[k]:.3g} (bound {b})" for k, b in r["bounds"].items())
+        + ("" if r["ok"] else " PAST A BOUND") + "".join(
+            f", {k} {v:.3g}" for k, v in r.items()
+            if k not in r["bounds"] and k not in ("kernel", "bounds", "ok"))
+        + f" [regime: {regime}]" for r in res["rows"]]
+    if "route" in res:
+        rt = res["route"]
+        lines.append(
+            f"step kernels vs plain: worst loss rel {rt['loss_rel']:.3g} "
+            f"(bound {ROUTE_LOSS_RTOL}), worst tensor ‖err‖/‖ref‖ "
+            f"{rt['grad_rel_norm']:.3g} (bound {ROUTE_GRAD_NORM}); groups "
+            + "; ".join(f"{g} rel {v['rel_norm']:.3g} cos {v['cosine']:.6f}"
+                        for g, v in rt["groups"].items()))
+    return lines
+
+
 def quality_phase(here, tmp, dev, smi):
     """Phase 13, the training-quality gate: (a) quality_check's two stages
     with the JAX tool's defaults, its gates asserted; (b) kernel vs plain
@@ -3466,9 +3931,74 @@ def quality_phase(here, tmp, dev, smi):
         _trajectory(peng, "fused_coarse", TRAJ_PRETRAIN_STEPS, "pretrain",
                     smi)
         _trajectory(geng, "fused_st", TRAJ_GAN_STEPS, "gan", smi)
+
+        # (d) the kernels against their twins at the stages' end states,
+        # on one real batch each: the next step's own inputs
+        for eng, kind, want in ((peng, "pretrain", PRETRAIN_TWINS),
+                                (geng, "gan", GAN_TWINS)):
+            res = trained_parity(eng, kind)
+            for line in parity_text(res):
+                print(f"quality (d) {kind} at step {eng.it}: {line} [{smi}]",
+                      flush=True)
+            seen = sorted(r["kernel"] for r in res["rows"])
+            if seen != sorted(want):
+                fail(f"quality (d) {kind}: checked {seen}, expected "
+                     f"{sorted(want)}")
+            if not res["ok"]:
+                fail(f"quality (d) {kind}: a kernel parts from its twin at "
+                     "the trained state")
     finally:
         tf.tempdir = was_tmp
 
+
+
+# Phase 14's cut of the 1869-frame split: over ENVELOPE_N frames a leak of
+# 512 MB / ENVELOPE_N = 2 MB a frame (a quarter of one 480x640 frame's
+# ~7.4 MB of f32 RGB) crosses the tool's gate; ~15-20 s of sweep
+ENVELOPE_N = 256
+
+
+def envelope_phase(here, tmp, dev, smi):
+    """Phase 14, the evaluation envelope: the tool's sweep of ENVELOPE_N
+    480x640 frames (``eval_envelope.run``): its memory gate on the
+    allocator holds, and rows 1 and 3 launch once per chunk of each frame,
+    the warm frame included (the chunks of one frame counted alone)."""
+    import tempfile as tf
+    from texpose_tpu_torch.tools import eval_envelope as ee
+
+    was_tmp = tf.tempdir
+    tf.tempdir = tmp                        # fixture and output under tmp
+    try:
+        t0 = time.perf_counter()
+        (out, res, eng), la = _launches_of(lambda: _with_env(
+            "EVAL_N", str(ENVELOPE_N), lambda: _with_env(
+                "EVAL_HW", "480,640", lambda: ee.run(dev))))
+        wall = time.perf_counter() - t0
+        _, one = _launches_of(lambda: eng.warm_eval(0))
+        per = one["st_field_fwd"]
+        want = {"st_field_fwd": per * (ENVELOPE_N + 1),
+                "composite_st_fwd": per * (ENVELOPE_N + 1)}
+        seen = {k: la[k] for k in want}
+        print(f"envelope: {out['frames']} frames at 480x640 in "
+              f"{out['wall_s']} s = {out['views_per_s']} views/s "
+              f"(views_per_sec_e2e), PSNR {out['psnr']}; allocator "
+              f"{out['mem_before_mb']} -> {out['mem_after_mb']} MB (delta "
+              f"{out['hbm_delta_mb']} MB, gate < {ee.GATE_MB}), peak "
+              f"{out['peak_hbm_mb']} MB, reserved "
+              f"{out['live_device_before_mb']} -> "
+              f"{out['live_device_after_mb']} MB, host RSS "
+              f"{out['rss_before_mb']} -> {out['rss_after_mb']} MB; launches "
+              f"{seen}, expected {per} a frame x {ENVELOPE_N + 1} (the warm "
+              f"frame included); phase {wall:.1f} s [{smi}]", flush=True)
+        if out["frames"] != ENVELOPE_N or out["o1_frame_memory"] is not True \
+                or out["o1_basis"] != "allocator":
+            fail(f"envelope: the memory gate failed: {out}")
+        if per <= 0 or seen != want:
+            fail(f"envelope: launches {seen} != {want}")
+        if not math.isfinite(res["psnr"]):
+            fail(f"envelope: non-finite PSNR {res}")
+    finally:
+        tf.tempdir = was_tmp
 
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3581,6 +4111,7 @@ def main():
         vis_phase(here, tmp, dev, smi)
         dp_phase(here, tmp, dev, smi)
         quality_phase(here, tmp, dev, smi)
+        envelope_phase(here, tmp, dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's count from the run of the path it was ported for

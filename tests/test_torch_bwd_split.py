@@ -421,13 +421,20 @@ def test_gemm_twin_splits_rows_and_sums_to_the_products():
 
 def test_split_rows_fill_the_card():
     """Split-K: at the main paths' rows every split is a whole number of
-    64-row stages, at least eight of them, and the blocks cover the rows
-    once and fill between one and two waves of the 132 SMs where the rows
-    allow (27 tiles for row 7b, 17 for row 2)."""
-    for M, tiles in ((131072, 27), (393216, 27), (131072, 17), (640, 27)):
+    64-row stages, at least eight of them and at most MAX_SPLIT_STAGES
+    (the accumulator's sums stay short: PR 15), and the blocks cover the
+    rows once and fill at least one wave of the 132 SMs where the rows
+    allow (27 tiles for row 7b, 17 for row 2); at few rows they keep to two
+    waves."""
+    for M, tiles in ((131072, 27), (393216, 27), (131072, 17), (640, 27),
+                     (8192, 17)):
         per, splits = dw.split_rows(M, tiles, 132)
         assert per % dw.STAGE_ROWS == 0 and per * splits >= M
         assert per * (splits - 1) < M
         assert per >= 8 * dw.STAGE_ROWS or splits == 1
+        assert per <= dw.MAX_SPLIT_STAGES * dw.STAGE_ROWS
         if M >= 131072:
-            assert 132 <= splits * tiles <= 264, (M, tiles, splits)
+            assert splits * tiles >= 132, (M, tiles, splits)
+        if M <= 2 * 132 // tiles * 8 * dw.STAGE_ROWS:
+            assert splits * tiles <= 264, (M, tiles, splits)
+    assert dw.split_rows(131072, 17, 132) == (2048, 64)

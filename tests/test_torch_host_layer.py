@@ -23,7 +23,9 @@ PORT_FILES = sorted(
     + [os.path.join(REPO, "chip_smoke.py"),
        os.path.join(REPO, "tools", "profile_eval_torch.py"),
        os.path.join(REPO, "tools", "kernel_bounds.py"),
-       os.path.join(REPO, "tools", "probe_composite.py")])
+       os.path.join(REPO, "tools", "probe_composite.py"),
+       os.path.join(REPO, "tools", "probe_f6.py"),
+       os.path.join(REPO, "tools", "probe_dw_precision.py")])
 
 
 def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
@@ -43,14 +45,16 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
                      "raster.torch_raster", "compute_box",
                      "compute_surfelinfo", "utils.vis", "ops.knn",
                      "parallel.mesh", "fleet", "tools.quality_check",
-                     "tools.gan_ablate"):
+                     "tools.gan_ablate", "tools.eval_envelope"):
             assert "texpose_tpu_torch." + name in names, name
         for name in names:
             importlib.import_module(name)
         for path in ({REPO!r} + "/chip_smoke.py",
                      {REPO!r} + "/tools/profile_eval_torch.py",
                      {REPO!r} + "/tools/kernel_bounds.py",
-                     {REPO!r} + "/tools/probe_composite.py"):
+                     {REPO!r} + "/tools/probe_composite.py",
+                     {REPO!r} + "/tools/probe_f6.py",
+                     {REPO!r} + "/tools/probe_dw_precision.py"):
             spec = importlib.util.spec_from_file_location("m", path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules
@@ -63,7 +67,7 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_poisoned():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split()[-1]) >= 68
+    assert int(r.stdout.split()[-1]) >= 69
 
 
 @pytest.mark.parametrize("package", ["nn", "ops", "sampling"])

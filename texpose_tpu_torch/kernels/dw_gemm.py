@@ -32,6 +32,7 @@ WIDE, NARROW = "wide", "narrow"
 TILE_I = 128           # dW rows per block (csrc/dw_gemm.cu kTileI)
 TILE_N = 256           # dW columns per block
 STAGE_ROWS = 64        # rows per pipeline stage (kRows)
+MAX_SPLIT_STAGES = 32  # stages one split sums in its accumulator
 NARROW_COLS = 16       # the narrow G plane's width
 H100_SMS = 132         # the CPU twin splits the rows as on this card
 
@@ -85,12 +86,18 @@ def problems(segments):
 
 
 def split_rows(M, tiles, sms):
-    """(rows per split, splits): at most two blocks per SM (a block takes a
-    whole SM, so at most two waves and no third, near-empty one), each
-    split a whole number of 64-row stages and at least eight of them (so
-    the four-stage ring fills)."""
+    """(rows per split, splits): each split a whole number of 64-row stages
+    and at least eight of them (so the four-stage ring fills); as many
+    splits as two blocks per SM give (a block takes a whole SM), and more
+    where a split would sum over MAX_SPLIT_STAGES stages: the tensor
+    cores' f32 accumulation drifts from exact sums in proportion to the
+    rows it adds up (tools/probe_dw_precision.py: at a trained GAN state
+    row 2's dW read 8.7e-5 of the norm from f64 sums at 8768 rows a split
+    and 2.8e-5 at 2240, f32 products 3.4e-6, PERF.md §6 PR 15), while the
+    reduction adds the partials in f32 in a fixed order."""
     chunks = -(-M // STAGE_ROWS)
-    splits = max(1, min(2 * sms // max(tiles, 1), chunks // 8))
+    splits = max(1, min(2 * sms // max(tiles, 1), chunks // 8),
+                 -(-chunks // MAX_SPLIT_STAGES))
     per = -(-chunks // splits)
     return per * STAGE_ROWS, -(-chunks // per)
 

@@ -339,16 +339,21 @@ def read_walk(walk):
 
 
 def walk_plain(walk, xe, lrow=None, trow=None, rows_per_img=1,
-               res_planes=None):
+               res_planes=None, forced=None):
     """The kernel's arithmetic over the walk's table and tiles, in plain
-    PyTorch: per layer, the A operand is the table's blocks of the
-    warpgroup's buffers (A: 256 columns; X: the row input's 64-column
-    blocks, later the ST RGB head's activations), times the wide tile's
-    rows (bf16 values, f32 products) + bias (+ latent row) → ReLU → bf16
-    into the output buffer; narrow layers give the raw outputs.  Once X is
-    freed it is poisoned (NaN), so a walk that reads it after that shows.
+    PyTorch on xe's device: per layer, the A operand is the table's blocks
+    of the warpgroup's buffers (A: 256 columns; X: the row input's
+    64-column blocks, later the ST RGB head's activations), times the wide
+    tile's rows (bf16 values, f32 products) + bias (+ latent row) → ReLU →
+    bf16 into the output buffer; narrow layers give the raw outputs.  Once
+    X is freed it is poisoned (NaN), so a walk that reads it after that
+    shows.  ``forced`` ({plane: the kernel's residual plane}) runs the walk
+    layer by layer on the kernel's own activations: after a layer of a
+    forced plane is computed (and kept as that residual plane), its output
+    buffer takes the kernel's plane.
     → (dict of raw outputs by NOUT code, residual planes by plane)."""
     M = xe.shape[0]
+    dev = xe.device
     t = walk.tiles
     table = walk.table(res_planes or {})
     xe = xe.float()
@@ -356,13 +361,14 @@ def walk_plain(walk, xe, lrow=None, trow=None, rows_per_img=1,
     xcols = []
     for b in range(walk.xblocks):
         c0 = BLOCK * b if b < walk.bx else walk.kx + BLOCK * (b - walk.bx)
-        blk = torch.zeros((M, BLOCK), dtype=torch.float32)
+        blk = torch.zeros((M, BLOCK), dtype=torch.float32, device=dev)
         hi = min(c0 + BLOCK, width)
         blk[:, :hi - c0] = xe[:, c0:hi]
         xcols.append(blk)
-    X = torch.zeros((M, BLOCK * walk.xregion), dtype=torch.float32)
+    X = torch.zeros((M, BLOCK * walk.xregion), dtype=torch.float32,
+                    device=dev)
     X[:, :BLOCK * walk.xblocks] = torch.cat(xcols, 1)
-    bufs = [torch.zeros((M, HIDDEN), dtype=torch.float32), X]
+    bufs = [torch.zeros((M, HIDDEN), dtype=torch.float32, device=dev), X]
     lats = [None, lrow, trow]
     img = None
     raw, res = {}, {}
@@ -375,19 +381,22 @@ def walk_plain(walk, xe, lrow=None, trow=None, rows_per_img=1,
                        for b, blk, s in segs], 1)
         if L[WROW] >= 0:
             k = a.shape[1]
-            w = torch.zeros((k, HIDDEN))           # rows past the pack: zero
+            # rows past the pack: zero
+            w = torch.zeros((k, HIDDEN), device=dev)
             rows = t.wide[L[WROW]:L[WROW] + k].float()
             w[:rows.shape[0]] = rows
             z = a @ w + t.bias[L[BIAS]:L[BIAS] + HIDDEN]
             if L[LAT]:
                 lat = lats[L[LAT]]
                 if img is None:
-                    img = torch.clamp(torch.arange(M) // rows_per_img,
-                                      max=lat.shape[0] - 1)
+                    img = torch.clamp(torch.arange(M, device=dev)
+                                      // rows_per_img, max=lat.shape[0] - 1)
                 z = z + lat[img]
             bufs[L[OUT]][:, :HIDDEN] = round_to(relu(z), torch.bfloat16)
             if L[RES] >= 0:
                 res[L[RES]] = bufs[L[OUT]][:, :HIDDEN].clone()
+                if forced is not None and L[RES] in forced:
+                    bufs[L[OUT]][:, :HIDDEN] = forced[L[RES]].float()
         if L[NROW] >= 0:
             a0 = a[:, :16 * L[S0STEPS]]
             z = a0 @ t.narrow[L[NROW]:L[NROW] + NARROW_K].float() \

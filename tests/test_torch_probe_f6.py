@@ -127,15 +127,20 @@ def test_parity_check_leaves_the_run_unchanged(engine):
 
 
 def test_parity_checks_every_gan_kernel_on_its_twin(engine):
-    """On the CPU every wrapper takes its twin, so each check reads 0; the
-    dW pair runs only inside a CUDA backward."""
+    """On the CPU every wrapper takes its twin, so each check reads 0 (and
+    each f64-distance ratio of ``scale_bound`` 1: kernel and twin are one
+    tensor); the dW pair runs only inside a CUDA backward."""
     cs = _probe().cs
     res = cs.trained_parity(engine, "gan", "fused_st",
                             lambda: cs.gan_grads(engine))
     assert sorted(r["kernel"] for r in res["rows"]) == sorted(
         set(cs.GAN_TWINS) - {"dw_pair"})
-    assert all(r["ok"] and all(r[k] == 0.0 for k in r["bounds"])
-               for r in res["rows"])
+    assert all(r["ok"] and all(
+        r[k] == (1.0 if k.endswith("_f64_ratio") else 0.0)
+        for k in r["bounds"]) for r in res["rows"])
+    field = next(r for r in res["rows"] if r["kernel"] == "st_field_fwd")
+    assert {"e2e_raw_scale_rel", "e2e_raw_f64_ratio", "e2e_feat_scale_rel",
+            "e2e_feat_f64_ratio"} <= set(field["bounds"])
     reg = res["regime"]
     assert reg["rays"] == 2 * 256 and 0 <= reg["reach_last"] <= reg["rays"]
     assert 0.0 <= reg["opaque_share"] <= 1.0 and reg["dens_raw_max"] > 0

@@ -72,7 +72,13 @@ Phases; any failure exits non-zero and no result line is printed:
      trunk from a seeded JAX-format pretrain_model.ckpt via
      --resume_pretrain.  All four texture kernels' launch counters (and
      the dW GEMM's and its reduction's) are
-     zeroed just before and must be > 0 after it; every logged loss must be
+     zeroed just before and must be > 0 after it, and the run is traced
+     on the device (``replay_trace``): its steps after the warm-up are
+     replays of a captured step, whose kernels no wrapper counts, so each
+     kernel must also be found inside the replays, and its launches in
+     the last line are its wrapper's eager count plus its replays' count
+     in the trace (``launches_eager`` / ``launches_replayed``; phases 5-9's
+     CLI runs alike); every logged loss must be
      finite, the trunk unchanged and the heads moved, model.ckpt must hold
      the JAX package's train-state keypaths, and the port's evaluate must
      reload it.  Then, from one state and one set of draws, the kernel
@@ -180,6 +186,34 @@ Phases; any failure exits non-zero and no result line is printed:
      host collective and are no data-parallel rate; (c) the same with NCCL,
      one rank per card, where at least two cards are visible, else one
      line says it did not run.
+  scan (between phases 12 and 13): the captured training step
+     (texpose_tpu_torch/models/step_graph.py, the port of JAX's
+     ``finalize_step``) on four routes at full width — the GAN's
+     two-kernel route, kernels.st_mega with the hybrid backward, the
+     default pretrain and the hierarchical pretrain — under cuDNN's
+     deterministic algorithms: (a) from one seed, SCAN_DISPATCHES ×
+     SCAN_K steps eagerly on one engine, in captured dispatches of SCAN_K
+     on a second and eagerly on a third: the counts equal, every kernel
+     of the route found in a device trace of the last dispatches'
+     replays exactly replays × one eager step's count times (the wrappers
+     count none there: a replay launches without them), and the train
+     states' distance printed, captured vs eager beside eager vs eager (the
+     kernels' f32 atomics part two eager trajectories too); (b)
+     SCAN_ROUNDS times, the first and third engines set to the second's
+     train state and draw generator, one step each: the replay against
+     the eager step, over every leaf of the train state (parameters,
+     latents, both moments, the counts) and the losses, within SCAN_RTOL
+     of each leaf's largest value, printed beside eager vs eager; (c)
+     ``validate`` after a dispatch equal
+     to ``validate`` of a fresh engine loaded from the checkpoint written
+     there (the kernels' packs follow a replay); (d) warm steps/s in
+     turns eager / captured / captured / eager, and a profiled window of
+     each: wall and device-busy ms a step, the idle share, kernel and
+     graph launches a step, beside the card's name and power limit.  The
+     CLI runs of phases 4-11 run captured too (the shipped configs'
+     scan_steps: 100, gcd-clamped), phase 12's eagerly under mesh.dp, and
+     their metrics.jsonl must log at the steps JAX's loop logs
+     (``logged_steps``).
   13. training quality (texpose_tpu_torch/tools/quality_check.py): (a)
      its pretrain (QUAL_PRETRAIN_STEPS steps, full width of
      configs/nerf_lm_pretrain.yaml, GT poses, gt_box) and its texture GAN
@@ -226,7 +260,9 @@ Phases; any failure exits non-zero and no result line is printed:
      views/s, the allocator's peak and the host RSS printed beside the
      card's name and power limit.
 Prints the card's name and power limit (nvidia-smi), one JSON line with
-each kernel's numbers, and last {"ok": true, "device": {...}}.
+each kernel's numbers (``launches``: from the main path's run of phases
+4-9 it was ported for, its eager and its replayed launches summed), and
+last {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -234,6 +270,7 @@ import datetime
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1714,23 +1751,8 @@ TWO_KERNELS = ("coarse_field_fwd", "composite_coarse_fwd",
 
 
 def _launch_wrappers():
-    from texpose_tpu_torch.kernels.coarse_field import (coarse_field_bwd,
-                                                        coarse_field_fwd,
-                                                        coarse_render_fwd)
-    from texpose_tpu_torch.kernels.composite import (composite_coarse_bwd,
-                                                     composite_coarse_fwd,
-                                                     composite_st_bwd,
-                                                     composite_st_fwd)
-    from texpose_tpu_torch.kernels.st_field import st_field_bwd, st_field_fwd
-    from texpose_tpu_torch.kernels.st_render import (st_render_bwd,
-                                                     st_render_fwd)
-    from texpose_tpu_torch.kernels.trunk import trunk_fwd
-    from texpose_tpu_torch.kernels.dw_gemm import dw_gemm, dw_reduce
-    return {f.__name__: f for f in (
-        st_field_fwd, st_field_bwd, composite_st_fwd, composite_st_bwd,
-        coarse_render_fwd, composite_coarse_bwd, coarse_field_bwd,
-        coarse_field_fwd, composite_coarse_fwd, trunk_fwd, st_render_fwd,
-        st_render_bwd, dw_gemm, dw_reduce)}
+    from texpose_tpu_torch.kernels import launch_counters
+    return {f.__name__: f for f in launch_counters()}
 
 
 def zero_launches():
@@ -1740,6 +1762,104 @@ def zero_launches():
 
 def read_launches():
     return {k: f.launches for k, f in _launch_wrappers().items()}
+
+
+# the csrc kernel each wrapper launches, one a call: its symbol and, for
+# the shared field forward, its template argument, the epilogue
+# (csrc/field_fwd.cuh: EPI_NONE 0, EPI_COARSE 1, EPI_ST 2); the
+# composites launch their segmented or their warp-per-ray form
+KERNEL_SYMBOLS = {
+    "st_field_fwd": {("field_fwd_kernel", 0)},
+    "coarse_field_fwd": {("field_fwd_kernel", 0)},
+    "trunk_fwd": {("field_fwd_kernel", 0)},
+    "coarse_render_fwd": {("field_fwd_kernel", 1)},
+    "st_render_fwd": {("field_fwd_kernel", 2)},
+    "st_field_bwd": {("st_field_bwd_kernel", None)},
+    "st_render_bwd": {("st_render_bwd_kernel", None)},
+    "coarse_field_bwd": {("coarse_bwd_kernel", None)},
+    "composite_st_fwd": {("composite_st_fwd_seg_kernel", None)},
+    "composite_st_bwd": {("composite_st_bwd_seg_kernel", None),
+                         ("composite_st_bwd_kernel", None)},
+    "composite_coarse_fwd": {("composite_coarse_fwd_seg_kernel", None),
+                             ("composite_coarse_fwd_kernel", None)},
+    "composite_coarse_bwd": {("composite_coarse_bwd_seg_kernel", None),
+                             ("composite_coarse_bwd_kernel", None)},
+    "dw_gemm": {("dw_gemm_kernel", None)},
+    "dw_reduce": {("dw_reduce_kernel", None)},
+}
+
+
+def kernel_symbol(name):
+    """(symbol, the field forward's epilogue or None) of a traced kernel's
+    demangled name, or None for a kernel of no csrc wrapper's."""
+    m = re.search(r"(\w+_kernel)\s*(?:<([^>]*)>)?\s*\(", name)
+    if m is None:
+        return None
+    if m.group(1) != "field_fwd_kernel":
+        return m.group(1), None
+    nums = re.findall(r"\d+", m.group(2) or "")
+    return m.group(1), int(nums[-1]) if nums else None
+
+
+@contextlib.contextmanager
+def replay_trace(names):
+    """A device trace (torch.profiler, CUPTI) of the block.  The dict it
+    yields is filled after the block with the launches of the wrappers
+    ``names``' kernels inside CUDA graph replays, by wrapper: the kernels
+    whose correlation id is a ``cudaGraphLaunch``'s.  A replay launches a
+    captured step's kernels without their wrappers, which count only what
+    they launch themselves; ``["_symbols"]`` holds every kernel symbol
+    the replays ran, with its count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    owner = {}
+    for k in names:
+        for sym in KERNEL_SYMBOLS[k]:
+            if sym in owner:
+                fail(f"replay_trace: {owner[sym]} and {k} launch one symbol "
+                     f"{sym}: a trace cannot tell them apart")
+            owner[sym] = k
+    counts = {}
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        yield counts
+        torch.cuda.synchronize()
+    events = prof.events()
+    graphs = {e.id for e in events if e.device_type == DeviceType.CPU
+              and "GraphLaunch" in e.name}
+    symbols = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.id in graphs:
+            sym = kernel_symbol(e.name)
+            symbols[sym] = symbols.get(sym, 0) + 1
+    counts.update({k: sum(n for sym, n in symbols.items()
+                          if owner.get(sym) == k) for k in names})
+    counts["_symbols"] = {f"{s[0]}<{s[1]}>" if s and s[1] is not None
+                          else str(s and s[0]): n for s, n in symbols.items()}
+
+
+LAUNCH_SPLIT = {}    # the main paths' launches: eager and replayed apart
+
+
+def path_launches(path, required, replayed):
+    """A main path's launch counts, read just after its run: each
+    wrapper's own count of its eager launches plus ``replayed``, the
+    trace's count of its kernel inside graph replays (``replay_trace``).
+    The two apart go to LAUNCH_SPLIT[path]; fails when a kernel of
+    ``required`` ran in no replay."""
+    eager = read_launches()
+    LAUNCH_SPLIT[path] = {k: {"eager": n, "replayed": replayed.get(k, 0)}
+                          for k, n in eager.items()}
+    print(f"{path}: launches eager (wrapper counts) "
+          f"{ {k: n for k, n in eager.items() if n} }, inside graph replays "
+          f"(device trace) { {k: replayed[k] for k in required} }",
+          flush=True)
+    short = [k for k in required if replayed.get(k, 0) <= 0]
+    if short:
+        fail(f"{path}: kernels that ran in no graph replay: {short}; the "
+             f"replays ran {replayed['_symbols']}")
+    return {k: n + replayed.get(k, 0) for k, n in eager.items()}
 
 
 def train_argv(here, tmp, dev, steps, out="train_out", extra=()):
@@ -1796,12 +1916,13 @@ def train_phase(here, tmp, dev):
     argv, pre = train_argv(here, tmp, dev, TRAIN_STEPS)
     zero_launches()
     t0 = time.perf_counter()
-    eng = train.main(argv)
-    torch.cuda.synchronize()
+    with replay_trace(TEXTURE_KERNELS) as replayed:
+        eng = train.main(argv)
     cold_s = time.perf_counter() - t0
-    launches = read_launches()
-    print(f"train: {TRAIN_STEPS} steps (cold, incl. validation at step 0) "
-          f"{cold_s:.2f} s; launches {launches}", flush=True)
+    launches = path_launches("train", TEXTURE_KERNELS, replayed)
+    print(f"train: {TRAIN_STEPS} steps (cold, incl. validation at step 0, "
+          f"under a device trace) {cold_s:.2f} s; launches {launches}",
+          flush=True)
     if min(launches[k] for k in TEXTURE_KERNELS) <= 0:
         fail(f"the train path did not launch every kernel: {launches}")
 
@@ -1809,9 +1930,9 @@ def train_phase(here, tmp, dev):
     recs = [json.loads(ln) for ln in
             open(os.path.join(cfg.output_path, "metrics.jsonl"))]
     losses = [r for r in recs if r["split"] == "train" and "all" in r]
-    if [r["step"] for r in losses] != [1] + list(range(10, TRAIN_STEPS + 1,
-                                                       10)):
-        fail(f"train: unexpected scalar steps {[r['step'] for r in losses]}")
+    if [r["step"] for r in losses] != logged_steps(cfg, TRAIN_STEPS):
+        fail(f"train: unexpected scalar steps {[r['step'] for r in losses]}"
+             f", JAX's loop logs {logged_steps(cfg, TRAIN_STEPS)}")
     for r in losses:
         bad = [k for k, v in r.items()
                if k != "split" and not math.isfinite(v)]
@@ -1985,15 +2106,27 @@ def pretrain_argv(here, tmp, dev, steps, env=False, name=None, extra=()):
             *extra], root
 
 
+def logged_steps(cfg, steps):
+    """The steps at which the JAX loop logs scalars in a run of ``steps``
+    steps: K = the gcd-clamped scan_steps per dispatch (``scan_k``), after
+    the first dispatch and wherever it + K hits freq.scalar."""
+    from types import SimpleNamespace
+    from texpose_tpu_torch.models.base import Engine
+    K = Engine.scan_k(SimpleNamespace(cfg=cfg, max_iter=lambda: steps))
+    return [it + K for it in range(0, steps, K)
+            if it == 0 or (it + K) % cfg.freq.scalar == 0]
+
+
 def _train_losses(cfg, steps):
-    """The logged train losses; fails unless they come at the expected
-    steps and are finite."""
+    """The logged train losses; fails unless they come at the steps JAX's
+    loop logs them (``logged_steps``) and are finite."""
     recs = [json.loads(ln) for ln in
             open(os.path.join(cfg.output_path, "metrics.jsonl"))]
     losses = [r for r in recs if r["split"] == "train" and "all" in r]
-    if [r["step"] for r in losses] != [1] + list(range(10, steps + 1, 10)):
+    if [r["step"] for r in losses] != logged_steps(cfg, steps):
         fail(f"{cfg.model}: unexpected scalar steps "
-             f"{[r['step'] for r in losses]}")
+             f"{[r['step'] for r in losses]}, JAX's loop logs "
+             f"{logged_steps(cfg, steps)}")
     for r in losses:
         bad = [k for k, v in r.items()
                if k != "split" and not math.isfinite(v)]
@@ -2016,12 +2149,13 @@ def pretrain_phase(here, tmp, dev):
     argv, _ = pretrain_argv(here, tmp, dev, PRETRAIN_STEPS)
     zero_launches()
     t0 = time.perf_counter()
-    eng = train.main(argv)
-    torch.cuda.synchronize()
+    with replay_trace(PRETRAIN_KERNELS) as replayed:
+        eng = train.main(argv)
     cold_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches = path_launches("pretrain", PRETRAIN_KERNELS, replayed)
     print(f"pretrain: {PRETRAIN_STEPS} steps (cold, incl. validation at "
-          f"step 0) {cold_s:.2f} s; launches {launches}", flush=True)
+          f"step 0, under a device trace) {cold_s:.2f} s; launches "
+          f"{launches}", flush=True)
     if min(launches[k] for k in PRETRAIN_KERNELS) <= 0:
         fail(f"the pretrain path did not launch every kernel: {launches}")
     cfg = eng.cfg
@@ -2068,9 +2202,9 @@ def pretrain_phase(here, tmp, dev):
     # the env variant: view-dependent head, its own schedule and losses
     argv_e, root_e = pretrain_argv(here, tmp, dev, ENV_STEPS, env=True)
     zero_launches()
-    eng_e = train.main(argv_e)
-    torch.cuda.synchronize()
-    launches_e = read_launches()
+    with replay_trace(PRETRAIN_KERNELS) as replayed:
+        eng_e = train.main(argv_e)
+    launches_e = path_launches("pretrain_env", PRETRAIN_KERNELS, replayed)
     if min(launches_e[k] for k in PRETRAIN_KERNELS) <= 0:
         fail(f"the env pretrain path did not launch every kernel: "
              f"{launches_e}")
@@ -2126,12 +2260,13 @@ def hierarchical_phase(here, tmp, dev):
         "--loss_weight.render_fine=0"))
     zero_launches()
     t0 = time.perf_counter()
-    eng = train.main(argv)
-    torch.cuda.synchronize()
+    with replay_trace(FIELD_KERNELS) as replayed:
+        eng = train.main(argv)
     cold_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches = path_launches("hierarchical", FIELD_KERNELS, replayed)
     print(f"hierarchical: {HIER_STEPS} steps (cold, incl. validation at step "
-          f"0) {cold_s:.2f} s; launches {launches}", flush=True)
+          f"0, under a device trace) {cold_s:.2f} s; launches {launches}",
+          flush=True)
     if any(launches[k] != 2 * HIER_STEPS for k in FIELD_KERNELS):
         fail(f"hierarchical: both fields must run the field forward and "
              f"backward kernels once per step each: {launches}")
@@ -2169,9 +2304,9 @@ def two_kernel_phase(here, tmp, dev):
     argv, _ = pretrain_argv(here, tmp, dev, TWO_KERNEL_STEPS, name="two",
                             extra=("--kernels.coarse_mega=false",))
     zero_launches()
-    eng = train.main(argv)
-    torch.cuda.synchronize()
-    launches = read_launches()
+    with replay_trace(TWO_KERNELS + ("coarse_render_fwd",)) as replayed:
+        eng = train.main(argv)
+    launches = path_launches("two_kernel", TWO_KERNELS, replayed)
     print(f"two_kernel: {TWO_KERNEL_STEPS} steps, launches {launches}, "
           f"losses {_train_losses(eng.cfg, TWO_KERNEL_STEPS)}", flush=True)
     if (min(launches[k] for k in TWO_KERNELS) <= 0
@@ -2272,13 +2407,14 @@ def st_mega_phase(here, tmp, dev):
                          extra=("--kernels.st_mega=true",))
     zero_launches()
     t0 = time.perf_counter()
-    eng = _with_env("TEXPOSE_MEGA_FULLBWD", "1", lambda: train.main(argv))
-    torch.cuda.synchronize()
+    with replay_trace(MEGA_KERNELS + TWO_KERNEL_ST) as replayed:
+        eng = _with_env("TEXPOSE_MEGA_FULLBWD", "1",
+                        lambda: train.main(argv))
     cold_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches = path_launches("st_mega", MEGA_KERNELS + DW_KERNELS, replayed)
     print(f"st_mega: train CLI, {MEGA_STEPS} steps with TEXPOSE_MEGA_FULLBWD=1"
-          f" (cold, incl. validation at step 0) {cold_s:.2f} s; launches "
-          f"{launches}", flush=True)
+          f" (cold, incl. validation at step 0, under a device trace) "
+          f"{cold_s:.2f} s; launches {launches}", flush=True)
     if (launches["st_render_bwd"] != MEGA_STEPS
             or launches["st_render_fwd"] < MEGA_STEPS
             or any(launches[k] != MEGA_STEPS for k in DW_KERNELS)
@@ -3337,6 +3473,268 @@ def dp_phase(here, tmp, dev, smi):
               f"not run: torch.cuda.device_count() = {cards} on this "
               f"machine [{smi}]", flush=True)
 
+# the scan phase: the captured training step (models/step_graph.py)
+SCAN_K = 20                 # steps per captured dispatch
+SCAN_DISPATCHES = 3
+# a replayed step against an eager step from one state: the kernels' f32
+# atomics (db and the latent-row sums of rows 2, 6b and 7b) make two eager
+# steps from one state part by ~1e-6 of a leaf's largest value (0.85e-6
+# to 1.7e-6 on an H100 at 700 W), and that noise grows past 0.1 in 60 steps,
+# so the trajectories are printed beside an eager-vs-eager control and the
+# bound holds the one-step difference; a stale pack, rate, count or draw
+# errs by an update (≥ 1e-4)
+SCAN_RTOL = 1e-5
+SCAN_ROUNDS = 3             # one-step comparisons from one state
+SCAN_TIMED = 20             # steps per timed turn
+SCAN_PROFILED = 10          # steps per profiled window
+HYBRID_KERNELS = ("st_render_fwd", "composite_st_bwd",
+                  "st_field_bwd") + DW_KERNELS
+
+
+def engine_from_argv(argv, extra=()):
+    """The engine the train CLI builds from ``argv`` (+ ``extra``), set up
+    and restored as ``train.main`` does, without training."""
+    from texpose_tpu_torch.models import get_engine
+    from texpose_tpu_torch.models.base import resolve_device
+    from texpose_tpu_torch.utils.config import set_options
+    cfg = set_options(list(argv) + list(extra))
+    eng = get_engine(cfg.model)(cfg, resolve_device(cfg))
+    eng.load_dataset()
+    eng.upload_train_split()
+    eng.build_networks()
+    eng.setup_optimizer()
+    if cfg.get("resume_pretrain"):
+        eng.restore_pretrained_checkpoint()
+    eng.restore_checkpoint()
+    return eng
+
+
+def state_delta(a, b):
+    """max |Δ| and max |Δ|/max|a| over every leaf of two engines' train
+    states (parameters, latents, both moments, the counts), and how many
+    leaves differ at all."""
+    import numpy as np
+    fa, fb = a.train_state_flat(a.it), b.train_state_flat(b.it)
+    if sorted(fa) != sorted(fb):
+        fail(f"scan: the train states hold other leaves: "
+             f"{sorted(set(fa) ^ set(fb))}")
+    worst = rel = 0.0
+    differ = []
+    for k in fa:
+        x = np.asarray(fa[k], np.float64)
+        y = np.asarray(fb[k], np.float64)
+        d = float(np.abs(x - y).max()) if x.size else 0.0
+        worst = max(worst, d)
+        rel = max(rel, d / max(float(np.abs(x).max()) if x.size else 0.0,
+                               1e-30))
+        if not np.array_equal(fa[k], fb[k]):
+            differ.append(k)
+    return worst, rel, differ, len(fa)
+
+
+def _profiled_steps(run, n, prof_tool):
+    """One profiled window of ``n`` steps → per step: host wall ms, device
+    busy ms (the union of its kernels and copies), host kernel and graph
+    launches, and the idle share 1 − busy/wall."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    run(2)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = prof_tool._union_ms(prof_tool._device_intervals(prof))
+    avgs = prof.key_averages()
+    kern = sum(a.count for a in avgs if a.key.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+    graphs = sum(a.count for a in avgs if a.key.startswith(
+        ("cudaGraphLaunch", "cuGraphLaunch")))
+    return {"wall_ms": wall / n, "busy_ms": busy / n,
+            "idle": 1 - busy / wall, "kernel_launches": kern / n,
+            "graph_launches": graphs / n}
+
+
+def _same_state(dst, src):
+    """Load ``src``'s whole train state and draw generator into ``dst``."""
+    dst.load_train_state_flat(src.train_state_flat(src.it))
+    dst.draw_gen.set_state(src.draw_gen.get_state())
+
+
+def _loss_rel(a, b):
+    return max(abs(float(a[k]) - float(b[k])) / max(abs(float(a[k])), 1e-30)
+               for k in a)
+
+
+def scan_route(what, argv, kernels, smi, prof_tool):
+    """One route of the scan phase (see the module's docstring) → its
+    readings; failures are returned in ``bad``, so one call reads every
+    route."""
+    import numpy as np
+    import torch
+    bad = []
+    n = SCAN_K * SCAN_DISPATCHES
+    eager, capt = engine_from_argv(argv), engine_from_argv(argv)
+    twin = engine_from_argv(argv)
+    runner = capt.step_runner()
+    # (a) the trajectories: eager, captured, and eager again
+    for i in range(n):
+        if i == n - 1:
+            zero_launches()
+        eager.train_step(eager.make_draws(eager.it))
+    torch.cuda.synchronize()
+    per_step = read_launches()
+    for _ in range(n):
+        twin.train_step(twin.make_draws(twin.it))
+    runner.dispatch(SCAN_K)
+    zero_launches()
+    with replay_trace(kernels) as replayed:
+        for _ in range(SCAN_DISPATCHES - 1):
+            runner.dispatch(SCAN_K)
+    host = {k: n for k, n in read_launches().items() if n}
+    counts = (eager.it, int(eager.it_dev), capt.it, int(capt.it_dev))
+    traj = state_delta(eager, capt)[1], state_delta(eager, twin)[1]
+    # (b) one step from one state, SCAN_ROUNDS times: a replay and
+    # an eager step against two eager steps
+    rounds = []
+    for _ in range(SCAN_ROUNDS):
+        _same_state(eager, capt)
+        _same_state(twin, capt)
+        l_e = eager.train_step(eager.make_draws(eager.it))
+        l_t = twin.train_step(twin.make_draws(twin.it))
+        l_c = runner.dispatch(1)
+        torch.cuda.synchronize()
+        rounds.append((state_delta(eager, capt), _loss_rel(l_e, l_c),
+                       state_delta(eager, twin), _loss_rel(l_e, l_t)))
+    if runner.graph is None or runner.captures != 1:
+        bad.append(f"scan {what}: the runner did not capture the step once "
+                   f"({runner.captures} captures)")
+    n_rep = SCAN_K * (SCAN_DISPATCHES - 1)
+    short = [k for k in kernels if per_step[k] <= 0
+             or replayed[k] != n_rep * per_step[k]]
+    if short or host:
+        bad.append(f"scan {what}: the device trace of {n_rep} replays holds "
+                   f"not {n_rep}x one eager step's launches of {short}, or "
+                   f"a wrapper launched in them ({host}); replays "
+                   f"{replayed}, one eager step {per_step}")
+    if len(set(counts)) != 1 or counts[0] != n:
+        bad.append(f"scan {what}: counts {counts} after {n} steps")
+    one = max(r[0][1] for r in rounds), max(r[1] for r in rounds)
+    noise = max(r[2][1] for r in rounds), max(r[3] for r in rounds)
+    equal = sum(not r[0][2] for r in rounds)
+    print(f"scan {what}: {n} eager steps vs {SCAN_DISPATCHES} captured "
+          f"dispatches of {SCAN_K}: train state max |d|/max|x| "
+          f"{traj[0]:.3g} (eager vs eager {traj[1]:.3g}); counts {counts}; "
+          f"kernels in the device trace of the last {n_rep} replays "
+          f"{ {k: replayed[k] for k in kernels} } (one eager step "
+          f"{ {k: per_step[k] for k in kernels} })", flush=True)
+    print(f"scan {what}: one step from one state x {SCAN_ROUNDS}: replay vs "
+          f"eager state {one[0]:.3g}, losses {one[1]:.3g} "
+          f"({equal}/{SCAN_ROUNDS} bit-equal; max |d| "
+          f"{max(r[0][0] for r in rounds):.3g}); eager vs eager state "
+          f"{noise[0]:.3g}, losses {noise[1]:.3g} (bound {SCAN_RTOL})",
+          flush=True)
+    if max(one) > SCAN_RTOL:
+        bad.append(f"scan {what}: a replayed step parts from the eager step "
+                   f"from one state by {one} (eager vs eager {noise})")
+
+    # the packs after a dispatch: validate against a reloaded engine
+    del twin
+    v_capt = capt.validate(capt.it)
+    capt.save_checkpoint(capt.it)
+    fresh = engine_from_argv(argv, ("--resume",))
+    v_fresh = fresh.validate(fresh.it)
+    print(f"scan {what}: validate after the dispatch {v_capt}; fresh "
+          f"engine from its checkpoint (step {fresh.start_step}) "
+          f"{v_fresh}", flush=True)
+    if fresh.start_step != capt.it or v_capt != v_fresh:
+        bad.append(f"scan {what}: validate after a captured dispatch "
+                   "differs from a reloaded engine's")
+    del fresh
+
+    # eager against captured in turns
+    def run_eager(k):
+        for _ in range(k):
+            eager.train_step(eager.make_draws(eager.it))
+
+    def run_capt(k):
+        runner.dispatch(k)
+
+    rates = []
+    for name, run in (("eager", run_eager), ("captured", run_capt),
+                      ("captured", run_capt), ("eager", run_eager)):
+        run(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(SCAN_TIMED)
+        torch.cuda.synchronize()
+        rates.append((name, SCAN_TIMED / (time.perf_counter() - t0)))
+    prof = {"eager": _profiled_steps(run_eager, SCAN_PROFILED,
+                                     prof_tool),
+            "captured": _profiled_steps(run_capt, SCAN_PROFILED,
+                                        prof_tool)}
+    if runner.captures != 1:
+        bad.append(f"scan {what}: the timed dispatches captured again")
+    e = float(np.mean([r for k, r in rates if k == "eager"]))
+    c = float(np.mean([r for k, r in rates if k == "captured"]))
+    print(f"scan {what}: warm steps/s in turns "
+          + ", ".join(f"{k} {r:.3f}" for k, r in rates)
+          + f" (eager {e:.3f}, captured {c:.3f}; {smi})", flush=True)
+    for k, p in prof.items():
+        print(f"scan {what}: {k} profiled {SCAN_PROFILED} steps: "
+              f"{p['wall_ms']:.3f} ms/step wall, device busy "
+              f"{p['busy_ms']:.3f} ms/step, idle {100 * p['idle']:.1f} %, "
+              f"{p['kernel_launches']:.0f} kernel + "
+              f"{p['graph_launches']:.0f} graph launches/step ({smi})",
+              flush=True)
+    return {"eager_steps_s": e, "captured_steps_s": c, "turns": rates,
+            "profile": prof, "one_step_rel": one, "eager_noise_rel": noise,
+            "trajectory_rel": traj, "bad": bad}
+
+
+def scan_phase(here, tmp, dev, smi):
+    """The captured training step (models/step_graph.py) on four routes at
+    full width: the GAN's two-kernel route, kernels.st_mega with the
+    hybrid backward, the default pretrain and the hierarchical pretrain
+    (``scan_route``), under cudnn's deterministic algorithms."""
+    import torch
+    prof_tool = load_probe(here, "profile_eval_torch")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    big = f"--max_iter={10 * SCAN_K * SCAN_DISPATCHES}"
+    out = {}
+    try:
+        gan, _ = train_argv(here, tmp, dev, 1, out="scan_gan",
+                            extra=(big,))
+        out["gan"] = scan_route("gan", gan, TEXTURE_KERNELS, smi, prof_tool)
+        mega, _ = train_argv(here, tmp, dev, 1, out="scan_mega",
+                             extra=(big, "--kernels.st_mega=true"))
+        out["st_mega"] = _with_env(
+            "TEXPOSE_MEGA_FULLBWD", "0", lambda: scan_route(
+                "st_mega (hybrid backward)", mega, HYBRID_KERNELS, smi,
+                prof_tool))
+        pre, _ = pretrain_argv(here, tmp, dev, 1, name="scan_pre",
+                               extra=(big,))
+        out["pretrain"] = scan_route("pretrain", pre, PRETRAIN_KERNELS, smi,
+                                     prof_tool)
+        hier, _ = pretrain_argv(here, tmp, dev, 1, name="scan_hier", extra=(
+            big, "--nerf.fine_sampling=true",
+            f"--nerf.sample_intvs_fine={N_FINE}",
+            "--loss_weight.render_fine=0"))
+        out["hierarchical"] = scan_route("hierarchical", hier, FIELD_KERNELS,
+                                         smi, prof_tool)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    print("scan: " + json.dumps({k: {kk: vv for kk, vv in v.items()
+                                     if kk not in ("turns", "bad")}
+                                 for k, v in out.items()}), flush=True)
+    bad = [b for v in out.values() for b in v["bad"]]
+    if bad:
+        fail("; ".join(bad))
+    return out
+
 
 # tools/tpu_quality_check.py's pretrain default (its PSNR gate needs the
 # steps); its GAN's 2000 cut to 1000, which keeps the whole command
@@ -4154,6 +4552,7 @@ def main():
         preprocess_video_phase(here, tmp, dev, smi)
         vis_phase(here, tmp, dev, smi)
         dp_phase(here, tmp, dev, smi)
+        scan_phase(here, tmp, dev, smi)
         quality_phase(here, tmp, dev, smi)
         envelope_phase(here, tmp, dev, smi)
     finally:
@@ -4172,6 +4571,18 @@ def main():
         measured[k]["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
         print(f"{k}: launches by path {measured[k]['launches_by_path']}",
               flush=True)
+    # the run each count comes from: eager launches (the wrappers' counts)
+    # and launches inside graph replays (the device trace) apart
+    path_of = dict({k: "train" for k in TEXTURE_KERNELS},
+                   **{k: "pretrain" for k in PRETRAIN_KERNELS},
+                   coarse_field_fwd="hierarchical",
+                   composite_coarse_fwd="two_kernel",
+                   **{k: "st_mega" for k in MEGA_KERNELS})
+    for k in measured:
+        split = LAUNCH_SPLIT[path_of[k]][k] if k in path_of else {
+            "eager": launches[k], "replayed": 0}
+        measured[k]["launches_eager"] = split["eager"]
+        measured[k]["launches_replayed"] = split["replayed"]
 
     src = {"st_field_fwd": ("texpose_tpu_torch/csrc/st_field.cu",
                             "texpose_tpu/kernels/fused_st_field.py:922"),

@@ -211,9 +211,8 @@ def test_rate_and_bias_correction_at_the_late_count(late):
     """Each side's optimizer applied to one gradient from the carried
     moments at count 15,000: JAX's ``opt_nerf.update`` / ``opt_disc.update``
     and the port's Adam / RMSprop stepping zeroed parameters (whose new
-    value is then the update itself) after ``set_lrs`` at it = 15,000."""
+    value is then the update itself) at the device count it = 15,000."""
     import jax
-    from texpose_tpu_torch.models.optim import set_lrs
     cfg, before, _, _, _, _, _, jeng = late
     state = flat_dict_to_tree(jeng.state, before)
     fresh = port_engine(cfg, jeng)
@@ -246,8 +245,7 @@ def test_rate_and_bias_correction_at_the_late_count(late):
             w.grad = torch.from_numpy(np.array(dg_flat[f"{grp}/{i}/w"]))
     assert fresh.it == COUNT
     for opt in (fresh.opt_nerf, fresh.opt_disc):
-        set_lrs(opt, fresh.it)
-        opt.step()
+        opt.step(fresh.it_dev)
     got = {path: p for named in fresh._adam_params().values()
            for path, p in named}
     got.update({f"{grp}/{i}/w": w for grp, i, w in fresh._disc_leaves()})

@@ -4,8 +4,8 @@ GAN config of tools/gan_ablate.py (64 views, 20k steps), its ``latlr``
 and the shipped configs/nerf_lm_adapt_gan.yaml, each engine is built from
 its own tool's config on the 64-view fixture, so each derives
 steps_per_epoch and max_iter itself.  At every step 0 … max_iter − 1 the
-rate the port's ``train_step`` sets for each parameter group
-(``set_lrs(opt, it)``) equals, to rtol 1e-6, the value of JAX's optax
+rate the port's ``train_step`` reads for each parameter group (its
+``lr_table`` entry at the device count ``it``) equals, to rtol 1e-6, the value of JAX's optax
 schedule (texpose_tpu/models/optim.py) at that optimizer's own count,
 the number of its updates so far (one a step).  After
 ``load_train_state_flat`` of a 10k-step snapshot (JAX's, and the port's
@@ -148,17 +148,13 @@ def _jax_schedules(jeng):
 
 
 def _port_rates(peng, its):
-    """{group: the rate train_step sets at each step in ``its``}."""
-    from texpose_tpu_torch.models.optim import set_lrs
-    groups = list(peng._adam_params())
-    out = {g: [] for g in groups + ["disc"]}
-    for it in its:
-        set_lrs(peng.opt_nerf, it)
-        set_lrs(peng.opt_disc, it)
-        for g, pg in zip(groups, peng.opt_nerf.param_groups):
-            out[g].append(pg["lr"])
-        out["disc"].append(peng.opt_disc.param_groups[0]["lr"])
-    return {g: np.asarray(v) for g, v in out.items()}
+    """{group: the rate train_step reads at each step in ``its``}."""
+    its = list(its)
+    out = {g: pg["lr_table"].numpy()[its].astype(np.float64)
+           for g, pg in zip(peng._adam_params(), peng.opt_nerf.param_groups)}
+    out["disc"] = peng.opt_disc.param_groups[0]["lr_table"].numpy()[
+        its].astype(np.float64)
+    return out
 
 
 CONFIGS = ("base", "latlr", "dlr", "shipped")

@@ -259,8 +259,7 @@ def test_generator_optimizer_matches_optax(opt):
     with the staircase (and the lr_latent group) vs the JAX package's
     optax construction, on the same gradients: 1e-6 absolute."""
     from texpose_tpu.models.optim import make_generator_optimizer as jmake
-    from texpose_tpu_torch.models.optim import (make_generator_optimizer,
-                                                set_lrs)
+    from texpose_tpu_torch.models.optim import make_generator_optimizer
     cfg = process_options(Config({"optim": opt, "optim_disc": {"lr": 1e-4}}))
     rng = np.random.default_rng(11)
     h0 = rng.normal(size=(4, 3)).astype(np.float32)
@@ -278,15 +277,14 @@ def test_generator_optimizer_matches_optax(opt):
                                state, params)
         params = optax.apply_updates(params, upd)
         th.grad, tl.grad = _t(gh), _t(gl)
-        set_lrs(to, it)
-        to.step()
+        to.step(torch.tensor(it))
         _close(th.detach(), params["heads"]["w"], rtol=0, atol=1e-6)
         _close(tl.detach(), params["latents"]["l"], rtol=0, atol=1e-6)
 
 
 def test_disc_optimizer_matches_optax():
     from texpose_tpu.models.optim import make_disc_optimizer as jmake
-    from texpose_tpu_torch.models.optim import make_disc_optimizer, set_lrs
+    from texpose_tpu_torch.models.optim import make_disc_optimizer
     cfg = process_options(Config({"optim": {"lr": 1e-3},
                                   "optim_disc": {"lr": 1e-4}}))
     rng = np.random.default_rng(12)
@@ -301,6 +299,5 @@ def test_disc_optimizer_matches_optax():
         upd, state = jo.update(g, state, p)
         p = optax.apply_updates(p, upd)
         tw.grad = _t(g)
-        set_lrs(to, it)
-        to.step()
+        to.step(torch.tensor(it))
         _close(tw.detach(), p, rtol=0, atol=1e-6)

@@ -28,7 +28,10 @@ def cam2img(X, intr):
 
 
 def img2cam(X, intr):
-    return X @ torch.linalg.inv(intr).transpose(-1, -2)
+    """Image → camera frame.  ``linalg.inv_ex`` (its result unchecked)
+    reads nothing back to the host, so a captured training step holds it;
+    ``linalg.inv`` checks its result there."""
+    return X @ torch.linalg.inv_ex(intr).inverse.transpose(-1, -2)
 
 
 def cam2world(X, pose):

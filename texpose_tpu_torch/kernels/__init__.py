@@ -2,7 +2,9 @@
 
 Every wrapper takes its plain twin for CPU tensors, and for CUDA tensors
 launches its kernel (built from ``csrc/`` at first use) or raises.  Each
-wrapper counts its kernel launches in a ``launches`` attribute.
+wrapper counts the launches it makes in a ``launches`` attribute
+(``launch_counters``); a captured training step's replays launch the
+kernels without their wrappers and add nothing there (models/step_graph.py).
 
   st_field.st_field_fwd           ← texpose_tpu/kernels/fused_st_field.py fwd
   st_field.st_field_bwd           ← texpose_tpu/kernels/fused_st_field.py bwd
@@ -33,3 +35,15 @@ lane).
 ``st_render.fused_st_render`` pair each forward with its backward in a
 ``torch.autograd.Function``.
 """
+
+
+def launch_counters():
+    """Every kernel wrapper that counts its launches (``.launches``)."""
+    from . import coarse_field, composite, dw_gemm, st_field, st_render, trunk
+    return (st_field.st_field_fwd, st_field.st_field_bwd,
+            composite.composite_st_fwd, composite.composite_st_bwd,
+            composite.composite_coarse_fwd, composite.composite_coarse_bwd,
+            coarse_field.coarse_render_fwd, coarse_field.coarse_field_fwd,
+            coarse_field.coarse_field_bwd, trunk.trunk_fwd,
+            st_render.st_render_fwd, st_render.st_render_bwd,
+            dw_gemm.dw_gemm, dw_gemm.dw_reduce)

@@ -20,6 +20,8 @@ from pathlib import Path
 
 import torch
 
+from ..ops.consts import device_const
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "texpose_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -88,8 +90,8 @@ def stream_ptr(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-@functools.lru_cache(maxsize=64)
 def device_ints(values, device):
-    """A tuple of ints as an int32 tensor on ``device``, copied once: the
-    host tables the kernels read on every step.  Read-only."""
-    return torch.tensor(values, dtype=torch.int32, device=device)
+    """A tuple of ints as an int32 tensor on ``device``, copied once
+    (ops/consts.py ``device_const``): the host tables the kernels read on
+    every step.  Read-only."""
+    return device_const(values, torch.int32, device)

@@ -102,7 +102,7 @@ def split_rows(M, tiles, sms):
     return per * STAGE_ROWS, -(-chunks // per)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _plan(segments, M, device):
     """(table, rows per split, splits, the table as an int32 tensor on
     ``device``) for a tuple of segments over M rows: made once per shape,

@@ -35,6 +35,7 @@ import math
 import torch
 
 from ..nn.mlp import relu, round_to
+from ..ops.consts import device_const
 from . import _build, field_fwd
 from .dw_gemm import NARROW, NARROW_COLS, WIDE, Segment, dw_grads
 from .field_fwd import (Tiles, blocks, build_tiles, make_walk,
@@ -51,8 +52,8 @@ def make_xext(pts, L, c2f_w):
     """[M, 3+6L] float32: pts then, per dim, L sin and L cos bands of
     2^k·π·x times the c2f window — posenc_with_identity's layout, with the
     angles formed element-wise in float32."""
-    freqs = torch.tensor([(2.0 ** k) * math.pi for k in range(int(L))],
-                         dtype=torch.float32, device=pts.device)
+    freqs = device_const(tuple((2.0 ** k) * math.pi for k in range(int(L))),
+                         torch.float32, pts.device)
     ang = pts.float()[:, :, None] * freqs                       # [M,3,L]
     w = torch.cat([c2f_w, c2f_w]).to(torch.float32)
     blk = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1) * w

@@ -6,10 +6,19 @@ State lives in torch objects on an explicit ``device``: the field as an
 JAX package's npz files in both directions (utils/checkpoint.py).
 
 Training: the whole train split is uploaded once (``train_batch``); each
-step's random draws come from one seeded device generator; the loop fires
-the freq.scalar / freq.vis / freq.val / freq.ckpt hooks at the
-iterations the JAX loop does (``scan_steps`` fuses steps there and is read and ignored here:
-one step per iteration).  Losses reach the host only at freq.scalar, where
+step's random draws come from one seeded device generator.  The step's
+state lives on the device: the step count (``it_dev``, mirrored on the
+host as ``it``), the c2f ``progress`` formed from it, the patch-scale
+anneal and each optimizer group's rate, read from a float32 table of the
+run's max_iter counts at that count, so nothing of a step reads the host.  ``train``
+runs K = ``scan_k()`` steps per dispatch (``scan_steps``, gcd-clamped so
+every freq.* hook and max_iter stay reachable, as the JAX loop's
+``finalize_step``) and fires the freq.scalar / freq.vis / freq.val /
+freq.ckpt hooks after each dispatch at ``done = it + K``, where the JAX
+loop fires them; a dispatch returns its last step's losses.  On a card
+each step after a few eager warm-up steps is one replay of a captured
+CUDA graph (models/step_graph.py); on the CPU and under data parallelism
+the steps run eagerly.  Losses reach the host only at freq.scalar, where
 a non-finite one stops the run.
 
 Data parallelism (``mesh``, a parallel.mesh.Mesh; the entry points build
@@ -21,6 +30,7 @@ the same renders and collectives and writes nothing.
 
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import time
@@ -149,6 +159,7 @@ class Engine:
 
     def _load_state(self, incoming):
         """Copy matching tensors in place → (n_loaded, skipped)."""
+        self.drop_step_graph()
         own = self.state_tensors()
         n, skipped = 0, []
         with torch.no_grad():
@@ -228,16 +239,84 @@ class Engine:
         log.info(f"saved checkpoint {fname} @ step {it}")
         return fname
 
+    # ------------------------------------------------------- step state
+
+    def init_step_state(self):
+        """The step count at 0, on the host (``it``) and on the device
+        (``it_dev``, the count the step reads), and no captured step."""
+        self.it = 0
+        self.it_dev = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._max_iter_dev = torch.tensor(float(self.max_iter()),
+                                          dtype=torch.float32,
+                                          device=self.device)
+        self.drop_step_graph()
+
+    def set_step(self, it):
+        """Set the step count (a restored train state): both copies, and
+        the captured step, if any, is dropped."""
+        self.it = int(it)
+        self.it_dev.fill_(self.it)
+        self.drop_step_graph()
+
+    def advance(self):
+        """The end of a step: the device count moves on inside the step,
+        its host mirror beside it."""
+        self.it_dev.add_(1)
+        self.it += 1
+
+    def progress(self):
+        """The c2f progress as the JAX step forms it, the count as float32
+        over max_iter, on the device."""
+        return self.it_dev.to(torch.float32) / self._max_iter_dev
+
+    def optimizers(self):
+        """The optimizers a training step updates."""
+        raise NotImplementedError
+
+    def step_params(self):
+        """Every tensor the optimizers update."""
+        return [p for opt in self.optimizers() for g in opt.param_groups
+                for p in g["params"]]
+
+    def step_runner(self):
+        """The runner of this engine's training steps
+        (models/step_graph.py)."""
+        if getattr(self, "_runner", None) is None:
+            from .step_graph import StepRunner
+            self._runner = StepRunner(self)
+        return self._runner
+
+    def drop_step_graph(self):
+        """Forget the captured step (the state it was captured over was
+        replaced); the next dispatch warms up and captures anew."""
+        if getattr(self, "_runner", None) is not None:
+            self._runner.drop()
+
     # ------------------------------------------------------------- training
 
+    def scan_k(self):
+        """Steps per dispatch: cfg.scan_steps clamped by gcd so every set
+        freq.* hook and max_iter stay reachable (the JAX engine's
+        ``scan_k``)."""
+        K = max(int(self.cfg.get("scan_steps") or 1), 1)
+        for f in ("scalar", "val", "ckpt", "vis"):
+            v = self.cfg.freq.get(f)
+            if v:
+                K = math.gcd(K, int(v))
+        return max(math.gcd(K, self.max_iter()), 1)
+
     def train(self):
-        """The JAX loop's schedule, one step per iteration: scalars at
-        done % freq.scalar (and the first step), panels at freq.vis, val at
-        freq.val, ckpt at freq.ckpt, and a final checkpoint."""
+        """The JAX loop's schedule, K = ``scan_k()`` steps per dispatch:
+        scalars at done % freq.scalar (and after the first dispatch),
+        panels at freq.vis, val at freq.val, ckpt at freq.ckpt, with done
+        = it + K, and a final checkpoint."""
         cfg = self.cfg
         max_iter = self.max_iter()
         log.title(f"TRAINING START ({type(self).__name__}, "
                   f"{max_iter} steps)")
+        K = self.scan_k()
+        runner = self.step_runner()
+        log.info(f"{K} steps per dispatch, {runner.route}")
         if self.mesh is not None:
             replicate(self.state_tensors(), self.mesh)
         if self.start_step == 0:
@@ -245,10 +324,10 @@ class Engine:
         prof = self._start_profiler() \
             if cfg.get("profile") and self.is_writer else None
         t_start = time.time()
-        for it in range(self.start_step, max_iter):
-            loss = self.train_step(self.make_draws(it))
+        for it in range(self.start_step, max_iter, K):
+            loss = runner.dispatch(K)
             self.timer.tick()
-            done = it + 1
+            done = it + K
             if done % cfg.freq.scalar == 0 or it == self.start_step:
                 self.log_scalars(done, loss)
             if cfg.freq.get("vis") and done % cfg.freq.vis == 0:
@@ -314,15 +393,19 @@ class Engine:
         return fname
 
     def log_scalars(self, it, loss, split="train"):
-        """Pull the step's losses to the host; a non-finite one raises."""
+        """Pull the step's losses to the host; a non-finite one raises.
+        The rates count the K steps of a dispatch (the timer ticks once a
+        dispatch)."""
         host = {k: float(v) for k, v in loss.items()}
         bad = [k for k, v in host.items() if not np.isfinite(v)]
         if bad:
             raise FloatingPointError(
                 f"non-finite loss at step {it}: {bad} ({host})")
-        host["it_per_sec"] = 1.0 / self.timer.it_time \
+        K = self.scan_k()
+        host["it_per_sec"] = K / self.timer.it_time \
             if self.timer.it_time else 0.0
-        host["rays_per_sec"] = self.timer.rays_per_sec(self.rays_per_step())
+        host["rays_per_sec"] = self.timer.rays_per_sec(
+            self.rays_per_step() * K)
         self.writer.scalars(it, host, split=split)
         log.info(f"[{split} {it}] " + " ".join(f"{k}={v:.4g}"
                                                 for k, v in host.items()))

@@ -63,7 +63,7 @@ from ..utils.pipeline import AsyncWriter
 from .base import Engine, compute_dtype
 from .losses import (masked_mse_loss, mse_loss, scale_invariant_depth_loss,
                      summarize_loss)
-from .optim import make_pretrain_optimizer, set_lrs
+from .optim import make_pretrain_optimizer
 from .render import (ray_batch_sample, render_full_nerf, render_rays_nerf,
                      render_rays_nerf_hierarchical)
 
@@ -121,9 +121,12 @@ class PretrainEngine(Engine):
         if self.mesh is not None and self.rays_per_image() % self.mesh.size:
             raise ValueError(f"rays-per-image {self.rays_per_image()} must "
                              f"divide the mesh ({self.mesh.size} ranks)")
-        self.it = 0
+        self.init_step_state()
         self.draw_gen = torch.Generator(self.device)
         self.draw_gen.manual_seed(int(cfg.get("seed", 0)))
+
+    def optimizers(self):
+        return [self.opt]
 
     # ------------------------------------------------------------ train step
 
@@ -200,13 +203,14 @@ class PretrainEngine(Engine):
         """One step on the whole train split → the step's losses (device
         scalars, with 'all').  Its stages are named profiler ranges
         (``step/...``).  Under data parallelism ``draws`` are the global
-        draws; this rank renders its slice of the ray axis."""
+        draws; this rank renders its slice of the ray axis.  It reads the
+        step count, its progress and the rate on the device and moves the
+        count on there (``it_dev``), so a CUDA graph of it replays
+        (models/step_graph.py)."""
         cfg = self.cfg
-        it = self.it
         draws = self.shard_draws(draws, {k: 1 for k in draws
                                          if k != "ray_idx"})
-        progress = it / self.max_iter() if cfg.get("c2f") is not None \
-            else None
+        progress = self.progress() if cfg.get("c2f") is not None else None
         batch = self.train_batch
         B = batch["image"].shape[0]
         with record_function("step/forward"):
@@ -231,9 +235,8 @@ class PretrainEngine(Engine):
             total.backward()
             self.reduce_grads(self.opt)
         with record_function("step/update"):
-            set_lrs(self.opt, it)
-            self.opt.step()
-        self.it = it + 1
+            self.opt.step(self.it_dev)
+        self.advance()
         return self.reduce_losses({k: v.detach() for k, v in loss.items()})
 
     # ------------------------------------------------- train-state bridge
@@ -290,7 +293,7 @@ class PretrainEngine(Engine):
                     "step": torch.tensor(float(count)),
                     "exp_avg": get(mu + path, p.shape),
                     "exp_avg_sq": get(nu + path, p.shape)}
-        self.it = int(get("it", ()).item())
+        self.set_step(int(get("it", ()).item()))
         self.draw_gen.manual_seed(int(self.cfg.get("seed", 0)) * 1000003
                                   + self.it)
         return int(get("step", ()).item())

@@ -69,7 +69,7 @@ from .base import Engine, compute_dtype
 from .losses import (gan_loss, lab_loss, mean_term, mse_loss, r1_penalty,
                      summarize_loss, uncertainty_reg_loss,
                      uncertainty_render_loss, wgan_gp_reg)
-from .optim import make_disc_optimizer, make_generator_optimizer, set_lrs
+from .optim import make_disc_optimizer, make_generator_optimizer
 from .render import (masked_ray_indices, render_full_nerf_st,
                      render_rays_masked_st_pre, render_st_core,
                      scatter_masked_st)
@@ -208,7 +208,7 @@ class TextureGANEngine(Engine):
             self.opt_disc = make_disc_optimizer(
                 cfg, [w for grp in ("main", "final")
                       for w in self.disc[grp]], max_iter, spe)
-        self.it = 0
+        self.init_step_state()
         self.draw_gen = torch.Generator(self.device)
         self.draw_gen.manual_seed(int(cfg.get("seed", 0)))
         self.nbr_table = None
@@ -216,6 +216,9 @@ class TextureGANEngine(Engine):
             self.nbr_table = torch.as_tensor(
                 self._pose_neighbor_table(int(cfg.render.N_candidate)),
                 dtype=torch.long, device=self.device)
+
+    def optimizers(self):
+        return [o for o in (self.opt_nerf, self.opt_disc) if o is not None]
 
     def _pose_neighbor_table(self, k):
         """[N, k]: each train image's k nearest train images by geodesic
@@ -349,8 +352,11 @@ class TextureGANEngine(Engine):
         total = (10.0 ** float(lw.gan_disc_real) * loss["gan_disc_real"]
                  + 10.0 ** float(lw.gan_disc_fake) * loss["gan_disc_fake"])
         if need_r or need_f:
-            sel = torch.cat([torch.full((B,), float(need_r)),
-                             torch.full((B,), float(need_f))]).to(d_both)
+            sel = torch.cat([
+                torch.full((B,), float(need_r), dtype=d_both.dtype,
+                           device=d_both.device),
+                torch.full((B,), float(need_f), dtype=d_both.dtype,
+                           device=d_both.device)])
             reg_r, reg_f = r1_penalty(d_both, both, sel, B, mesh)
             if need_r:
                 loss["gan_reg_real"] = reg_r
@@ -373,11 +379,15 @@ class TextureGANEngine(Engine):
         named profiler ranges (``step/...``), which cost nothing without a
         profiler and split a trace's host and device time by stage.  Under
         data parallelism ``draws`` are the global draws; this rank steps its
-        slice of the batch."""
+        slice of the batch.  It reads the step count, its progress, the
+        patch-scale anneal and the rates on the device and moves the count
+        on there (``it_dev``), so a CUDA graph of it replays
+        (models/step_graph.py); the spectral-norm state is updated in
+        place."""
         cfg = self.cfg
-        it = self.it
+        it = self.it_dev
         draws = self.shard_draws(draws, {"patch": 1})
-        progress = it / self.max_iter()
+        progress = self.progress()
         patch_cfg = cfg.get("patch") or {}
         with record_function("step/batch"):
             idx = draws["idx"]
@@ -397,8 +407,7 @@ class TextureGANEngine(Engine):
             total.backward()
             self.reduce_grads(self.opt_nerf)
         with record_function("step/gen_update"):
-            set_lrs(self.opt_nerf, it)
-            self.opt_nerf.step()
+            self.opt_nerf.step(it)
             ema_d = cfg.render.get("latent_ema")
             if ema_d:
                 with torch.no_grad():
@@ -417,11 +426,13 @@ class TextureGANEngine(Engine):
                 dtotal.backward()
                 self.reduce_grads(self.opt_disc)
             with record_function("step/disc_update"):
-                set_lrs(self.opt_disc, it)
-                self.opt_disc.step()
-            self.sn_state = sn2
+                self.opt_disc.step(it)
+                with torch.no_grad():
+                    for grp, vs in self.sn_state.items():
+                        for v, v2 in zip(vs, sn2[grp]):
+                            v.copy_(v2)
             loss.update({k: v.detach() for k, v in dloss.items()})
-        self.it = it + 1
+        self.advance()
         return self.reduce_losses(loss)
 
     def log_scalars(self, it, loss, split="train"):
@@ -523,13 +534,13 @@ class TextureGANEngine(Engine):
                     d_count = int(get("opt_disc/1/count", ()).item())
                 for grp, i, w in self._disc_leaves():
                     w.copy_(get(f"params/disc/{grp}/{i}/w", w.shape))
-                    self.sn_state[grp][i] = get(f"sn_state/{grp}/{i}",
-                                                self.sn_state[grp][i].shape)
+                    self.sn_state[grp][i].copy_(get(
+                        f"sn_state/{grp}/{i}", self.sn_state[grp][i].shape))
                     self.opt_disc.state[w] = {
                         "step": torch.tensor(float(d_count)),
                         "square_avg": get(f"opt_disc/0/nu/{grp}/{i}/w",
                                           w.shape)}
-        self.it = int(get("it", ()).item())
+        self.set_step(int(get("it", ()).item()))
         self.draw_gen.manual_seed(int(self.cfg.get("seed", 0)) * 1000003
                                   + self.it)
         return int(get("step", ()).item())

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.consts import device_const
+
 VGG19_CONVS = [(0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128),
                (10, 128, 256), (12, 256, 256), (14, 256, 256)]
 _POOL_AFTER = {1, 3}
@@ -61,8 +63,10 @@ def vgg_from_jax(params, device=None):
 
 def vgg19_features(params, x, dtype=None):
     """x [B,3,H,W] in [0,1] → conv3_3 features [B,256,H/4,W/4] f32."""
-    mean = torch.tensor(IMAGENET_MEAN, device=x.device)[None, :, None, None]
-    std = torch.tensor(IMAGENET_STD, device=x.device)[None, :, None, None]
+    mean = device_const(IMAGENET_MEAN, torch.float32,
+                        x.device)[None, :, None, None]
+    std = device_const(IMAGENET_STD, torch.float32,
+                       x.device)[None, :, None, None]
     x = (x - mean) / std
     if dtype is not None:
         x = x.to(dtype)

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from .consts import device_const
+
 _RGB2XYZ = ((0.412453, 0.357580, 0.180423),
             (0.212671, 0.715160, 0.072169),
             (0.019334, 0.119193, 0.950227))
@@ -29,8 +31,8 @@ def linear_to_srgb(lin):
 def rgb_to_lab(rgb):
     """rgb [B,3,H,W] in [0,1] → Lab [B,3,H,W], L∈[0,100], ab∈[−127,127]."""
     lin = srgb_to_linear(rgb)
-    m = torch.tensor(_RGB2XYZ, dtype=rgb.dtype, device=rgb.device)
-    white = torch.tensor(_WHITE, dtype=rgb.dtype, device=rgb.device)
+    m = device_const(_RGB2XYZ, rgb.dtype, rgb.device)
+    white = device_const(_WHITE, rgb.dtype, rgb.device)
     xyz = torch.einsum("ij,bjhw->bihw", m, lin) / white[None, :, None, None]
     eps = 0.008856
     kappa = 7.787
@@ -43,8 +45,8 @@ def rgb_to_lab(rgb):
 
 def normalize_lab(lab):
     """L [0,100] → [0,1]; ab [−127,127] → [0,1]."""
-    lo = torch.tensor([0.0, -127.0, -127.0], dtype=lab.dtype,
-                      device=lab.device)[None, :, None, None]
-    hi = torch.tensor([100.0, 127.0, 127.0], dtype=lab.dtype,
-                      device=lab.device)[None, :, None, None]
+    lo = device_const((0.0, -127.0, -127.0), lab.dtype,
+                      lab.device)[None, :, None, None]
+    hi = device_const((100.0, 127.0, 127.0), lab.dtype,
+                      lab.device)[None, :, None, None]
     return (lab - lo) / (hi - lo)

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..ops.consts import device_const
+
 
 def base_grid(patch_size, device=None):
     """[p,p,2] grid, coords[i,j] = (lin[j], lin[i])."""
@@ -33,16 +35,21 @@ def scale_bounds(iteration, min_scale=0.25, max_scale=1.0,
                  scale_anneal=0.0002, device=None):
     """The annealed (lo, hi) scale range as float32 tensors, as the JAX
     sampler computes it (min scale decays as max·exp(−it·anneal), floored
-    at min_scale and capped at 0.8)."""
-    it = torch.as_tensor(float(iteration), dtype=torch.float32, device=device)
-    hi = torch.as_tensor(max_scale, dtype=torch.float32, device=device)
-    if scale_anneal > 0:
-        lo = torch.clamp(max_scale * torch.exp(-it * scale_anneal),
-                         min=min_scale)
-        lo = torch.clamp(lo, max=0.8)
+    at min_scale and capped at 0.8).  ``iteration``: a host number or the
+    engine's device count (read on the device, with no host→device copy:
+    the bounds are cached constants)."""
+    device = torch.device(device or "cpu")
+    hi = device_const(float(max_scale), torch.float32, device)
+    if not scale_anneal > 0:
+        return device_const(float(min_scale), torch.float32, device), hi
+    if isinstance(iteration, torch.Tensor):
+        it = iteration.to(device, torch.float32)
     else:
-        lo = torch.as_tensor(min_scale, dtype=torch.float32, device=device)
-    return lo, hi
+        it = torch.as_tensor(float(iteration), dtype=torch.float32,
+                             device=device)
+    lo = torch.clamp(max_scale * torch.exp(-it * scale_anneal),
+                     min=min_scale)
+    return torch.clamp(lo, max=0.8), hi
 
 
 def flex_patch_coords(uniforms, patch_size, iteration=0, min_scale=0.25,

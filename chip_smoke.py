@@ -220,9 +220,12 @@ Phases; any failure exits non-zero and no result line is printed:
      (QUAL_GAN_STEPS steps, configs/nerf_lm_adapt_gan.yaml, the trunk
      handed over through pretrain_model.ckpt) on its 16-view 128x128
      scene_qual fixture, through the module's entry with the JAX tool's
-     defaults but half its GAN steps: its gates hold (the pretrain's last
-     loss below 0.9x the first and validation PSNR above 14, every GAN
-     loss finite) and its validation and evaluate_full run; (b) from each stage's end state and
+     defaults but half its GAN steps, K = ``scan_k()`` steps a dispatch
+     through the captured step as the JAX tool dispatches ``step_fn``
+     (its route printed; one capture a stage): its gates hold (the
+     pretrain's last loss below 0.9x the first and validation PSNR above
+     14, every GAN loss finite) and its validation and evaluate_full run;
+     (b) from each stage's end state and
      one set of draws per step, TRAJ_PRETRAIN_STEPS pretrain and
      TRAJ_GAN_STEPS GAN steps through the kernels and through the plain
      route (route_check's switch): the per-step relative loss differences
@@ -231,8 +234,11 @@ Phases; any failure exits non-zero and no result line is printed:
      end states' evaluate_full PSNR (both through the kernels) within the
      TRAJ_* bounds; (c) each stage's launches of rows 8, 9b, 7b and the dW
      GEMM and its reduction (pretrain) and rows 1, 3, 4 and 2 with them
-     (GAN): the backwards exactly once a step, the forwards once a step
-     plus the stage's validation and evaluation (counted again alone);
+     (GAN), once a step: the wrappers' counts hold the eager warm-up
+     steps plus the stage's validation and evaluation (counted again
+     alone), a device trace from the stage's last dispatch to its end
+     (``traced_last_dispatch``) that dispatch's K replayed steps, and the
+     stage ran steps / K dispatches over one capture;
      (d) at each stage's end state, on the next step's own batch and
      draws, every kernel of the step as the step calls it against its
      plain twin on the same inputs (``twin_checks``): rows 8, 9b and 7b
@@ -251,6 +257,15 @@ Phases; any failure exits non-zero and no result line is printed:
      distance from the twin with f64 sums, ``f64_sums``), since at
      trained magnitudes (raw outputs ~10^2-10^3) no bound set at the
      init's magnitudes holds between any two bf16 implementations.
+     (e) tools/probe_f7.py through its entry, short (``f7_phase``):
+     F7_SEEDS seeds on its 64-view fixture, each to F7_SPLIT_STEPS
+     through the captured step, then its four branches from that state to
+     F7_END_STEPS — as is, as is again, the TPU's default precision
+     emulated (tools/tpu_precision.py) and cuDNN's deterministic
+     algorithms, each captured anew: every branch finishes with the same
+     draw generator state, b's emulated sites ran, c ran with
+     ``cudnn.deterministic`` set and the others without, and both settings
+     are restored after.
   14. the evaluation envelope (texpose_tpu_torch/tools/eval_envelope.py):
      the tool's sweep of ENVELOPE_N frames of the cycled 1869-frame split
      at 480x640 on its 16/1-view fixture (disk → card → masked render →
@@ -1839,6 +1854,41 @@ def replay_trace(names):
                           else str(s and s[0]): n for s, n in symbols.items()}
 
 
+@contextlib.contextmanager
+def traced_last_dispatch(names):
+    """The block with one ``replay_trace(names)`` window from the
+    ``StepRunner.dispatch`` that ends a run (the engine's count reaching
+    its max_iter) to the block's end, the run's evaluations after it
+    included: the dict it yields holds, after the block, that window's
+    counts by wrapper (only kernels inside graph replays count: the
+    last dispatch's) and ``["_symbols"]``, ``["_last_k"]`` the last
+    dispatch's steps, and ``["_dispatches"]`` the number of dispatches
+    the block ran.  Not every dispatch: a whole 4000-step stage holds ~10^6
+    kernel records, a window a dispatch spends seconds parsing each
+    window's events inside the run, and back-to-back windows lost records
+    (about one step's a window); a window that ends right after the last
+    replay lost that replay's last kernels once (H100, PR 19)."""
+    from texpose_tpu_torch.models.step_graph import StepRunner
+    plain = StepRunner.dispatch
+    seen = {"_dispatches": 0}
+    window = {}
+    with contextlib.ExitStack() as stack:
+        def dispatch(self, k, make_draws=None):
+            seen["_dispatches"] += 1
+            if not window and self.engine.it + k >= self.engine.max_iter():
+                window.update(counts=stack.enter_context(replay_trace(names)),
+                              k=k)
+            return plain(self, k, make_draws)
+
+        StepRunner.dispatch = dispatch
+        try:
+            yield seen
+        finally:
+            StepRunner.dispatch = plain
+    if window:
+        seen.update(window["counts"], _last_k=window["k"])
+
+
 LAUNCH_SPLIT = {}    # the main paths' launches: eager and replayed apart
 
 
@@ -2387,6 +2437,14 @@ def _with_env(name, value, fn):
             del os.environ[name]
         else:
             os.environ[name] = was
+
+
+def _with_envs(env, fn):
+    """fn() with each environment variable of ``env`` set to its value."""
+    if not env:
+        return fn()
+    (name, value), *rest = env.items()
+    return _with_env(name, str(value), lambda: _with_envs(dict(rest), fn))
 
 
 def st_mega_phase(here, tmp, dev):
@@ -4310,7 +4368,8 @@ def quality_phase(here, tmp, dev, smi):
     """Phase 13, the training-quality gate: (a) quality_check's two stages
     with the JAX tool's defaults, its gates asserted; (b) kernel vs plain
     trajectories; (c) the stages' launch counts against steps × the
-    per-step counts."""
+    per-step counts, eager and inside replays apart; (d) the kernels
+    against their twins at the end states."""
     import tempfile as tf
     from texpose_tpu_torch.tools import quality_check as qc
 
@@ -4319,52 +4378,74 @@ def quality_phase(here, tmp, dev, smi):
     try:
         argv = [f"--device={dev}"]
         t0 = time.perf_counter()
-        pre, la_pre = _launches_of(lambda: _with_env(
-            "QUAL_PRETRAIN_ITERS", str(QUAL_PRETRAIN_STEPS),
-            lambda: _with_env("QUAL_SKIP_GAN", "1",
-                              lambda: qc.main(argv)))["pretrain"])
+        with traced_last_dispatch(PRETRAIN_KERNELS) as rep_pre:
+            pre, la_pre = _launches_of(lambda: _with_envs(
+                {"QUAL_PRETRAIN_ITERS": QUAL_PRETRAIN_STEPS,
+                 "QUAL_SKIP_GAN": 1}, lambda: qc.main(argv))["pretrain"])
         t_pre = time.perf_counter() - t0
         t0 = time.perf_counter()
-        gan, la_gan = _launches_of(lambda: _with_env(
-            "QUAL_GAN_ITERS", str(QUAL_GAN_STEPS),
-            lambda: _with_env("QUAL_SKIP_PRETRAIN", "1",
-                              lambda: qc.main(argv)))["gan"])
+        with traced_last_dispatch(TEXTURE_KERNELS) as rep_gan:
+            gan, la_gan = _launches_of(lambda: _with_envs(
+                {"QUAL_GAN_ITERS": QUAL_GAN_STEPS, "QUAL_SKIP_PRETRAIN": 1},
+                lambda: qc.main(argv))["gan"])
         t_gan = time.perf_counter() - t0
         print(f"quality (a) pretrain: {QUAL_PRETRAIN_STEPS} steps, loss "
               f"{pre['first']:.4f} -> {pre['last']:.4f} (gate < "
               f"{qc.PRETRAIN_LOSS_DROP} x), val PSNR {pre['val']['PSNR']:.3f}"
               f" (gate > {qc.PRETRAIN_MIN_PSNR}); {pre['it_per_s']:.1f} "
-              f"steps/s, stage {t_pre:.1f} s with the fixture [{smi}]",
-              flush=True)
+              f"steps/s with the last dispatch traced, stage {t_pre:.1f} s "
+              f"with the fixture; scan {pre['scan_k']}, route: "
+              f"{pre['route']} [{smi}]", flush=True)
         print(f"quality (a) gan: {QUAL_GAN_STEPS} steps, render "
               f"{gan['first']:.4f} -> {gan['last']['render']:.4f}, every "
               f"loss finite; val {gan['val']}; evaluate_full "
-              f"{gan['eval']}; {gan['it_per_s']:.1f} steps/s, stage "
-              f"{t_gan:.1f} s [{smi}]", flush=True)
-
-        # (c) launches: the backward rows once a step, the forward rows
-        # once a step plus what the stage's validation and evaluation
-        # launch (measured again alone on the end state)
+              f"{gan['eval']}; {gan['it_per_s']:.1f} steps/s with the last "
+              f"dispatch traced, stage {t_gan:.1f} s; scan {gan['scan_k']}, "
+              f"route: {gan['route']} [{smi}]", flush=True)
         peng, geng = pre["engine"], gan["engine"]
+        for what, eng in (("pretrain", peng), ("gan", geng)):
+            runner = eng.step_runner()
+            if runner.graph is None or runner.captures != 1:
+                fail(f"quality (a) {what}: the stage's steps did not run "
+                     f"as one captured graph ({runner.captures} captures; "
+                     f"{runner.route})")
+
+        # (c) launches: each kernel of the step once a step, the eager
+        # warm-up steps and the stage's validation and evaluation counted
+        # by the wrappers, the stage's last dispatch (all replays of the
+        # one captured step) by its device trace
         _, la_pval = _launches_of(lambda: peng.validate(0))
         _, la_gval = _launches_of(lambda: geng.validate(0))
         _, la_gev = _launches_of(geng.evaluate_full)
+        from texpose_tpu_torch.models.step_graph import WARMUP_STEPS as W
         P, G = QUAL_PRETRAIN_STEPS, QUAL_GAN_STEPS
-        want_pre = {"coarse_render_fwd": P + la_pval["coarse_render_fwd"],
-                    "composite_coarse_bwd": P, "coarse_field_bwd": P,
-                    "dw_gemm": P, "dw_reduce": P}
+        want_pre = {k: W for k in PRETRAIN_KERNELS}
+        want_pre["coarse_render_fwd"] += la_pval["coarse_render_fwd"]
         fwd_gan = la_gval["st_field_fwd"] + la_gev["st_field_fwd"]
-        want_gan = {"st_field_fwd": G + fwd_gan,
-                    "composite_st_fwd": G + fwd_gan, "st_field_bwd": G,
-                    "composite_st_bwd": G, "dw_gemm": G, "dw_reduce": G}
-        for what, got, want in (("pretrain", la_pre, want_pre),
-                                ("gan", la_gan, want_gan)):
+        want_gan = {k: W for k in TEXTURE_KERNELS}
+        want_gan["st_field_fwd"] += fwd_gan
+        want_gan["composite_st_fwd"] += fwd_gan
+        for what, got, want, rep, eng, steps in (
+                ("pretrain", la_pre, want_pre, rep_pre, peng, P),
+                ("gan", la_gan, want_gan, rep_gan, geng, G)):
             seen = {k: got[k] for k in want}
-            print(f"quality (c) {what}: launches {seen}, expected {want} "
-                  f"(1 a step; forwards + validation/evaluation)",
-                  flush=True)
-            if seen != want:
-                fail(f"quality (c) {what}: launches {seen} != {want}")
+            K = eng.scan_k()
+            seen_rep = {k: rep.get(k) for k in want}
+            want_rep = {k: K for k in want}
+            print(f"quality (c) {what}: launches eager (wrapper counts) "
+                  f"{seen}, expected {want} ({W} warm-up steps + "
+                  f"validation/evaluation); inside the graph replays of "
+                  f"the last of {rep['_dispatches']} dispatches (device "
+                  f"trace) {seen_rep}, expected {want_rep} (1 a replayed "
+                  f"step); {eng.it} steps, "
+                  f"{eng.step_runner().captures} capture", flush=True)
+            if seen != want or seen_rep != want_rep or eng.it != steps \
+                    or rep["_dispatches"] != steps // K \
+                    or rep.get("_last_k") != K:
+                fail(f"quality (c) {what}: launches eager {seen} != {want} "
+                     f"or replayed {seen_rep} != {want_rep}, or {eng.it} "
+                     f"steps in {rep['_dispatches']} dispatches; the "
+                     f"replays ran {rep.get('_symbols')}")
         if min(la_pval["coarse_render_fwd"], la_gev["st_field_fwd"],
                la_gev["composite_st_fwd"]) <= 0:
             fail("quality (c): validation / evaluation launched no kernel")
@@ -4392,6 +4473,79 @@ def quality_phase(here, tmp, dev, smi):
     finally:
         tf.tempdir = was_tmp
 
+
+
+# Phase 13 (e): tools/probe_f7.py's four branches, short: F7_SEEDS seeds,
+# F7_SPLIT_STEPS GAN steps to the branch point, then each branch to
+# F7_END_STEPS (a pretrain of F7_PRETRAIN_STEPS on the probe's 64-view
+# fixture)
+F7_SEEDS = (0, 1)
+F7_PRETRAIN_STEPS = 300
+F7_SPLIT_STEPS = 300
+F7_END_STEPS = 600
+F7_MARKS = (400, 600)
+
+
+def f7_phase(here, tmp, dev, smi):
+    """Phase 13 (e), tools/probe_f7.py through its entry: every seed's
+    four branches reach F7_END_STEPS from one state with one draw
+    generator state, each captured anew; branch b ran the emulated call
+    sites (convolutions and spectral-norm matvecs counted > 0) and c under
+    ``cudnn.deterministic``; a, a2 and b without it; the sites and the
+    flag restored after every branch and after the phase."""
+    import tempfile as tf
+    import torch
+    from texpose_tpu_torch.models import losses
+    from texpose_tpu_torch.nn import discriminator as disc
+    f7 = load_probe(here, "probe_f7")
+    sites = (disc._conv, disc.sn_apply, losses.rgb_to_lab)
+    was = torch.backends.cudnn.deterministic
+    env = {"F7_PRETRAIN_ITERS": F7_PRETRAIN_STEPS,
+           "F7_SPLIT": F7_SPLIT_STEPS, "F7_END": F7_END_STEPS,
+           "F7_BRANCH_MARKS": ",".join(map(str, F7_MARKS))}
+    was_tmp = tf.tempdir
+    tf.tempdir = tmp
+    t0 = time.perf_counter()
+    try:
+        out = _with_envs(env, lambda: f7.main([
+            f"--device={dev}", "--seeds=" + ",".join(map(str, F7_SEEDS)),
+            "--out=" + os.path.join(tmp, "f7")]))
+    finally:
+        tf.tempdir = was_tmp
+    wall = time.perf_counter() - t0
+    bad = []
+    for seed, rec in out["seeds"].items():
+        st = rec["settings"]
+        print(f"f7 seed {seed}: steps/s by branch {rec['steps_per_s']}; "
+              f"settings {st}; route: {rec['route']} [{smi}]", flush=True)
+        if set(out["delta"][seed]) != set(f7.BRANCHES):
+            bad.append(f"seed {seed}: branches that did not finish: "
+                       f"{set(f7.BRANCHES) - set(out['delta'][seed])}")
+        if len(set(rec["gen_digest"].values())) != 1:
+            bad.append(f"seed {seed}: the branches' draw generators differ")
+        calls = st["b"].get("site_calls", {})
+        if min(calls.get("conv", 0), calls.get("sn_matvec", 0)) <= 0:
+            bad.append(f"seed {seed}: branch b ran no emulated site "
+                       f"({calls})")
+        flags = {br: st[br]["cudnn_deterministic"] for br in f7.BRANCHES}
+        if flags != {"a": False, "a2": False, "b": False, "c": True}:
+            bad.append(f"seed {seed}: cudnn.deterministic by branch {flags}")
+        if not all(st[br]["restored"] and st[br]["captures"] >= 1
+                   for br in f7.BRANCHES):
+            bad.append(f"seed {seed}: a branch left its setting behind or "
+                       "captured no step")
+    if (disc._conv, disc.sn_apply, losses.rgb_to_lab) != sites \
+            or torch.backends.cudnn.deterministic != was:
+        bad.append("the sites or cudnn.deterministic not restored")
+    print(f"f7: {len(F7_SEEDS)} seeds x {len(f7.BRANCHES)} branches, "
+          f"{F7_SPLIT_STEPS} + {len(f7.BRANCHES)} x "
+          f"{F7_END_STEPS - F7_SPLIT_STEPS} GAN steps a seed, phase "
+          f"{wall:.1f} s with the fixture and the pretrain; outcome "
+          f"{out['outcome']} (no reading at this length) [{smi}]",
+          flush=True)
+    if bad:
+        fail("f7: " + "; ".join(bad))
+    return out
 
 
 # Phase 14's cut of the 1869-frame split: over ENVELOPE_N frames a leak of
@@ -4554,6 +4708,7 @@ def main():
         dp_phase(here, tmp, dev, smi)
         scan_phase(here, tmp, dev, smi)
         quality_phase(here, tmp, dev, smi)
+        f7_phase(here, tmp, dev, smi)
         envelope_phase(here, tmp, dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -375,7 +375,10 @@ def test_gan_ablate_writes_the_qual_schema(tiny_fixture, monkeypatch,
     monkeypatch.setenv("ABL_VARIANTS", "base")
     monkeypatch.setenv("ABL_SEEDS", "0,1")
     monkeypatch.setenv("ABL_JSON", str(tiny_fixture / "q.json"))
-    out = ga.main(["--device=cpu", *TINY])
+    # two steps a dispatch, so each mark is a dispatch boundary (the
+    # default K, gcd(100, 4) = 4, fires the mark at 2 at step 4)
+    scan = "--scan_steps=2"
+    out = ga.main(["--device=cpu", *TINY, scan])
     doc = json.load(open(tiny_fixture / "q.json"))
     assert doc == json.loads(json.dumps(out))
     r5 = json.load(open(os.path.join(REPO, "QUAL_r5.json")))
@@ -400,7 +403,7 @@ def test_gan_ablate_writes_the_qual_schema(tiny_fixture, monkeypatch,
     monkeypatch.setenv("ABL_SEEDS", "1")
     monkeypatch.setenv("ABL_EVAL_AT", "2")
     monkeypatch.setenv("ABL_JSON", str(tiny_fixture / "q1.json"))
-    again = ga.main(["--device=cpu", *TINY])
+    again = ga.main(["--device=cpu", *TINY, scan])
     assert "PRETRAIN: reusing" in capsys.readouterr().out
     assert again["variants"]["base"]["1"][0] == rows["1"][0]
     if not torch.cuda.is_available():

@@ -101,12 +101,15 @@ def pretrain(cache, iters, device, root, overrides=()):
         print(f"PRETRAIN: reusing {ck}", flush=True)
         return ck
     eng = qc.start(PretrainEngine, cfg, device)
+    qc.sync(eng.device)
     t0 = time.time()
-    for it in range(iters):
-        loss = eng.train_step(eng.make_draws(it))
+    for _, K, loss in qc.dispatches(eng, iters):
+        pass
     last = float(loss["all"])
-    print(f"PRETRAIN: {iters} steps in {time.time() - t0:.1f} s, "
-          f"loss={last:.4f} val={eng.validate(iters)}", flush=True)
+    qc.sync(eng.device)
+    print(f"PRETRAIN: {iters} steps in {time.time() - t0:.1f} s (scan {K}; "
+          f"{eng.step_runner().route}), loss={last:.4f} "
+          f"val={eng.validate(iters)}", flush=True)
     qc.save_pretrain(eng, iters, ck)
     open(stamp, "w").close()
     return ck
@@ -159,14 +162,16 @@ def run_variant(cache, name, overrides, iters, eval_at, device, root,
     eng.restore_pretrained_checkpoint()
     marks = sorted(m for m in eval_at if m <= iters)
     results = []
+    qc.sync(eng.device)
     t0 = time.time()
     t_eval = 0.0
     mi = 0
-    for it in range(iters):
-        loss = eng.train_step(eng.make_draws(it))
-        done = it + 1
+    for it, K, loss in qc.dispatches(eng, iters):
+        done = it + K
+        # a mark fires at the first dispatch boundary at or past it, and
+        # records the real step count
         if mi < len(marks) and done >= marks[mi]:
-            # the losses' host copy waits for the step's kernels
+            # the losses' host copy waits for the dispatch's kernels
             cur = {k: round(float(v), 4) for k, v in sorted(loss.items())}
             t1 = time.time()
             ev = mark_eval(eng)
@@ -180,10 +185,12 @@ def run_variant(cache, name, overrides, iters, eval_at, device, root,
                   f"training) loss={cur}", flush=True)
             mi += 1
     host = {k: float(v) for k, v in loss.items()}
+    qc.sync(eng.device)
     wall = time.time() - t0
     print(f"  [{name}] seed {seed}: {iters} steps in {wall:.1f} s "
           f"({wall - t_eval:.1f} s training, {t_eval:.1f} s at the "
-          f"{len(marks)} marks)", flush=True)
+          f"{len(marks)} marks; scan {K}, {eng.step_runner().route})",
+          flush=True)
     qc.check(all(np.isfinite(v) for v in host.values()),
              f"non-finite loss in variant {name}: {host}")
     return results

@@ -13,9 +13,10 @@ lengths (4000 / 2000 steps); QUAL_SKIP_PRETRAIN=1 reuses an existing trunk
 checkpoint; QUAL_SKIP_GAN=1 stops after the pretrain.  The fixture and the
 runs live under ``tempfile.gettempdir()`` (``texpose_qual_torch*``).
 
-The loop runs one ``train_step(make_draws(it))`` a step, so the "first"
-loss is the one of step 0 (pretrain) and of step 20 (GAN), where the JAX
-tool reads them with one step a dispatch.
+Both stages train as the JAX tool does: K = ``scan_k()`` steps a dispatch
+through the engine's ``StepRunner`` (one captured CUDA graph a step on a
+card, eager steps on the CPU); the "first" loss is read after the first
+dispatch (pretrain) and at the first dispatch past step 20 (GAN).
 """
 
 from __future__ import annotations
@@ -110,6 +111,23 @@ def gan_cfg(cache, iters, overrides=()):
     return finish(cfg, overrides)
 
 
+def sync(device):
+    """Wait for the card's queued work (before a clock read)."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dispatches(eng, iters):
+    """The JAX tools' training loop: K = ``scan_k()`` steps a dispatch
+    through the engine's ``StepRunner`` → yields (it, K, the dispatch's
+    last losses) after each dispatch, ``it`` the count before it."""
+    K = eng.scan_k()
+    runner = eng.step_runner()
+    for it in range(0, iters, K):
+        yield it, K, runner.dispatch(K)
+
+
 def start(engine_cls, cfg, device):
     """The train CLI's bootstrap for a fresh run."""
     eng = engine_cls(cfg, device)
@@ -135,19 +153,22 @@ def pretrain_stage(cache, device, overrides=()):
                                                  "4000")), overrides)
     eng = start(PretrainEngine, cfg, device)
     first = None
+    sync(eng.device)
     t0 = time.time()
-    for it in range(cfg.max_iter):
-        loss = eng.train_step(eng.make_draws(it))
+    for it, K, loss in dispatches(eng, cfg.max_iter):
         if it == 0:
-            # the background mask loss is inert by construction (the 1e10
-            # last quadrature interval pins background opacity at 1 with
-            # zero gradient), so the descent is the masked render/depth
-            # terms'
+            # after ONE dispatch (K steps).  The background mask loss is
+            # inert by construction (the 1e10 last quadrature interval
+            # pins background opacity at 1 with zero gradient), so the
+            # descent is the masked render/depth terms'
             first = float(loss["all"])
     last = float(loss["all"])
+    sync(eng.device)
     dt = time.time() - t0
+    route = eng.step_runner().route
     print(f"PRETRAIN: loss {first:.4f} -> {last:.4f} "
-          f"({cfg.max_iter / dt:.1f} it/s, {dt:.1f} s)", flush=True)
+          f"({cfg.max_iter / dt:.1f} it/s, {dt:.1f} s, scan {K}; {route})",
+          flush=True)
     val = eng.validate(cfg.max_iter)
     print(f"PRETRAIN val: {val}", flush=True)
     check(np.isfinite(last) and last < first * PRETRAIN_LOSS_DROP,
@@ -158,8 +179,8 @@ def pretrain_stage(cache, device, overrides=()):
     ck = os.path.join(cfg.output_path, "..", "pretrain_model.ckpt")
     save_pretrain(eng, cfg.max_iter, ck)
     return {"first": first, "last": last, "it_per_s": cfg.max_iter / dt,
-            "wall_s": dt, "val": val, "ckpt": os.path.normpath(ck),
-            "engine": eng}
+            "wall_s": dt, "scan_k": K, "route": route, "val": val,
+            "ckpt": os.path.normpath(ck), "engine": eng}
 
 
 def gan_stage(cache, device, overrides=()):
@@ -172,17 +193,19 @@ def gan_stage(cache, device, overrides=()):
     eng = start(TextureGANEngine, cfg, device)
     eng.restore_pretrained_checkpoint()
     first = None
+    sync(eng.device)
     t0 = time.time()
-    for it in range(cfg.max_iter):
-        loss = eng.train_step(eng.make_draws(it))
-        if first is None and it + 1 > 20:
+    for it, K, loss in dispatches(eng, cfg.max_iter):
+        if first is None and it + K > 20:
             first = float(loss["render"])
     host = {k: float(v) for k, v in loss.items()}
+    sync(eng.device)
     dt = time.time() - t0
+    route = eng.step_runner().route
     shown = "n/a" if first is None else f"{first:.4f}"
     print(f"GAN: render {shown} -> {host['render']:.4f} "
-          f"({cfg.max_iter / dt:.1f} it/s, {dt:.1f} s); last={host}",
-          flush=True)
+          f"({cfg.max_iter / dt:.1f} it/s, {dt:.1f} s, scan {K}; {route}); "
+          f"last={host}", flush=True)
     check(all(np.isfinite(v) for v in host.values()),
           f"non-finite GAN loss: {host}")
     val = eng.validate(cfg.max_iter)
@@ -190,7 +213,8 @@ def gan_stage(cache, device, overrides=()):
     ev = eng.evaluate_full()
     print(f"GAN eval_full: {ev}", flush=True)
     return {"first": first, "last": host, "it_per_s": cfg.max_iter / dt,
-            "wall_s": dt, "val": val, "eval": ev, "engine": eng}
+            "wall_s": dt, "scan_k": K, "route": route, "val": val,
+            "eval": ev, "engine": eng}
 
 
 def parse_argv(argv):

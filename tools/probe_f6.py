@@ -30,6 +30,11 @@ Run from the root of a checkout:
                               [--out=DIR] [--device=cpu] [--key=value ...]
     python3 tools/probe_f6.py --report DIR [DIR ...]
 
+Every stretch of training dispatches K = ``scan_k()`` steps at a time
+through the engine's ``StepRunner`` (``_steps``; the captured step on a
+card), as the JAX tools dispatch ``step_fn``; a mark fires at the first
+dispatch boundary at or past it.  A route swap drops the captured step.
+
 The pretrain runs first (``gan_ablate.pretrain``, reused by its stamp);
 with --procs > 1 each seed then runs in its own process on the same card.
 Each seed writes DIR/f6_s<seed>.json (rewritten after every phase), then
@@ -111,18 +116,27 @@ def _parity(eng, rec, step, seed, smi):
 
 
 def _steps(eng, end, marks, rec, tag, seed, parity, smi, save):
-    """Steps to ``end``; at each mark its evaluation, then (with
-    ``parity``) the parity checks; ``save()`` after each mark."""
+    """Dispatches of K = ``scan_k()`` steps to ``end`` through the
+    engine's ``StepRunner``, as the JAX tools dispatch ``step_fn``; a mark
+    fires at the first dispatch boundary at or past it (one a dispatch):
+    its evaluation, then (with ``parity``) the parity checks; ``save()``
+    after each mark."""
+    K = eng.scan_k()
+    runner = eng.step_runner()
+    pending = sorted(m for m in marks if m > eng.it)
+    qc.sync(eng.device)
     t0, done0 = time.time(), eng.it
     while eng.it < end:
-        eng.train_step(eng.make_draws(eng.it))
-        if eng.it in marks:
+        runner.dispatch(min(K, end - eng.it))
+        if pending and eng.it >= pending[0]:
+            step = pending.pop(0)
+            qc.sync(eng.device)
             rate = (eng.it - done0) / (time.time() - t0)
-            print(f"  [s{seed} {tag}] step {eng.it}: {rate:.2f} steps/s",
-                  flush=True)
-            _mark(eng, rec, tag, eng.it, seed)
+            print(f"  [s{seed} {tag}] step {eng.it}: {rate:.2f} steps/s "
+                  f"(scan {K}; {runner.route})", flush=True)
+            _mark(eng, rec, tag, step, seed)
             if parity:
-                _parity(eng, rec, eng.it, seed, smi)
+                _parity(eng, rec, step, seed, smi)
             save()
             t0, done0 = time.time(), eng.it
 
@@ -154,11 +168,13 @@ def run_seed(cache, seed, device, root, extra, parity, out_dir, smi=""):
         eng.load_train_state_flat(snap)
         rec["gen_digest"][route] = gen_digest(eng)
         eng.cfg.kernels.fused_st = route == "kernels"
+        eng.drop_step_graph()               # capture the branch's route
         _steps(eng, end, set(branch_marks), rec, route, seed,
                parity and route == "kernels", smi, save)
         rec["wall_s"][route] = time.time() - t0
         save()
     eng.cfg.kernels.fused_st = True
+    eng.drop_step_graph()
     return rec
 
 
@@ -296,10 +312,10 @@ def report(recs, out_dir, smi=""):
     return out
 
 
-def read_seed_files(dirs):
+def read_seed_files(dirs, prefix="f6"):
     recs = {}
     for d in dirs:
-        for path in sorted(glob.glob(os.path.join(d, "f6_s*.json"))):
+        for path in sorted(glob.glob(os.path.join(d, f"{prefix}_s*.json"))):
             rec = json.load(open(path))
             recs[int(rec["seed"])] = rec
     return recs
@@ -315,9 +331,9 @@ def _smi():
         return "no nvidia-smi"
 
 
-def parse(argv):
+def parse(argv, out="f6"):
     opts = {"seeds": "0,1,2", "parity": "", "procs": "1",
-            "out": os.path.join(REPO, "chiprun_out", "f6"), "child": None}
+            "out": os.path.join(REPO, "chiprun_out", out), "child": None}
     rest = []
     for a in argv:
         key = a[2:].split("=", 1)[0]
@@ -352,23 +368,31 @@ def main(argv=None):
         recs = {s: run_seed(cache, s, device, root, extra, s in parity,
                             out_dir, smi) for s in seeds}
         return recs if opts["child"] else report(recs, out_dir, smi)
-    # one process per seed on the same card, at most ``procs`` at a time
+    failed = spawn_seeds(__file__, argv, seeds, procs, out_dir, "f6")
+    out = report(read_seed_files([out_dir]), out_dir, smi)
+    if failed:
+        raise SystemExit(f"probe_f6: seed runs failed: {failed}")
+    return out
+
+
+def spawn_seeds(script, argv, seeds, procs, out_dir, prefix):
+    """``script`` once per seed (``--seeds=<s> --child`` and the rest of
+    ``argv``), at most ``procs`` processes at a time on the same card,
+    each logging to out_dir/<prefix>_s<seed>.log → the seeds that
+    failed."""
     base = [a for a in argv if not a.startswith(("--seeds=", "--procs="))]
     running, failed = [], []
     for s in seeds:
         while len(running) >= procs:
             failed += _reap(running)
-        log = open(os.path.join(out_dir, f"f6_s{s}.log"), "w")
+        log = open(os.path.join(out_dir, f"{prefix}_s{s}.log"), "w")
         running.append((s, log, subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), *base,
+            [sys.executable, os.path.abspath(script), *base,
              f"--seeds={s}", "--child"], stdout=log,
             stderr=subprocess.STDOUT)))
     while running:
         failed += _reap(running)
-    out = report(read_seed_files([out_dir]), out_dir, smi)
-    if failed:
-        raise SystemExit(f"probe_f6: seed runs failed: {failed}")
-    return out
+    return failed
 
 
 def _reap(running):

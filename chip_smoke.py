@@ -62,10 +62,13 @@ Phases; any failure exits non-zero and no result line is printed:
      480×640 fixture at the full width of configs/nerf_lm_adapt_gan.yaml,
      weights from the port's seeded init saved as a JAX-format npz and
      loaded with --init_weights.  The launch counters are zeroed just
-     before that run and both forward kernels' must be > 0 after it;
-     PSNR/SSIM must be finite, quant.txt and one 480×640 PNG per frame
-     written, and frame 0's render through the kernels must agree with the
-     plain route.  views/s comes from a second, warm sweep;
+     before that run, which runs under a device trace
+     (``eval_cli_launches``): each forward kernel's wrapper counts the warm
+     call of the frame program before its capture, and the trace must
+     hold its kernel inside the replays exactly once a frame per chunk of
+     that frame; PSNR/SSIM must be finite, quant.txt and one 480×640
+     PNG per frame written, and frame 0's render through the kernels must
+     agree with the plain route.  views/s comes from a second, warm sweep;
   4. train: ``texpose_tpu_torch.train`` (the CLI entry) for TRAIN_STEPS
      steps on a 128×128 fixture of 16 train images at the same full width
      (batch 8 of 16×16 patches, 64 samples, VGG + GAN + R1 losses), the
@@ -89,9 +92,11 @@ Phases; any failure exits non-zero and no result line is printed:
      are timed;
   5. trunk: the evaluate CLI on 2 generated 480×640 frames with the model
      trained in phase 4 and --nerf.density_noise_reg=1, where the ST
-     kernels' gate is off and the trunk kernel runs under plain heads: its
-     counter > 0 (the ST field kernel's 0), finite metrics, and frame 0
-     within the render bound of the ST kernel route;
+     kernels' gate is off and the trunk kernel runs under plain heads,
+     traced as phase 3's run: the trunk kernel eagerly in the warm call
+     and inside the replays once a frame per chunk (the ST field
+     kernel's counter 0), finite metrics, and frame 0 within the render
+     bound of the ST kernel route;
   6. pretrain: ``texpose_tpu_torch.train --model=nerf_pretrain`` for
      PRETRAIN_STEPS steps at the full width of configs/nerf_lm_pretrain.yaml
      (8×256 trunk, skip at 4, RGB head 256-256-256-3, bf16, 64 samples,
@@ -128,7 +133,9 @@ Phases; any failure exits non-zero and no result line is printed:
      backward (each of its three kernels once per step), route checks of
      the fused vs the hybrid backward and of the mega vs the two-kernel
      route, warm steps/s of all three; and the eval CLI with the mega route
-     on 2 frames of that model, frame 0 against the two-kernel route.
+     on 2 frames of that model, traced as phase 3's run (the render
+     forward once a frame per chunk inside the replays, no two-kernel
+     kernel either way), frame 0 against the two-kernel route.
   10. preprocess + video: a generated 480x640 fixture of 16 train frames
      whose CAD model is a finer icosphere (20,480 faces, written with the
      port's save_ply).  ``texpose_tpu_torch.compute_box`` runs on the card
@@ -153,7 +160,10 @@ Phases; any failure exits non-zero and no result line is printed:
   11. visualize + scene_vis + knn: the pretrain CLI at phase 6's full
      width with --freq.vis=5 for VIS_PRE_STEPS steps and the env variant
      for VIS_ENV_STEPS (one firing): the nine panels a firing, and row 8
-     launched ⌈H·W/rand_rays⌉ times inside each visualize; the texture
+     launched ⌈H·W/rand_rays⌉ times inside each visualize (its wrapper's
+     eager launches plus those inside graph replays, a device trace of
+     each call: visualize renders a captured frame program; its wall time
+     is taken under that trace); the texture
      train CLI at phase 4's settings with --freq.vis=5 for VIS_GAN_STEPS
      steps: the thirteen panels, rows 1 and 3 launched inside each
      visualize, cameras.png written where matplotlib is found and else
@@ -235,10 +245,12 @@ Phases; any failure exits non-zero and no result line is printed:
      TRAJ_* bounds; (c) each stage's launches of rows 8, 9b, 7b and the dW
      GEMM and its reduction (pretrain) and rows 1, 3, 4 and 2 with them
      (GAN), once a step: the wrappers' counts hold the eager warm-up
-     steps plus the stage's validation and evaluation (counted again
-     alone), a device trace from the stage's last dispatch to its end
-     (``traced_last_dispatch``) that dispatch's K replayed steps, and the
-     stage ran steps / K dispatches over one capture;
+     steps plus the warm calls of the stage's frame programs (its
+     validation and evaluation, captured), a device trace from the
+     stage's last dispatch to its end (``traced_last_dispatch``) that
+     dispatch's K replayed steps plus the frame programs replayed after
+     it (the frame runner's count), and the stage ran steps / K
+     dispatches over one capture;
      (d) at each stage's end state, on the next step's own batch and
      draws, every kernel of the step as the step calls it against its
      plain twin on the same inputs (``twin_checks``): rows 8, 9b and 7b
@@ -266,18 +278,46 @@ Phases; any failure exits non-zero and no result line is printed:
      draw generator state, b's emulated sites ran, c ran with
      ``cudnn.deterministic`` set and the others without, and both settings
      are restored after.
+  frames (between phases 13 and 14): evaluation's per-frame programs
+     (texpose_tpu_torch/models/frame_graph.py, the JAX engines' jit
+     cache keys) on every route of FG_ROUTES — rows 1 + 3, 6f
+     (kernels.st_mega), 10 (nerf.density_noise_reg), 8 and 7a + 9a
+     (kernels.coarse_mega=false) — each captured once a key and replayed:
+     on a 480x640 syn2real GAN engine frame 0 as its object pixels, a
+     quarter of them and a whole frame (two P buckets and the whole-frame
+     route, evaluate_full), on a 480x480 pretrain engine evaluate_full on
+     both payloads, validate and a FG_VIDEO_N-frame orbit.  (c) Every key
+     captured once in a first sweep (the wrappers' eager launches those of
+     the warm calls), then in a second sweep under a device trace the
+     route's kernels inside the replays exactly the runner's count (each
+     replay its key's chunks) and no eager launch; (a) each key's
+     replay against its eager body on the same payload (bit-equal
+     predicted; else the FG_* / COMPOSITE_MAX_ERR bounds); (b) on the train
+     CLI's 128x128 engines, FG_K captured training steps, then each key
+     replayed (no new capture) against a fresh engine's eager body on the
+     trained state; (d) views/s end to end (evaluate_full) and render only,
+     eager / captured / captured / eager (the runner's capture off and on),
+     and a profiled window each way end to end: wall and device-busy ms a
+     frame, the idle share, kernel and graph launches a frame; (e) the
+     allocator's growth over a captured sweep (< 512 MB) and the graph
+     pool's bytes; all beside the card's name and power limit.
   14. the evaluation envelope (texpose_tpu_torch/tools/eval_envelope.py):
      the tool's sweep of ENVELOPE_N frames of the cycled 1869-frame split
      at 480x640 on its 16/1-view fixture (disk → card → masked render →
-     metrics → PNG, one warm frame first): the allocator's growth over
-     the sweep under the tool's 512 MB gate, and rows 1 and 3 launched
-     exactly (ENVELOPE_N + 1) x the chunks of one frame (counted alone);
-     views/s, the allocator's peak and the host RSS printed beside the
+     metrics → PNG, one warm frame first), its frame program captured,
+     under a device trace: the allocator's growth over the sweep under
+     the tool's 512 MB gate, and rows 1 and 3 launched once eagerly per
+     chunk of one frame (the warm call before the capture) and inside
+     graph replays exactly (ENVELOPE_N + 1) x the chunks of one frame;
+     the allocator's peak, the graph pool's bytes and the host RSS.  Then
+     views/s untraced on the same engine and split, the runner's capture
+     off and on in turns (eager / captured / captured / eager), beside the
      card's name and power limit.
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers (``launches``: from the main path's run of phases
-4-9 it was ported for, its eager and its replayed launches summed), and
-last {"ok": true, "device": {...}}.
+3-9 it was ported for, its eager and its replayed launches summed;
+apart, its replays in the captured frames of the frames phase and phase
+14, ``launches_eval_replayed``), and last {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -1685,8 +1725,9 @@ def fixture_argv(here, tmp, dev, n_test, sub="", init=None):
 
 
 def slice_phase(here, tmp, dev):
-    """The evaluation CLI on a 480x640 fixture; returns the kernels'
-    launch counts from that run (the forward kernels only: eval has no
+    """The evaluation CLI on a 480x640 fixture, under a device trace;
+    returns the kernels' launch counts from that run, eager and inside
+    its frames' graph replays (the forward kernels only: eval has no
     backward)."""
     import cv2
     import numpy as np
@@ -1694,17 +1735,15 @@ def slice_phase(here, tmp, dev):
     from texpose_tpu_torch import evaluate
 
     argv = fixture_argv(here, tmp, dev, N_TEST)
+    names = ("st_field_fwd", "composite_st_fwd")
     zero_launches()
     t0 = time.perf_counter()
-    engine = evaluate.main(argv)
-    torch.cuda.synchronize()
+    with replay_trace(names) as replayed:
+        engine = evaluate.main(argv)
     cold_s = time.perf_counter() - t0
-    launches = read_launches()
-    print(f"slice: evaluate (cold, {N_TEST} frames) {cold_s:.2f} s; "
-          f"launches {launches}", flush=True)
-    if min(launches[k] for k in ("st_field_fwd", "composite_st_fwd")) <= 0:
-        fail(f"the eval path did not launch both forward kernels: "
-             f"{launches}")
+    launches = eval_cli_launches("slice", engine, replayed, names, N_TEST)
+    print(f"slice: evaluate (cold, {N_TEST} frames, under a device trace) "
+          f"{cold_s:.2f} s; launches {launches}", flush=True)
 
     out_path = engine.cfg.output_path
     rows = [ln.split() for ln in open(os.path.join(out_path, "quant.txt"))]
@@ -1816,6 +1855,19 @@ def kernel_symbol(name):
     return m.group(1), int(nums[-1]) if nums else None
 
 
+_PROF_TOOL = []
+
+
+def profile_tool():
+    """tools/profile_eval_torch.py as a module (loaded once): the
+    profiler's events (``trace_events``) and the device's busy intervals
+    (``_device_intervals``)."""
+    if not _PROF_TOOL:
+        _PROF_TOOL.append(load_probe(os.path.dirname(os.path.abspath(
+            __file__)), "profile_eval_torch"))
+    return _PROF_TOOL[0]
+
+
 @contextlib.contextmanager
 def replay_trace(names):
     """A device trace (torch.profiler, CUPTI) of the block.  The dict it
@@ -1840,13 +1892,13 @@ def replay_trace(names):
                                             ProfilerActivity.CUDA]) as prof:
         yield counts
         torch.cuda.synchronize()
-    events = prof.events()
-    graphs = {e.id for e in events if e.device_type == DeviceType.CPU
-              and "GraphLaunch" in e.name}
+    events = profile_tool().trace_events(prof)
+    graphs = {e[1] for e in events if e[0] == DeviceType.CPU
+              and "GraphLaunch" in e[2]}
     symbols = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.id in graphs:
-            sym = kernel_symbol(e.name)
+    for dev_type, corr, name, *_ in events:
+        if dev_type == DeviceType.CUDA and corr in graphs:
+            sym = kernel_symbol(name)
             symbols[sym] = symbols.get(sym, 0) + 1
     counts.update({k: sum(n for sym, n in symbols.items()
                           if owner.get(sym) == k) for k in names})
@@ -1861,9 +1913,11 @@ def traced_last_dispatch(names):
     its max_iter) to the block's end, the run's evaluations after it
     included: the dict it yields holds, after the block, that window's
     counts by wrapper (only kernels inside graph replays count: the
-    last dispatch's) and ``["_symbols"]``, ``["_last_k"]`` the last
-    dispatch's steps, and ``["_dispatches"]`` the number of dispatches
-    the block ran.  Not every dispatch: a whole 4000-step stage holds ~10^6
+    last dispatch's and those of the frame programs replayed after it)
+    and ``["_symbols"]``, ``["_last_k"]`` the last dispatch's steps,
+    ``["_frames_at_open"]`` the engine's frame runner's replayed launches
+    when the window opened, and ``["_dispatches"]`` the number of
+    dispatches the block ran.  Not every dispatch: a whole 4000-step stage holds ~10^6
     kernel records, a window a dispatch spends seconds parsing each
     window's events inside the run, and back-to-back windows lost records
     (about one step's a window); a window that ends right after the last
@@ -1877,7 +1931,8 @@ def traced_last_dispatch(names):
             seen["_dispatches"] += 1
             if not window and self.engine.it + k >= self.engine.max_iter():
                 window.update(counts=stack.enter_context(replay_trace(names)),
-                              k=k)
+                              k=k, frames=frame_counts(
+                                  self.engine.frame_runner())[1])
             return plain(self, k, make_draws)
 
         StepRunner.dispatch = dispatch
@@ -1886,7 +1941,8 @@ def traced_last_dispatch(names):
         finally:
             StepRunner.dispatch = plain
     if window:
-        seen.update(window["counts"], _last_k=window["k"])
+        seen.update(window["counts"], _last_k=window["k"],
+                    _frames_at_open=window["frames"])
 
 
 LAUNCH_SPLIT = {}    # the main paths' launches: eager and replayed apart
@@ -1910,6 +1966,50 @@ def path_launches(path, required, replayed):
         fail(f"{path}: kernels that ran in no graph replay: {short}; the "
              f"replays ran {replayed['_symbols']}")
     return {k: n + replayed.get(k, 0) for k, n in eager.items()}
+
+
+def frame_counts(runner):
+    """(eager, replayed) launches by wrapper of a frame runner's units since
+    its last drop, from ``stats()``: each unit's warm call once, and its
+    warm call's launches once a replay."""
+    eager, replayed = {}, {}
+    for u in runner.stats().values():
+        for k, n in u["warm_launches"].items():
+            eager[k] = eager.get(k, 0) + n
+            replayed[k] = replayed.get(k, 0) + u["replays"] * n
+    return eager, replayed
+
+
+def eval_cli_launches(what, engine, traced, names, frames, absent=()):
+    """An evaluate CLI run's launches, read just after it under a
+    ``replay_trace(names + absent)`` of the whole run: each wrapper's own
+    count of its eager launches (the warm call of each frame program before
+    its capture) and the trace's count of ``names``' kernels inside graph
+    replays.  Fails unless the replays ran ``frames`` frames, each with
+    its program's chunks (the warm call's launches), the eager launches
+    are the warm calls', and ``absent`` kernels ran neither way → the
+    launch counts, eager plus replayed; both apart go to
+    LAUNCH_SPLIT[what]."""
+    eager = read_launches()
+    runner = engine.frame_runner()
+    units = {key: u for key, u in runner.stats().items()
+             if any(u["warm_launches"].get(k) for k in names)}
+    warm, want = frame_counts(runner)
+    n = sum(u["replays"] for u in units.values())
+    seen = {k: (eager[k], traced[k]) for k in names + absent}
+    need = {k: (warm.get(k, 0), want.get(k, 0)) for k in names + absent}
+    print(f"{what}: launches (eager, inside graph replays) {seen}, expected "
+          f"{need}: the warm calls, then {frames} frames of "
+          f"{ {str(k): u['warm_launches'] for k, u in units.items()} } "
+          f"({n} replays, {runner.captures} captures)", flush=True)
+    if n != frames or seen != need or any(seen[k] != (0, 0) for k in absent) \
+            or min(need[k][1] for k in names) <= 0:
+        fail(f"{what}: launches (eager, replayed) {seen} != {need}, or "
+             f"{n} replayed frames != {frames}; the replays ran "
+             f"{traced['_symbols']}")
+    LAUNCH_SPLIT[what] = {k: {"eager": v, "replayed": traced.get(k, 0)}
+                          for k, v in eager.items()}
+    return {k: v + traced.get(k, 0) for k, v in eager.items()}
 
 
 def train_argv(here, tmp, dev, steps, out="train_out", extra=()):
@@ -2382,13 +2482,13 @@ def trunk_phase(here, tmp, dev, ckpt):
         "--nerf.density_noise_reg=1"]
     zero_launches()
     t0 = time.perf_counter()
-    engine = evaluate.main(argv)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    print(f"trunk: evaluate (cold, 2 frames, density_noise_reg 1) "
-          f"{time.perf_counter() - t0:.2f} s; launches {launches}",
-          flush=True)
-    if launches["trunk_fwd"] <= 0 or launches["st_field_fwd"]:
+    with replay_trace(("trunk_fwd",)) as replayed:
+        engine = evaluate.main(argv)
+    cold_s = time.perf_counter() - t0
+    launches = eval_cli_launches("trunk", engine, replayed, ("trunk_fwd",), 2)
+    print(f"trunk: evaluate (cold, 2 frames, density_noise_reg 1, under a "
+          f"device trace) {cold_s:.2f} s; launches {launches}", flush=True)
+    if launches["st_field_fwd"]:
         fail(f"trunk: the noisy-config evaluation must run the trunk kernel "
              f"and not the ST field kernel: {launches}")
     rows = [ln.split() for ln in open(os.path.join(engine.cfg.output_path,
@@ -2410,9 +2510,8 @@ def trunk_phase(here, tmp, dev, ckpt):
         engine.cfg.nerf.density_noise_reg = 1
         err = float((t_out["rgb_static"][0][obj]
                      - k_out["rgb_static"][0][obj]).abs().max())
-    print(f"trunk: {launches['trunk_fwd'] / 2:.1f} trunk launches per frame; "
-          f"PSNR {[float(r[1]) for r in rows]}; frame 0 rgb_static trunk "
-          f"kernel + plain heads vs ST kernel route max|err|={err:.3g} over "
+    print(f"trunk: PSNR {[float(r[1]) for r in rows]}; frame 0 rgb_static "
+          f"trunk kernel + plain heads vs ST kernel route max|err|={err:.3g} over "
           f"{int(obj.sum())} object pixels (bound {RENDER_MAX_ERR})",
           flush=True)
     if not err <= RENDER_MAX_ERR:
@@ -2522,12 +2621,15 @@ def st_mega_phase(here, tmp, dev):
         "--kernels.st_mega=true"]
     zero_launches()
     t0 = time.perf_counter()
-    engine = evaluate.main(argv)
-    torch.cuda.synchronize()
-    ev = read_launches()
-    print(f"st_mega: evaluate (cold, 2 frames) {time.perf_counter() - t0:.2f}"
-          f" s; launches {ev}", flush=True)
-    if ev["st_render_fwd"] <= 0 or any(ev[k] for k in TWO_KERNEL_ST):
+    absent = ("st_field_fwd", "composite_st_fwd")
+    with replay_trace(("st_render_fwd",) + absent) as replayed:
+        engine = evaluate.main(argv)
+    cold_s = time.perf_counter() - t0
+    ev = eval_cli_launches("st_mega eval", engine, replayed,
+                           ("st_render_fwd",), 2, absent)
+    print(f"st_mega: evaluate (cold, 2 frames, under a device trace) "
+          f"{cold_s:.2f} s; launches {ev}", flush=True)
+    if any(ev[k] for k in TWO_KERNEL_ST):
         fail(f"st_mega: the evaluation must run the render forward and no "
              f"two-kernel kernel: {ev}")
     rows = [ln.split() for ln in open(os.path.join(engine.cfg.output_path,
@@ -2549,8 +2651,8 @@ def st_mega_phase(here, tmp, dev):
         engine.cfg.kernels.st_mega = True
         err = max(float((m_out[k][0][obj] - t_out[k][0][obj]).abs().max())
                   for k in ("rgb", "rgb_static", "depth", "uncert"))
-    print(f"st_mega: {ev['st_render_fwd'] / 2:.1f} render launches per frame; "
-          f"PSNR {[float(r[1]) for r in rows]}; frame 0 rgb/rgb_static/depth/"
+    print(f"st_mega: PSNR {[float(r[1]) for r in rows]}; frame 0 "
+          f"rgb/rgb_static/depth/"
           f"uncert mega vs two-kernel route max|err|={err:.3g} over "
           f"{int(obj.sum())} object pixels (bound {COMPOSITE_MAX_ERR}: the "
           "same raw outputs and composite arithmetic)", flush=True)
@@ -2950,11 +3052,14 @@ KNN_RTOL = 1e-5
 class _WatchVisualize:
     """Within ``with``: wraps ``cls.visualize`` and the render method it
     calls (``render``), and records per visualize call its wall time
-    (ending in a sync), the kernel launches inside it and the render's
-    float rgb."""
+    (ending in a sync), the kernel launches inside it — the wrappers'
+    eager launches plus those of ``names`` inside graph replays (a device
+    trace of the call: the render is a replayed frame program after its
+    first capture) — and the render's float rgb."""
 
-    def __init__(self, cls, render):
+    def __init__(self, cls, render, names):
         self.cls, self.render, self.calls = cls, render, []
+        self.names = names
         self._orig = (cls.__dict__["visualize"], cls.__dict__[render])
         self._outs = None
 
@@ -2967,14 +3072,16 @@ class _WatchVisualize:
             torch.cuda.synchronize()
             before = read_launches()
             watch._outs = []
-            t0 = time.perf_counter()
-            visualize(eng, it, split)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
+            with replay_trace(watch.names) as replayed:
+                t0 = time.perf_counter()
+                visualize(eng, it, split)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
             after = read_launches()
             watch.calls.append({
                 "it": it, "s": secs, "rgb": watch._outs[-1],
-                "launches": {k: after[k] - before[k] for k in after}})
+                "launches": {k: after[k] - before[k] + replayed.get(k, 0)
+                             for k in after}})
             watch._outs = None
 
         def rendered(eng, *args, **kw):
@@ -3035,7 +3142,8 @@ def vis_phase(here, tmp, dev, smi):
         what = "vis_env" if env else "vis_pretrain"
         argv, _ = pretrain_argv(here, tmp, dev, steps, env=env, name=what,
                                 extra=(f"--freq.vis={VIS_EVERY}",))
-        with _WatchVisualize(PretrainEngine, "_render_frame") as w:
+        with _WatchVisualize(PretrainEngine, "_render_frame",
+                             ("coarse_render_fwd",)) as w:
             eng = train.main(argv)
         cfg = eng.cfg
         _check_panels(what, cfg.output_path, w.calls, pre_panels, VIS_EVERY,
@@ -3058,7 +3166,8 @@ def vis_phase(here, tmp, dev, smi):
     warn = log.warn
     log.warn = lambda msg: (warns.append(msg), warn(msg))
     try:
-        with _WatchVisualize(TextureGANEngine, "_render_frame_st") as w:
+        with _WatchVisualize(TextureGANEngine, "_render_frame_st",
+                             ("st_field_fwd", "composite_st_fwd")) as w:
             eng = train.main(argv)
     finally:
         log.warn = warn
@@ -3590,7 +3699,7 @@ def state_delta(a, b):
     return worst, rel, differ, len(fa)
 
 
-def _profiled_steps(run, n, prof_tool):
+def _profiled_steps(run, n):
     """One profiled window of ``n`` steps → per step: host wall ms, device
     busy ms (the union of its kernels and copies), host kernel and graph
     launches, and the idle share 1 − busy/wall."""
@@ -3604,12 +3713,15 @@ def _profiled_steps(run, n, prof_tool):
         run(n)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = prof_tool._union_ms(prof_tool._device_intervals(prof))
-    avgs = prof.key_averages()
-    kern = sum(a.count for a in avgs if a.key.startswith(
-        ("cudaLaunchKernel", "cuLaunchKernel")))
-    graphs = sum(a.count for a in avgs if a.key.startswith(
-        ("cudaGraphLaunch", "cuGraphLaunch")))
+    from torch.autograd import DeviceType
+    tool = profile_tool()
+    busy = tool._union_ms(tool._device_intervals(prof))
+    events = tool.trace_events(prof)
+    cpu = [e[2] for e in events if e[0] == DeviceType.CPU]
+    kern = sum(c.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+               for c in cpu)
+    graphs = sum(c.startswith(("cudaGraphLaunch", "cuGraphLaunch"))
+                 for c in cpu)
     return {"wall_ms": wall / n, "busy_ms": busy / n,
             "idle": 1 - busy / wall, "kernel_launches": kern / n,
             "graph_launches": graphs / n}
@@ -3626,7 +3738,7 @@ def _loss_rel(a, b):
                for k in a)
 
 
-def scan_route(what, argv, kernels, smi, prof_tool):
+def scan_route(what, argv, kernels, smi):
     """One route of the scan phase (see the module's docstring) → its
     readings; failures are returned in ``bad``, so one call reads every
     route."""
@@ -3729,10 +3841,8 @@ def scan_route(what, argv, kernels, smi, prof_tool):
         run(SCAN_TIMED)
         torch.cuda.synchronize()
         rates.append((name, SCAN_TIMED / (time.perf_counter() - t0)))
-    prof = {"eager": _profiled_steps(run_eager, SCAN_PROFILED,
-                                     prof_tool),
-            "captured": _profiled_steps(run_capt, SCAN_PROFILED,
-                                        prof_tool)}
+    prof = {"eager": _profiled_steps(run_eager, SCAN_PROFILED),
+            "captured": _profiled_steps(run_capt, SCAN_PROFILED)}
     if runner.captures != 1:
         bad.append(f"scan {what}: the timed dispatches captured again")
     e = float(np.mean([r for k, r in rates if k == "eager"]))
@@ -3758,7 +3868,6 @@ def scan_phase(here, tmp, dev, smi):
     hybrid backward, the default pretrain and the hierarchical pretrain
     (``scan_route``), under cudnn's deterministic algorithms."""
     import torch
-    prof_tool = load_probe(here, "profile_eval_torch")
     was = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     big = f"--max_iter={10 * SCAN_K * SCAN_DISPATCHES}"
@@ -3766,23 +3875,22 @@ def scan_phase(here, tmp, dev, smi):
     try:
         gan, _ = train_argv(here, tmp, dev, 1, out="scan_gan",
                             extra=(big,))
-        out["gan"] = scan_route("gan", gan, TEXTURE_KERNELS, smi, prof_tool)
+        out["gan"] = scan_route("gan", gan, TEXTURE_KERNELS, smi)
         mega, _ = train_argv(here, tmp, dev, 1, out="scan_mega",
                              extra=(big, "--kernels.st_mega=true"))
         out["st_mega"] = _with_env(
             "TEXPOSE_MEGA_FULLBWD", "0", lambda: scan_route(
-                "st_mega (hybrid backward)", mega, HYBRID_KERNELS, smi,
-                prof_tool))
+                "st_mega (hybrid backward)", mega, HYBRID_KERNELS, smi))
         pre, _ = pretrain_argv(here, tmp, dev, 1, name="scan_pre",
                                extra=(big,))
-        out["pretrain"] = scan_route("pretrain", pre, PRETRAIN_KERNELS, smi,
-                                     prof_tool)
+        out["pretrain"] = scan_route("pretrain", pre, PRETRAIN_KERNELS,
+                                     smi)
         hier, _ = pretrain_argv(here, tmp, dev, 1, name="scan_hier", extra=(
             big, "--nerf.fine_sampling=true",
             f"--nerf.sample_intvs_fine={N_FINE}",
             "--loss_weight.render_fine=0"))
         out["hierarchical"] = scan_route("hierarchical", hier, FIELD_KERNELS,
-                                         smi, prof_tool)
+                                         smi)
     finally:
         torch.backends.cudnn.deterministic = was
     print("scan: " + json.dumps({k: {kk: vv for kk, vv in v.items()
@@ -4411,34 +4519,34 @@ def quality_phase(here, tmp, dev, smi):
                      f"{runner.route})")
 
         # (c) launches: each kernel of the step once a step, the eager
-        # warm-up steps and the stage's validation and evaluation counted
-        # by the wrappers, the stage's last dispatch (all replays of the
-        # one captured step) by its device trace
-        _, la_pval = _launches_of(lambda: peng.validate(0))
-        _, la_gval = _launches_of(lambda: geng.validate(0))
-        _, la_gev = _launches_of(geng.evaluate_full)
+        # warm-up steps and the warm calls of the stage's frame programs
+        # (its validation and evaluation) counted by the wrappers, the
+        # stage's last dispatch (all replays of the one captured step) and
+        # the frame programs replayed after it by its device trace
         from texpose_tpu_torch.models.step_graph import WARMUP_STEPS as W
         P, G = QUAL_PRETRAIN_STEPS, QUAL_GAN_STEPS
-        want_pre = {k: W for k in PRETRAIN_KERNELS}
-        want_pre["coarse_render_fwd"] += la_pval["coarse_render_fwd"]
-        fwd_gan = la_gval["st_field_fwd"] + la_gev["st_field_fwd"]
-        want_gan = {k: W for k in TEXTURE_KERNELS}
-        want_gan["st_field_fwd"] += fwd_gan
-        want_gan["composite_st_fwd"] += fwd_gan
-        for what, got, want, rep, eng, steps in (
-                ("pretrain", la_pre, want_pre, rep_pre, peng, P),
-                ("gan", la_gan, want_gan, rep_gan, geng, G)):
-            seen = {k: got[k] for k in want}
+        for what, got, rep, eng, steps, kernels in (
+                ("pretrain", la_pre, rep_pre, peng, P, PRETRAIN_KERNELS),
+                ("gan", la_gan, rep_gan, geng, G, TEXTURE_KERNELS)):
+            frames = eng.frame_runner()
+            f_eager, f_rep = frame_counts(frames)
+            want = {k: W + f_eager.get(k, 0) for k in kernels}
+            at_open = rep.get("_frames_at_open", {})
+            frame_rep = {k: f_rep.get(k, 0) - at_open.get(k, 0)
+                         for k in kernels}
+            seen = {k: got[k] for k in kernels}
             K = eng.scan_k()
-            seen_rep = {k: rep.get(k) for k in want}
-            want_rep = {k: K for k in want}
+            seen_rep = {k: rep.get(k) for k in kernels}
+            want_rep = {k: K + frame_rep[k] for k in kernels}
             print(f"quality (c) {what}: launches eager (wrapper counts) "
-                  f"{seen}, expected {want} ({W} warm-up steps + "
-                  f"validation/evaluation); inside the graph replays of "
-                  f"the last of {rep['_dispatches']} dispatches (device "
-                  f"trace) {seen_rep}, expected {want_rep} (1 a replayed "
-                  f"step); {eng.it} steps, "
-                  f"{eng.step_runner().captures} capture", flush=True)
+                  f"{seen}, expected {want} ({W} warm-up steps + the warm "
+                  f"calls of {frames.captures} frame programs); inside the "
+                  f"graph replays of the last of {rep['_dispatches']} "
+                  f"dispatches and the frames after it (device trace) "
+                  f"{seen_rep}, expected {want_rep} (1 a replayed step + "
+                  f"the frames' {frame_rep}); {eng.it} steps, "
+                  f"{eng.step_runner().captures} capture; frames: "
+                  f"{frames.route}", flush=True)
             if seen != want or seen_rep != want_rep or eng.it != steps \
                     or rep["_dispatches"] != steps // K \
                     or rep.get("_last_k") != K:
@@ -4446,9 +4554,12 @@ def quality_phase(here, tmp, dev, smi):
                      f"or replayed {seen_rep} != {want_rep}, or {eng.it} "
                      f"steps in {rep['_dispatches']} dispatches; the "
                      f"replays ran {rep.get('_symbols')}")
-        if min(la_pval["coarse_render_fwd"], la_gev["st_field_fwd"],
-               la_gev["composite_st_fwd"]) <= 0:
-            fail("quality (c): validation / evaluation launched no kernel")
+            fwd = ("coarse_render_fwd",) if what == "pretrain" else (
+                "st_field_fwd", "composite_st_fwd")
+            if min(min(want[k] - W, frame_rep[k]) for k in fwd) <= 0:
+                fail(f"quality (c) {what}: validation / evaluation launched "
+                     f"no kernel eagerly or in a replay ({want}, "
+                     f"{frame_rep})")
 
         # (b) the trajectories from the stages' end states
         _trajectory(peng, "fused_coarse", TRAJ_PRETRAIN_STEPS, "pretrain",
@@ -4548,6 +4659,407 @@ def f7_phase(here, tmp, dev, smi):
     return out
 
 
+# The frames phase (between phases 13 and 14): every route of the
+# evaluation frames captured (texpose_tpu_torch/models/frame_graph.py).
+# FG_K captured training steps between the evaluations of (b); FG_TIMED
+# frames a timed turn of (d), FG_PROFILED a profiled window; FG_VIDEO_N
+# orbit frames; the extra flags of each engine (none on the card)
+FG_K = 5
+FG_TIMED = 8
+FG_PROFILED = 4
+FG_VIDEO_N = 2
+FG_EXTRA = {"gan": (), "gan_train": (), "pretrain": (), "pretrain_train": ()}
+# (a) and (b): a replay against the eager body on one payload is predicted
+# bit-equal (the eval forwards have no atomics, and capture and eager run
+# one cuDNN algorithm); a unit that is not is held to the frame-parity
+# bounds of PERF.md §2 (its metrics: PSNR 0.01 dB, SSIM 1e-4, LPIPS rtol
+# 1e-4 as the CPU tests, PNG payloads 1 LSB) or, a render unit, to
+# COMPOSITE_MAX_ERR over its leaves
+FG_PSNR_DB = 0.01
+FG_SSIM = 1e-4
+FG_LPIPS_RTOL = 1e-4
+# route → (engine kind, switches, the frame's kernels: traced wrappers)
+FG_ROUTES = {
+    "rows 1+3": ("gan", {}, ("st_field_fwd", "composite_st_fwd")),
+    "row 6f": ("gan", {"kernels.st_mega": True}, ("st_render_fwd",)),
+    "row 10": ("gan", {"nerf.density_noise_reg": 1}, ("trunk_fwd",)),
+    "row 8": ("pretrain", {}, ("coarse_render_fwd",)),
+    "rows 7a+9a": ("pretrain", {"kernels.coarse_mega": False},
+                   ("coarse_field_fwd", "composite_coarse_fwd")),
+}
+
+
+class _FrameSplit:
+    """``n`` eval frames cycling through ``forms`` of frame 0 of ``data``:
+    "object" (its object pixels, at most 45 % of the frame: the masked
+    route in the bucket P of its count), "quarter" (the first quarter of
+    those: a smaller bucket) and "whole" (a whole-frame mask: the
+    whole-frame route)."""
+
+    def __init__(self, data, forms, n):
+        self.data, self.forms, self.n = data, forms, n
+        self.raw_hw = getattr(data, "raw_hw", None)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import numpy as np
+        s = dict(self.data[0])
+        mask = np.asarray(s["obj_mask"])
+        form = self.forms[i % len(self.forms)]
+        if form == "whole":
+            s["obj_mask"] = np.ones_like(mask)
+        else:
+            on = np.nonzero(mask.reshape(-1) > 0)[0][:int(0.45 * mask.size)]
+            m = np.zeros(mask.size, mask.dtype)
+            m[on[:len(on) // 4] if form == "quarter" else on] = 1
+            s["obj_mask"] = m.reshape(mask.shape)
+        s["frame_index"] = np.asarray(i)
+        return s
+
+
+def _set_switches(eng, switches):
+    """cfg <- switches {dotted key: value} → the previous values."""
+    was = {}
+    for key, value in switches.items():
+        *path, leaf = key.split(".")
+        node = eng.cfg
+        for p in path:
+            node = node[p]
+        was[key] = node.get(leaf)
+        node[leaf] = value
+    return was
+
+
+def _rebind(body, eng, other):
+    """A unit's body (a partial over the engine's field, config and LPIPS
+    parameters) bound to ``other``'s."""
+    from functools import partial
+    swap = {id(eng.nerf): other.nerf, id(eng.cfg): other.cfg,
+            id(eng._ensure_lpips()[0]): other._ensure_lpips()[0]}
+    return partial(body.func, *[swap.get(id(a), a) for a in body.args],
+                   **body.keywords)
+
+
+def _fg_compare(got, ref):
+    """(bit-equal, within the bounds, the largest differences) of a
+    unit's outputs against another run's."""
+    import torch
+    if isinstance(got, dict):
+        d = max(float((got[k].double() - ref[k].double()).abs().max())
+                for k in ref)
+        same = all(torch.equal(got[k], ref[k]) for k in ref)
+        return same, d <= COMPOSITE_MAX_ERR, {"leaves": d}
+    p, s, lp = (abs(float(a) - float(b)) for a, b in zip(got[:3], ref[:3]))
+    png = max(int((a.int() - b.int()).abs().max()) for a, b in
+              zip(got[3:], ref[3:]))
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    ok = (p <= FG_PSNR_DB and s <= FG_SSIM and png <= 1
+          and lp <= FG_LPIPS_RTOL * abs(float(ref[2])) + 1e-7)
+    return same, ok, {"psnr": p, "ssim": s, "lpips": lp, "png": png}
+
+
+def _fg_units(eng, other=None):
+    """Every unit's outputs on its current inputs: replayed through the
+    runner, and by its body eagerly (on ``other``'s field when given) →
+    {key: (replayed, eager)}."""
+    import torch
+    runner = eng.frame_runner()
+    out = {}
+    with torch.inference_mode():
+        for key, unit in list(runner.units.items()):
+            inputs = {k: v.clone() for k, v in unit.slots.items()}
+            body = unit.body if other is None else _rebind(unit.body, eng,
+                                                           other)
+            got = runner.run(key, unit.body, **inputs)
+            out[key] = (got, body(**inputs))
+    torch.cuda.synchronize()
+    return out
+
+
+def _fg_keys(what, eng, kernels, sweeps, smi):
+    """(c) every key of the route captured once (a sweep whose wrappers'
+    launches are the warm calls'), then replayed under a device trace (a
+    second sweep: the route's kernels inside its replays exactly the
+    runner's count); (a) each key's replay against its eager body → (keys,
+    (a)'s rows, failures, the traced replays by wrapper)."""
+    runner = eng.frame_runner()
+    eng.drop_step_graph()
+    bad = []
+    caps0 = runner.captures
+    zero_launches()
+    sweeps["keys"]()
+    host = {k: n for k, n in read_launches().items() if n}
+    warm, rep0 = frame_counts(runner)
+    caps = runner.captures - caps0
+    zero_launches()
+    with replay_trace(kernels) as traced:
+        sweeps["keys"]()
+    again = {k: n for k, n in read_launches().items() if n}
+    want = {k: n - rep0.get(k, 0) for k, n in frame_counts(runner)[1].items()
+            if n - rep0.get(k, 0)}
+    keys = sorted(runner.units, key=str)
+    stats = {str(k): v for k, v in runner.stats().items()}
+    print(f"frames {what} (c): keys {keys}, {caps} captures; launches a "
+          f"replay { {k: v['warm_launches'] for k, v in stats.items()} }; "
+          f"the first sweep's eager launches (wrapper counts) {host}, the "
+          f"warm calls' {warm}; the second sweep's kernels inside graph "
+          f"replays (device trace) { {k: traced[k] for k in kernels} }, the "
+          f"runner's count {want}, eager {again or 0} [{smi}]", flush=True)
+    if caps != len(keys) or runner.captures != caps0 + caps \
+            or not runner.capturable:
+        bad.append(f"{what}: {runner.captures} captures for {len(keys)} "
+                   f"keys ({runner.route})")
+    if set(want) != set(kernels) or any(traced[k] != want[k]
+                                        for k in kernels) \
+            or host != warm or again or min(want.values(), default=0) <= 0:
+        bad.append(f"{what}: traced replays "
+                   f"{ {k: traced[k] for k in kernels} } != the frames' "
+                   f"{want}, or eager {host} != the warm calls' {warm}, or "
+                   f"replayed frames launched eagerly ({again}); the "
+                   f"replays ran {traced['_symbols']}")
+    rows = {}
+    for key, (got, ref) in _fg_units(eng).items():
+        same, ok, diff = _fg_compare(got, ref)
+        rows[str(key)] = {"bit_equal": same, **diff}
+        if not ok:
+            bad.append(f"{what}: {key} replayed vs eager {diff}")
+    print(f"frames {what} (a) replay vs eager on one payload a key: {rows}",
+          flush=True)
+    return keys, rows, bad, {k: traced[k] for k in kernels}
+
+
+def _fg_trained(what, eng, fresh, sweeps):
+    """(b) the route's keys captured, FG_K captured training steps, then
+    every key replayed against a fresh engine's eager body on the trained
+    state → (rows, failures)."""
+    from texpose_tpu_torch.models.step_graph import route_name
+    runner = eng.frame_runner()
+    if not runner.units:
+        sweeps["keys"]()
+    caps = runner.captures
+    before = _fg_units(eng)
+    steps = eng.step_runner()
+    steps.dispatch(FG_K)
+    fresh.load_train_state_flat(eng.train_state_flat(eng.it))
+    rows, bad, moved = {}, [], 0
+    for key, (got, ref) in _fg_units(eng, fresh).items():
+        same, ok, diff = _fg_compare(got, ref)
+        rows[str(key)] = {"bit_equal": same, **diff}
+        moved += not _fg_compare(got, before[key][0])[0]
+        if not ok:
+            bad.append(f"{what}: {key} after {FG_K} steps, replayed vs the "
+                       f"fresh engine's eager {diff}")
+    print(f"frames {what} (b) after {FG_K} training steps "
+          f"({route_name(eng)}, {steps.captures} step capture) on "
+          f"{eng.cfg.H}x{eng.cfg.W} frames: replay vs a fresh engine's eager "
+          f"body {rows}; {moved} of {len(rows)} keys' outputs moved",
+          flush=True)
+    if runner.captures != caps or steps.graph is None or moved == 0:
+        bad.append(f"{what}: the frames captured again after training "
+                   f"({runner.captures - caps}), the step was not captured, "
+                   f"or no output moved ({moved})")
+    return rows, bad
+
+
+def _fg_rates(what, eng, sweeps, smi):
+    """(d) views/s, end to end (evaluate_full) and render only, eager /
+    captured / captured / eager, and a profiled window of each mode end
+    to end; (e) the
+    allocator's growth over a captured sweep and the graph pool's bytes →
+    (readings, failures)."""
+    import torch
+    from texpose_tpu_torch.models.frame_graph import pool_bytes
+    out = {}
+    for name in ("e2e", "render"):
+        run = sweeps[name]
+        turns = []
+        for mode in ("eager", "captured", "captured", "eager"):
+            run(1, mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(FG_TIMED, mode)
+            torch.cuda.synchronize()
+            turns.append((mode, FG_TIMED / (time.perf_counter() - t0)))
+        prof = {} if name == "render" else {
+            m: _profiled_steps(lambda k, m=m: run(k, m), FG_PROFILED)
+            for m in ("eager", "captured")}
+        out[name] = {"turns": turns, "profile": prof}
+        e = statistics.mean(r for m, r in turns if m == "eager")
+        c = statistics.mean(r for m, r in turns if m == "captured")
+        print(f"frames {what} (d) {name} at {eng.cfg.H}x{eng.cfg.W}: views/s "
+              "in turns " + ", ".join(f"{m} {r:.3f}" for m, r in turns)
+              + f" (eager {e:.3f}, captured {c:.3f}) [{smi}]", flush=True)
+        for m, p in prof.items():
+            print(f"frames {what} (d) {name} {m}, profiled {FG_PROFILED} "
+                  f"frames: {p['wall_ms']:.3f} ms/frame wall, device busy "
+                  f"{p['busy_ms']:.3f} ms/frame, idle {100 * p['idle']:.1f} "
+                  f"%, {p['kernel_launches']:.0f} kernel + "
+                  f"{p['graph_launches']:.1f} graph launches/frame [{smi}]",
+                  flush=True)
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    sweeps["e2e"](FG_TIMED, "captured")
+    torch.cuda.synchronize()
+    pool = pool_bytes(eng.frame_runner())
+    mem = {"growth_mb": (torch.cuda.memory_allocated() - a0) / 1e6,
+           "pool_mb": None if pool is None else pool / 1e6}
+    out["mem"] = mem
+    print(f"frames {what} (e): allocator growth over a captured sweep of "
+          f"{FG_TIMED} frames {mem['growth_mb']:.3f} MB (gate < 512), the "
+          f"frames' graph pool "
+          + ("not read (the allocator's snapshot names no pool)"
+             if pool is None else f"{mem['pool_mb']:.1f} MB") + f" [{smi}]",
+          flush=True)
+    bad = [] if mem["growth_mb"] < 512.0 else [
+        f"{what}: a captured sweep grew the allocator by "
+        f"{mem['growth_mb']} MB"]
+    return out, bad
+
+
+def _sweeps(eng):
+    """An engine's sweeps over _FrameSplit forms of its frame 0: "keys"
+    (every frame program: the GAN's evaluate_full over the object, its
+    quarter and the whole frame; the pretrain's evaluate_full on both
+    payloads, validate and a FG_VIDEO_N-frame orbit), "e2e" (evaluate_full
+    over n object frames) and "render" (frame 0's whole-frame render n
+    times), the runner capturing or not by ``mode``."""
+    import numpy as np
+    import torch
+    data = eng.eval_data
+    runner = eng.frame_runner()
+    gan = hasattr(eng, "_render_frame_st")
+
+    def split(forms, n):
+        eng.eval_data = _FrameSplit(data, forms, n)
+        eng._eval_cache = (None, None)
+
+    def keys():
+        if gan:
+            split(("object", "quarter", "whole"), 3)
+            eng.evaluate_full()
+        else:
+            split(("object",), 2)
+            eng.evaluate_full()
+            eng.cfg.render = {"eval_compact": False}
+            try:
+                eng.evaluate_full()
+            finally:
+                eng.cfg.render = {}
+            eng.validate(getattr(eng, "it", 0))
+            eng.generate_videos_synthesis(N=FG_VIDEO_N)
+        torch.cuda.synchronize()
+
+    def captured(mode, fn):
+        was = runner.capturable
+        runner.capturable = was and mode == "captured"
+        try:
+            fn()
+        finally:
+            runner.capturable = was
+
+    def e2e(n, mode):
+        split(("object",), n)
+        captured(mode, eng.evaluate_full)
+
+    def render(n, mode):
+        split(("object",), 1)
+        frame = eng.eval_frame(0)
+
+        def go():
+            with torch.inference_mode():
+                for _ in range(n):
+                    if gan:
+                        eng._render_frame_st(frame, np.zeros(
+                            (1, int(eng.cfg.nerf.N_latent_trans)),
+                            np.float32), eng.latents["light"][0:1])
+                    else:
+                        eng._render_frame(frame)
+        captured(mode, go)
+
+    return {"keys": keys, "e2e": e2e, "render": render}
+
+
+def _eval_engine(argv):
+    """The engine the evaluate CLI builds from ``argv``, without its
+    sweep."""
+    from texpose_tpu_torch.models import get_engine
+    from texpose_tpu_torch.models.base import resolve_device
+    from texpose_tpu_torch.utils.config import set_options
+    cfg = set_options(list(argv))
+    eng = get_engine(cfg.model)(cfg, resolve_device(cfg))
+    eng.load_dataset(eval_split="test")
+    eng.build_networks()
+    eng.load_initial_weights()
+    eng.restore_checkpoint()
+    return eng
+
+
+def frames_phase(here, tmp, dev, smi):
+    """The frames phase: every route of the eval frames (FG_ROUTES), its
+    frame programs captured.  (a), (c), (d) and (e) on the evaluate CLI's
+    engines: a 480x640 syn2real GAN engine (frame 0 as its object pixels,
+    a quarter of them and a whole frame: two P buckets and the whole-frame
+    route) and a 480x480 pretrain engine (evaluate_full on both payloads,
+    validate, the orbit); (b) on the train CLI's engines at their 128x128
+    crops, the same forms (the fixtures' 480-pixel frames carry no NOCS
+    maps for the GAN's losses, nor masks the pretrain's 480x480 train crops
+    read) → {route: the traced replays by wrapper}."""
+    t0 = time.perf_counter()
+    gan = fixture_argv(here, tmp, dev, 1, sub="frames") \
+        + list(FG_EXTRA["gan"])
+    train, _ = train_argv(here, tmp, dev, 1, out="frames_gan", extra=(
+        "--max_iter=1000", *FG_EXTRA["gan_train"]))
+    pre, _ = pretrain_argv(here, tmp, dev, 1, name="frames", extra=(
+        "--max_iter=1000", *FG_EXTRA["pretrain_train"]))
+    pre_ev, _ = pretrain_argv(here, tmp, dev, 1, name="frames_ev", extra=(
+        "--data.image_size=[480,480]", *FG_EXTRA["pretrain"]))
+    engines = {"gan": (_eval_engine(gan), engine_from_argv(train),
+                       engine_from_argv(train)),
+               "pretrain": (_eval_engine(pre_ev), engine_from_argv(pre),
+                            engine_from_argv(pre))}
+    sweeps = {id(e): _sweeps(e) for group in engines.values()
+              for e in group[:2]}
+    print(f"frames: engines built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out, bad, traced = {}, [], {}
+    for what, (kind, switches, kernels) in FG_ROUTES.items():
+        ev, tr, fresh = group = engines[kind]
+        uniq = list({id(e): e for e in group}.values())
+        was = [_set_switches(e, switches) for e in uniq]
+        try:
+            t = [time.perf_counter()]
+            keys, a, b, traced[what] = _fg_keys(what, ev, kernels,
+                                                sweeps[id(ev)], smi)
+            bad += b
+            t.append(time.perf_counter())
+            tr.drop_step_graph()
+            rows_b, b = _fg_trained(what, tr, fresh, sweeps[id(tr)])
+            bad += b
+            t.append(time.perf_counter())
+            rates, b = _fg_rates(what, ev, sweeps[id(ev)], smi)
+            bad += b
+            t.append(time.perf_counter())
+            secs = [round(y - x, 1) for x, y in zip(t, t[1:])]
+            print(f"frames {what}: (a) + (c) {secs[0]} s, (b) {secs[1]} s, "
+                  f"(d) + (e) {secs[2]} s", flush=True)
+            out[what] = {"keys": [str(k) for k in keys], "a": a,
+                         "b": rows_b, "seconds": secs, **rates}
+        finally:
+            for e, w in zip(uniq, was):
+                _set_switches(e, w)
+    print(f"frames: {len(FG_ROUTES)} routes, phase "
+          f"{time.perf_counter() - t0:.1f} s; " + json.dumps(
+              {k: {"keys": v["keys"], "mem": v["mem"],
+                   "views_per_s": {n: v[n]["turns"] for n in ("e2e",
+                                                             "render")}}
+               for k, v in out.items()}), flush=True)
+    if bad:
+        fail("frames: " + "; ".join(bad))
+    return traced
+
+
 # Phase 14's cut of the 1869-frame split: over ENVELOPE_N frames a leak of
 # 512 MB / ENVELOPE_N = 2 MB a frame (a quarter of one 480x640 frame's
 # ~7.4 MB of f32 RGB) crosses the tool's gate; ~15-20 s of sweep
@@ -4556,45 +5068,95 @@ ENVELOPE_N = 256
 
 def envelope_phase(here, tmp, dev, smi):
     """Phase 14, the evaluation envelope: the tool's sweep of ENVELOPE_N
-    480x640 frames (``eval_envelope.run``): its memory gate on the
-    allocator holds, and rows 1 and 3 launch once per chunk of each frame,
-    the warm frame included (the chunks of one frame counted alone)."""
+    480x640 frames (``eval_envelope.run``, its frames captured): its
+    memory gate on the allocator holds, and rows 1 and 3 launch once per
+    chunk of each frame: eagerly once (the warm call before the frame
+    program's capture) and inside graph replays (a device trace of the
+    run) for the warm frame and every frame of the sweep.  Then the
+    sweep's views/s untraced, eager and captured in turns
+    (``_envelope_turns``)."""
     import tempfile as tf
+    from texpose_tpu_torch.models.frame_graph import pool_bytes
     from texpose_tpu_torch.tools import eval_envelope as ee
 
+    names = ("st_field_fwd", "composite_st_fwd")
     was_tmp = tf.tempdir
     tf.tempdir = tmp                        # fixture and output under tmp
     try:
         t0 = time.perf_counter()
-        (out, res, eng), la = _launches_of(lambda: _with_env(
-            "EVAL_N", str(ENVELOPE_N), lambda: _with_env(
-                "EVAL_HW", "480,640", lambda: ee.run(dev))))
+        with replay_trace(names) as replayed:
+            (out, res, eng), la = _launches_of(lambda: _with_env(
+                "EVAL_N", str(ENVELOPE_N), lambda: _with_env(
+                    "EVAL_HW", "480,640", lambda: ee.run(dev))))
         wall = time.perf_counter() - t0
-        _, one = _launches_of(lambda: eng.warm_eval(0))
-        per = one["st_field_fwd"]
-        want = {"st_field_fwd": per * (ENVELOPE_N + 1),
-                "composite_st_fwd": per * (ENVELOPE_N + 1)}
-        seen = {k: la[k] for k in want}
+        runner = eng.frame_runner()
+        units = runner.stats()
+        per = {k: sum(u["warm_launches"].get(k, 0) for u in units.values())
+               for k in names}
+        want = {k: (per[k], per[k] * (ENVELOPE_N + 1)) for k in names}
+        seen = {k: (la[k], replayed[k]) for k in names}
+        pool = pool_bytes(runner)
         print(f"envelope: {out['frames']} frames at 480x640 in "
               f"{out['wall_s']} s = {out['views_per_s']} views/s "
-              f"(views_per_sec_e2e), PSNR {out['psnr']}; allocator "
-              f"{out['mem_before_mb']} -> {out['mem_after_mb']} MB (delta "
-              f"{out['hbm_delta_mb']} MB, gate < {ee.GATE_MB}), peak "
-              f"{out['peak_hbm_mb']} MB, reserved "
-              f"{out['live_device_before_mb']} -> "
-              f"{out['live_device_after_mb']} MB, host RSS "
-              f"{out['rss_before_mb']} -> {out['rss_after_mb']} MB; launches "
-              f"{seen}, expected {per} a frame x {ENVELOPE_N + 1} (the warm "
+              f"(views_per_sec_e2e, under a device trace), PSNR "
+              f"{out['psnr']}; allocator {out['mem_before_mb']} -> "
+              f"{out['mem_after_mb']} MB (delta {out['hbm_delta_mb']} MB, "
+              f"gate < {ee.GATE_MB}), peak {out['peak_hbm_mb']} MB, "
+              f"reserved {out['live_device_before_mb']} -> "
+              f"{out['live_device_after_mb']} MB, the frames' graph pool "
+              f"{'not read' if pool is None else f'{pool / 1e6:.1f} MB'}, "
+              f"host RSS {out['rss_before_mb']} -> {out['rss_after_mb']} "
+              f"MB; frame programs {sorted(units, key=str)} "
+              f"({runner.captures} captures, {runner.route}); launches "
+              f"(eager, inside graph replays) {seen}, expected {want} (the "
+              f"warm call; {ENVELOPE_N} + 1 replayed frames, the warm "
               f"frame included); phase {wall:.1f} s [{smi}]", flush=True)
         if out["frames"] != ENVELOPE_N or out["o1_frame_memory"] is not True \
                 or out["o1_basis"] != "allocator":
             fail(f"envelope: the memory gate failed: {out}")
-        if per <= 0 or seen != want:
-            fail(f"envelope: launches {seen} != {want}")
+        if min(per.values()) <= 0 or seen != want or len(units) != 1 \
+                or runner.captures != 1:
+            fail(f"envelope: launches {seen} != {want}, or frame programs "
+                 f"{units} not one captured key")
         if not math.isfinite(res["psnr"]):
             fail(f"envelope: non-finite PSNR {res}")
+        turns = _envelope_turns(eng, runner, smi)
+        if runner.captures != 1:
+            fail(f"envelope: the timed sweeps captured again "
+                 f"({runner.captures} captures)")
+        print(f"envelope: phase {time.perf_counter() - t0:.1f} s with the "
+              f"timed sweeps; " + json.dumps({"traced": out["views_per_s"],
+                                              "turns": turns}), flush=True)
     finally:
         tf.tempdir = was_tmp
+    return {k: replayed[k] for k in names}
+
+
+def _envelope_turns(eng, runner, smi):
+    """views/s of the envelope's ENVELOPE_N-frame sweep (``evaluate_full``
+    end to end), untraced, the runner's capture off and on in turns →
+    [(mode, views/s)]."""
+    import torch
+    turns = []
+    was = runner.capturable
+    try:
+        for mode in ("eager", "captured", "captured", "eager"):
+            runner.capturable = was and mode == "captured"
+            eng._eval_cache = (None, None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.evaluate_full()
+            torch.cuda.synchronize()
+            turns.append((mode, ENVELOPE_N / (time.perf_counter() - t0)))
+    finally:
+        runner.capturable = was
+    e = statistics.mean(r for m, r in turns if m == "eager")
+    c = statistics.mean(r for m, r in turns if m == "captured")
+    print(f"envelope: {ENVELOPE_N} frames at 480x640 end to end, untraced, "
+          f"views/s in turns " + ", ".join(f"{m} {r:.3f}" for m, r in turns)
+          + f" (eager {e:.3f}, captured {c:.3f}) [{smi}]", flush=True)
+    return turns
+
 
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
@@ -4709,7 +5271,8 @@ def main():
         scan_phase(here, tmp, dev, smi)
         quality_phase(here, tmp, dev, smi)
         f7_phase(here, tmp, dev, smi)
-        envelope_phase(here, tmp, dev, smi)
+        eval_replays = list(frames_phase(here, tmp, dev, smi).values())
+        eval_replays.append(envelope_phase(here, tmp, dev, smi))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's count from the run of the path it was ported for
@@ -4731,13 +5294,17 @@ def main():
     path_of = dict({k: "train" for k in TEXTURE_KERNELS},
                    **{k: "pretrain" for k in PRETRAIN_KERNELS},
                    coarse_field_fwd="hierarchical",
-                   composite_coarse_fwd="two_kernel",
+                   composite_coarse_fwd="two_kernel", trunk_fwd="trunk",
                    **{k: "st_mega" for k in MEGA_KERNELS})
+    # and, apart and not in ``launches``, each kernel's replays in the
+    # captured frames of the frames and envelope phases (their device
+    # traces)
     for k in measured:
-        split = LAUNCH_SPLIT[path_of[k]][k] if k in path_of else {
-            "eager": launches[k], "replayed": 0}
+        split = LAUNCH_SPLIT[path_of[k]][k]
         measured[k]["launches_eager"] = split["eager"]
         measured[k]["launches_replayed"] = split["replayed"]
+        measured[k]["launches_eval_replayed"] = sum(
+            r.get(k, 0) for r in eval_replays)
 
     src = {"st_field_fwd": ("texpose_tpu_torch/csrc/st_field.cu",
                             "texpose_tpu/kernels/fused_st_field.py:922"),

@@ -54,6 +54,7 @@ from texpose_tpu.utils.checkpoint import tree_to_flat_dict
 from test_torch_pretrain_step import (jax_draws,
                                       jax_engine, port_engine, step_cfg)
 from test_torch_train_step import CHAIN_RTOL
+from torch_host_audit import host_reads
 
 K = 10
 B1, B2, RHO = 0.9, 0.999, 0.99
@@ -338,62 +339,9 @@ def test_rate_past_the_horizon_keeps_the_last():
     assert float(table[99]) < float(table[0])
 
 
-SYNCING = {"nonzero", "argwhere", "masked_select", "unique",
-           "unique_consecutive", "repeat_interleave", "inv", "solve",
-           "cholesky", "eigh", "svd", "lstsq", "lu_factor", "det",
-           "inverse", "bincount", "histc", "multinomial"}
-
-
-def _host_index(idx):
-    """Whether an index builds a host tensor (a list) or reads one back
-    (a boolean mask: its count decides the result's shape)."""
-    parts = idx if isinstance(idx, tuple) else (idx,)
-    return any(isinstance(x, list)
-               or (isinstance(x, torch.Tensor) and x.dtype == torch.bool)
-               for x in parts)
-
-
 def _host_reads(eng):
-    """The host interactions of one step: torch calls that build a tensor
-    from host data or without a device, index with a host list or a
-    boolean mask, read a tensor to the host, or whose result's size or
-    validity the host must read (on the card a synchronisation; on the
-    CPU the same calls, so the CPU shows them)."""
-    import traceback
-    from torch.overrides import TorchFunctionMode
-    factories = {torch.zeros, torch.ones, torch.full, torch.empty,
-                 torch.arange, torch.linspace, torch.rand, torch.randn,
-                 torch.randint, torch.randperm, torch.eye}
-    reads = {"item", "tolist", "numpy", "__bool__", "__float__", "__int__",
-             "cpu"}
-
-    class Audit(TorchFunctionMode):
-        hits = []
-
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            name = getattr(func, "__name__", str(func))
-            name = name[len("linalg_"):] if name.startswith("linalg_") \
-                else name
-            host = ((func in (torch.tensor, torch.from_numpy,
-                              torch.scalar_tensor))
-                    or (func is torch.as_tensor
-                        and not isinstance(args[0], torch.Tensor))
-                    or (func in factories and "device" not in kwargs)
-                    or name in reads or name in SYNCING
-                    or (func is torch.where and len(args) == 1)
-                    or (name in ("__getitem__", "__setitem__")
-                        and _host_index(args[1])))
-            if host:
-                where = traceback.extract_stack()[-2]
-                self.hits.append(f"{name} at {where.filename}:"
-                                 f"{where.lineno}")
-            return func(*args, **kwargs)
-
-    audit = Audit()
-    with audit:
-        eng.train_step(eng.make_draws(eng.it))
-    return audit.hits
+    """The host interactions of one step (``torch_host_audit``)."""
+    return host_reads(lambda: eng.train_step(eng.make_draws(eng.it)))
 
 
 @pytest.mark.parametrize("route", ["pretrain", "pretrain_c2f_noise",

@@ -18,8 +18,10 @@ freq.ckpt hooks after each dispatch at ``done = it + K``, where the JAX
 loop fires them; a dispatch returns its last step's losses.  On a card
 each step after a few eager warm-up steps is one replay of a captured
 CUDA graph (models/step_graph.py); on the CPU and under data parallelism
-the steps run eagerly.  Losses reach the host only at freq.scalar, where
-a non-finite one stops the run.
+the steps run eagerly.  Evaluation runs each frame program (render,
+metrics, PNG payload) through ``frame_runner()``, one captured CUDA graph
+a program on a card (models/frame_graph.py).  Losses reach the host only
+at freq.scalar, where a non-finite one stops the run.
 
 Data parallelism (``mesh``, a parallel.mesh.Mesh; the entry points build
 it under mesh.dp): every rank holds the same state on its own card, draws
@@ -287,10 +289,21 @@ class Engine:
         return self._runner
 
     def drop_step_graph(self):
-        """Forget the captured step (the state it was captured over was
-        replaced); the next dispatch warms up and captures anew."""
+        """Forget the captured step and the captured frames (the state
+        they were captured over was replaced); the next dispatch and the
+        next call of each frame program warm up and capture anew."""
         if getattr(self, "_runner", None) is not None:
             self._runner.drop()
+        if getattr(self, "_frames", None) is not None:
+            self._frames.drop()
+
+    def frame_runner(self):
+        """The runner of this engine's per-frame evaluation programs
+        (models/frame_graph.py), keyed as the JAX engine's jit cache."""
+        if getattr(self, "_frames", None) is None:
+            from .frame_graph import FrameRunner
+            self._frames = FrameRunner(self)
+        return self._frames
 
     # ------------------------------------------------------------- training
 

@@ -26,6 +26,9 @@ Evaluation: ``validate`` renders val_sub whole frames and logs the losses
 and PSNR; ``evaluate_full`` renders every eval frame from a compact uint8
 payload, with PSNR/SSIM/LPIPS, an RGB and an opacity PNG per frame and
 quant.txt.  Both render the coarse field only, as the JAX package's.
+Each frame program (``render_frame_body``, ``eval_compact_body``,
+``eval_metrics_body``) is, on a card, one captured CUDA graph a JAX cache
+key (models/frame_graph.py).
 ``generate_videos_synthesis`` (``evaluate --video``) renders an N-frame
 novel-view orbit around eval frame 0 through the same whole-frame render,
 and ``visualize`` (the freq.vis hook) eval frame 0's panels.
@@ -44,6 +47,7 @@ from __future__ import annotations
 import os
 import subprocess
 from collections import deque
+from functools import partial
 
 import cv2
 import numpy as np
@@ -52,13 +56,13 @@ from torch.profiler import record_function
 
 from ..geometry.pose import get_novel_view_poses
 from ..nn.fields import init_nerf
-from ..nn.lpips import lpips_distance
+from ..ops.consts import device_const
 from ..parallel.mesh import render_full_nerf_sharded
-from ..ops.ssim import ssim
 from ..utils import checkpoint as ckpt
 from ..utils import vis
 from ..utils.log import log
-from ..utils.metrics import mse_to_psnr, write_quant
+from ..utils.metrics import (frame_metrics, mse_to_psnr, png_bgr,
+                             write_quant)
 from ..utils.pipeline import AsyncWriter
 from .base import Engine, compute_dtype
 from .losses import (masked_mse_loss, mse_loss, scale_invariant_depth_loss,
@@ -66,6 +70,52 @@ from .losses import (masked_mse_loss, mse_loss, scale_invariant_depth_loss,
 from .optim import make_pretrain_optimizer
 from .render import (ray_batch_sample, render_full_nerf, render_rays_nerf,
                      render_rays_nerf_hierarchical)
+
+
+# ------------------------------------------------------------ frame bodies
+# The per-frame programs of evaluation, functions of tensors only (the JAX
+# engine's jitted bodies; models/frame_graph.py runs them, captured on a
+# card).  The statics come first, bound by the engine.
+
+def render_frame_body(nerf, cfg, pose, intr, z_near, z_far, progress):
+    """Whole-frame coarse render → dict of [1,HW,C] (JAX's
+    ``_render_jit``); ``progress`` a device scalar (validation's c2f
+    progress, 1 elsewhere)."""
+    return render_full_nerf(nerf, cfg, pose, intr, z_near, z_far, progress,
+                            compute_dtype(cfg))
+
+
+def frame_payloads(lpips_params, rgb, opac, img):
+    """rgb/img [H,W,3] (img masked), opac [H,W] → (psnr, ssim, lpips, BGR
+    uint8 [H,W,3], opacity uint8 [H,W])."""
+    p, s, lp, _ = frame_metrics(lpips_params, rgb, img, None)
+    png_op = (torch.clamp(opac, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return p, s, lp, png_bgr(rgb), png_op
+
+
+def eval_metrics_body(cfg, lpips_params, rgb_flat, opac_flat, image,
+                      obj_mask):
+    """A standard-payload frame's metrics and PNG payloads (JAX's
+    ``_eval_metrics_fn`` program)."""
+    mask = obj_mask.reshape(cfg.H, cfg.W, 1).float()
+    img = image.reshape(3, cfg.H, cfg.W).permute(1, 2, 0) * mask
+    return frame_payloads(lpips_params, rgb_flat.reshape(cfg.H, cfg.W, 3),
+                          opac_flat.reshape(cfg.H, cfg.W), img)
+
+
+def eval_compact_body(nerf, cfg, lpips_params, pose, intr, z_near, z_far,
+                      image_u8, mask_u8):
+    """A compact-payload frame in one program (JAX's ``_eval_compact_fn``):
+    the whole-frame render, the metrics and the PNG payloads from the
+    uint8 image and mask."""
+    out = render_full_nerf(nerf, cfg, pose, intr, z_near, z_far,
+                           device_const(1.0, torch.float32, pose.device),
+                           compute_dtype(cfg))
+    mask = mask_u8.reshape(cfg.H, cfg.W, 1).float()
+    img = image_u8.reshape(3, cfg.H, cfg.W).permute(1, 2, 0).float() \
+        / 255.0 * mask
+    return frame_payloads(lpips_params, out["rgb"].reshape(cfg.H, cfg.W, 3),
+                          out["opacity"].reshape(cfg.H, cfg.W), img)
 
 
 class PretrainEngine(Engine):
@@ -315,15 +365,20 @@ class PretrainEngine(Engine):
     # ------------------------------------------------------------ validation
 
     def _render_frame(self, frame, progress=None):
-        """Whole-frame render of a [1,...] frame → dict of [1,HW,C], the
-        rays sharded over the ranks under data parallelism."""
-        args = (self.nerf, self.cfg, frame["pose"], frame["intr"],
-                frame["z_near"], frame["z_far"],
-                1.0 if progress is None else progress,
-                compute_dtype(self.cfg))
+        """Whole-frame render of a [1,...] frame → dict of [1,HW,C]: the
+        ``("frame", H, W)`` program (``render_frame_body``), or, under
+        data parallelism, the rays sharded over the ranks."""
+        cfg = self.cfg
+        progress = 1.0 if progress is None else float(progress)
+        args = dict(pose=frame["pose"], intr=frame["intr"],
+                    z_near=frame["z_near"], z_far=frame["z_far"])
         if self.mesh is not None:
-            return render_full_nerf_sharded(self.mesh, *args)
-        return render_full_nerf(*args)
+            return render_full_nerf_sharded(self.mesh, self.nerf, cfg,
+                                            *args.values(), progress,
+                                            compute_dtype(cfg))
+        return self.frame_runner().run(
+            ("frame", cfg.H, cfg.W), partial(render_frame_body, self.nerf,
+                                             cfg), progress=progress, **args)
 
     def validate(self, it):
         cfg = self.cfg
@@ -433,28 +488,26 @@ class PretrainEngine(Engine):
 
     def _eval_frame_metrics(self, frame):
         """One frame's render, metrics and PNG payloads on the device →
-        (psnr, ssim, lpips, BGR uint8 [H,W,3], opacity uint8 [H,W])."""
+        (psnr, ssim, lpips, BGR uint8 [H,W,3], opacity uint8 [H,W]): the
+        compact payload's ``("evalcompact",)`` program, else the
+        ``("frame", H, W)`` render and the ``("evalmetrics",)`` program
+        (eager under data parallelism)."""
         cfg = self.cfg
         lpips_params, _ = self._ensure_lpips()
-        out = self._render_frame(frame)
-        rgb = out["rgb"].reshape(cfg.H, cfg.W, 3)
-        opac = out["opacity"].reshape(cfg.H, cfg.W)
         if "image_u8" in frame:
-            mask = frame["obj_mask_u8"].reshape(cfg.H, cfg.W, 1).float()
-            img = frame["image_u8"].reshape(3, cfg.H, cfg.W).permute(
-                1, 2, 0).float() / 255.0 * mask
-        else:
-            mask = frame["obj_mask"].reshape(cfg.H, cfg.W, 1).float()
-            img = frame["image"].reshape(3, cfg.H, cfg.W).permute(1, 2, 0) \
-                * mask
-        p = mse_to_psnr(((rgb - img) ** 2).mean())
-        rgb_t = rgb.permute(2, 0, 1)[None]
-        img_t = img.permute(2, 0, 1)[None]
-        s = ssim(rgb_t, img_t)
-        lp = lpips_distance(lpips_params, rgb_t * 2 - 1, img_t * 2 - 1).mean()
-        png = (torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8).flip(-1)
-        png_op = (torch.clamp(opac, 0.0, 1.0) * 255.0).to(torch.uint8)
-        return p, s, lp, png, png_op
+            return self.frame_runner().run(
+                ("evalcompact",),
+                partial(eval_compact_body, self.nerf, cfg, lpips_params),
+                pose=frame["pose"], intr=frame["intr"],
+                z_near=frame["z_near"], z_far=frame["z_far"],
+                image_u8=frame["image_u8"], mask_u8=frame["obj_mask_u8"])
+        out = self._render_frame(frame)
+        body = partial(eval_metrics_body, cfg, lpips_params)
+        args = dict(rgb_flat=out["rgb"], opac_flat=out["opacity"],
+                    image=frame["image"], obj_mask=frame["obj_mask"])
+        if self.mesh is not None:
+            return body(**args)
+        return self.frame_runner().run(("evalmetrics",), body, **args)
 
     def evaluate_full(self):
         """Render every eval frame, metric it, export an RGB and an opacity

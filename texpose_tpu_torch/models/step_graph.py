@@ -34,7 +34,11 @@ reader between dispatches — validate, visualize, save_checkpoint —
 rebuilds them from the current values).  The runner holds every pack the
 graph was captured over, so an eager rebuild never frees storage the graph
 reads.  Loading a train state drops the graph (``Engine.drop_step_graph``):
-the next dispatch warms up and captures again.
+the next dispatch warms up and captures again.  So does a change of a
+switch the step reads (``route_key``: the kernel gates, the TEXPOSE_*
+environment, cuDNN's and the matmuls' flags, cfg.nerf, the compute dtype):
+``follow_route``, which the frame runner (models/frame_graph.py) calls
+too, drops a runner's graphs when the key moved since they were captured.
 
 A step that cannot be captured raises at capture, naming the engine and
 its route; it never falls back to eager steps.
@@ -42,6 +46,7 @@ its route; it never falls back to eager steps.
 
 from __future__ import annotations
 
+import json
 import os
 
 import torch
@@ -63,6 +68,32 @@ def route_name(engine):
     if os.environ.get("TEXPOSE_MEGA_FULLBWD") == "1":
         parts.append("TEXPOSE_MEGA_FULLBWD=1")
     return " ".join(parts)
+
+
+def route_key(engine):
+    """Every switch a captured program of the engine reads besides its
+    inputs: the kernel gates (``route_name``), the TEXPOSE_* environment,
+    cuDNN's and the matmuls' algorithm flags, cfg.nerf and the compute
+    dtype."""
+    cfg = engine.cfg
+    env = " ".join(f"{k}={v}" for k, v in sorted(os.environ.items())
+                   if k.startswith("TEXPOSE_"))
+    cudnn, tf32 = torch.backends.cudnn, torch.backends.cuda.matmul.allow_tf32
+    env += (f" cudnn={cudnn.deterministic},{cudnn.benchmark},"
+            f"{cudnn.allow_tf32} tf32={tf32}")
+    return (f"{route_name(engine)} {env} compute_dtype="
+            f"{cfg.get('compute_dtype', 'float32')} nerf="
+            + json.dumps(cfg.get("nerf"), sort_keys=True, default=str))
+
+
+def follow_route(runner):
+    """Drop ``runner``'s captured graphs (``runner.drop()``) when its
+    engine's ``route_key`` moved since they were captured, so a graph never
+    replays another route."""
+    key = route_key(runner.engine)
+    if key != runner.key:
+        runner.drop()
+        runner.key = key
 
 
 def bump_versions(tensors):
@@ -90,17 +121,21 @@ class StepRunner:
     def __init__(self, engine):
         self.engine = engine
         self.captures = 0
-        if engine.device.type != "cuda":
-            self.route = f"eager steps on {engine.device}"
-        elif engine.mesh is not None:
-            self.route = ("eager steps under mesh.dp (a step's NCCL "
-                          "collectives are not captured)")
-        else:
-            self.route = (f"one captured CUDA graph a step after "
-                          f"{WARMUP_STEPS} eager warm-up steps "
-                          f"({route_name(engine)})")
+        self.key = None
         self.capturable = engine.device.type == "cuda" and engine.mesh is None
         self.drop()
+
+    @property
+    def route(self):
+        """How the steps run, for the logs."""
+        eng = self.engine
+        if eng.device.type != "cuda":
+            return f"eager steps on {eng.device}"
+        if eng.mesh is not None:
+            return ("eager steps under mesh.dp (a step's NCCL collectives "
+                    "are not captured)")
+        return (f"one captured CUDA graph a step after {WARMUP_STEPS} eager "
+                f"warm-up steps ({route_name(eng)})")
 
     def drop(self):
         """Forget the captured step; the next dispatch warms up again."""
@@ -116,6 +151,7 @@ class StepRunner:
         ``make_draws``)."""
         eng = self.engine
         make_draws = make_draws or eng.make_draws
+        follow_route(self)
         loss, replayed = None, False
         for _ in range(k):
             if (self.graph is None and self.capturable

@@ -18,7 +18,10 @@ and PNG export (``evaluate.py --syn2real``).
 Per frame, with the shipped config: top-k pose-neighbour light latent on
 the host, the object rays only (bucketed to a multiple of the 2048-ray
 chunk), each chunk through the ST-field kernel and the composite kernel,
-then scatter, metrics and the PNG payload on the device.  Frame i+1 loads
+then scatter, metrics and the PNG payload on the device: one frame
+program (``eval_compact_body``; the masked, whole-frame and metrics
+bodies for the other routes), on a card one captured CUDA graph a JAX
+cache key (models/frame_graph.py).  Frame i+1 loads
 and uploads on a worker thread while frame i renders; results are pulled
 one frame behind the dispatch; PNG encodes run on a writer thread.  The
 paper-visual export (``--data.scene=scene_vis``) renders whole frames and
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import os
 from collections import deque
+from functools import partial
 
 import cv2
 import numpy as np
@@ -51,8 +55,8 @@ from ..nn.discriminator import (apply_discriminator, init_discriminator,
 from ..nn.fields import init_nerf_st
 from ..nn.lpips import lpips_distance
 from ..nn.vgg import init_vgg19, load_vgg19_npz, perceptual_loss_pairs
+from ..ops.consts import device_const
 from ..ops.grid_sample import grid_sample
-from ..ops.image import resize_bilinear
 from ..ops.ssim import ssim
 from ..parallel.mesh import (masked_ray_indices_sharded,
                              render_full_nerf_st_sharded,
@@ -63,7 +67,8 @@ from ..sampling.ray_sampler import get_bounds, get_rays
 from ..utils import checkpoint as ckpt
 from ..utils import vis
 from ..utils.log import log
-from ..utils.metrics import mse_to_psnr, write_quant
+from ..utils.metrics import (frame_metrics, mse_to_psnr, png_bgr,
+                             write_quant)
 from ..utils.pipeline import AsyncWriter, to_device
 from .base import Engine, compute_dtype
 from .losses import (gan_loss, lab_loss, mean_term, mse_loss, r1_penalty,
@@ -114,6 +119,76 @@ def sample_patch_images(cfg, batch, coords):
             out[key] = grid_sample(batch[src], coords, "bilinear",
                                    align_corners=True) * out["mask_syn"]
     return out
+
+
+# ------------------------------------------------------------ frame bodies
+# The per-frame programs of evaluation, functions of tensors only (the JAX
+# engine's jitted bodies; models/frame_graph.py runs them, captured on a
+# card).  The statics come first, bound by the engine: the field, the
+# config, LPIPS's parameters, raw_hw.
+
+def _one(device):
+    """The c2f progress of evaluation (JAX's ``jnp.asarray(1.0)``)."""
+    return device_const(1.0, torch.float32, device)
+
+
+def render_masked_body(nerf, cfg, pose, intr, z_near, z_far, lt, ll, idx,
+                       obj_mask):
+    """The object rays ``idx`` [P] (a bucketed, padded index set) of a
+    whole frame, then the reference's defaults elsewhere → dict of
+    [1,HW,C] (JAX's ``("masked", P)`` program and ``scatter_masked_st``)."""
+    zn, zf = (z.reshape(1, -1)[:, idx] for z in (z_near, z_far))
+    out = render_rays_masked_st_pre(
+        nerf, cfg, pose, intr, idx, zn, zf, lt, ll,
+        progress=_one(pose.device), compute_dtype=compute_dtype(cfg),
+        chunk=int(cfg.nerf.rand_rays))
+    return scatter_masked_st(cfg, out, idx,
+                             (obj_mask.reshape(1, -1) > 0).float())
+
+
+def render_full_body(nerf, cfg, pose, intr, z_near, z_far, lt, ll, obj_mask):
+    """Every ray of a whole frame, the reference's defaults outside
+    obj_mask → dict of [1,HW,C] (JAX's ``_render_jit``)."""
+    return render_full_nerf_st(
+        nerf, cfg, pose, intr, z_near, z_far, lt, ll,
+        progress=_one(pose.device), compute_dtype=compute_dtype(cfg),
+        obj_mask=(obj_mask.reshape(1, -1) > 0).float())
+
+
+def eval_metrics_body(cfg, lpips_params, raw_hw, rgb_flat, image, obj_mask):
+    """A standard-payload frame's metrics → (psnr, ssim, lpips, the full
+    BGR uint8 frame) (JAX's ``("evalmetrics", raw_hw)`` program)."""
+    rgb = rgb_flat.reshape(cfg.H, cfg.W, 3)
+    mask = obj_mask.reshape(cfg.H, cfg.W, 1).float()
+    img = image.reshape(3, cfg.H, cfg.W).permute(1, 2, 0) * mask
+    p, s, lp, rgb = frame_metrics(lpips_params, rgb, img, raw_hw)
+    return p, s, lp, png_bgr(rgb)
+
+
+def eval_compact_body(nerf, cfg, lpips_params, raw_hw, pose, intr, zn, zf,
+                      lt, ll, idx, img_sparse_u8):
+    """A compact-payload frame in one program (JAX's ``("evalcompact",
+    raw_hw, P)``): the masked render from the pre-gathered bounds, the
+    scatter, the metrics → (psnr, ssim, lpips, png): the sparse [P,3] RGB
+    uint8 object colors, or the full resized BGR frame when raw_hw
+    differs.  ``idx`` is the object-pixel set padded with in-set
+    duplicates, whose renders are equal, so the scatters are
+    deterministic."""
+    HW = cfg.H * cfg.W
+    out = render_rays_masked_st_pre(
+        nerf, cfg, pose, intr, idx, zn, zf, lt, ll,
+        progress=_one(pose.device), compute_dtype=compute_dtype(cfg),
+        chunk=int(cfg.nerf.rand_rays))
+    vals = out["rgb_static"][0]                                    # [P,3]
+    rgb = torch.zeros((HW, 3), device=vals.device)
+    rgb[idx] = vals
+    img = torch.zeros((HW, 3), device=vals.device)
+    img[idx] = img_sparse_u8.float() / 255.0
+    p, s, lp, rgb = frame_metrics(lpips_params, rgb.reshape(cfg.H, cfg.W, 3),
+                                  img.reshape(cfg.H, cfg.W, 3), raw_hw)
+    if raw_hw is not None and tuple(raw_hw) != (cfg.H, cfg.W):
+        return p, s, lp, png_bgr(rgb)
+    return p, s, lp, (torch.clamp(vals, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
 class TextureGANEngine(Engine):
@@ -823,68 +898,54 @@ class TextureGANEngine(Engine):
                          else frame["obj_mask"].cpu()).reshape(-1)
         coverage = float((obj > 0).mean())
         chunk = int(cfg.nerf.rand_rays)
-        lt, ll = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
-                  for x in (latent_trans, latent_light))
-        cdt = compute_dtype(cfg)
-        obj_f = (frame["obj_mask"].reshape(1, -1) > 0).float()
+        args = dict(pose=frame["pose"], intr=frame["intr"],
+                    z_near=frame["z_near"], z_far=frame["z_far"],
+                    lt=latent_trans, ll=latent_light,
+                    obj_mask=frame["obj_mask"])
         if self.mesh is not None:
-            args = (self.nerf, cfg, frame["pose"], frame["intr"],
-                    frame["z_near"], frame["z_far"], lt, ll)
-            if 0 < coverage < 0.5:
-                idx_p, _ = masked_ray_indices_sharded(obj, chunk,
-                                                      self.mesh.size)
-                idx = torch.as_tensor(idx_p, device=self.device)
-                out = render_masked_nerf_st_sharded(
-                    self.mesh, *args, idx, progress=1.0, compute_dtype=cdt,
-                    chunk=chunk)
-                return scatter_masked_st(cfg, out, idx, obj_f)
-            return render_full_nerf_st_sharded(
-                self.mesh, *args, progress=1.0, compute_dtype=cdt,
-                chunk=chunk, obj_mask=obj_f)
+            return self._render_frame_st_sharded(obj, coverage, chunk, **args)
+        runner = self.frame_runner()
         if 0 < coverage < 0.5:
             idx_p, _ = masked_ray_indices(obj, chunk)
+            return runner.run(("masked", len(idx_p)),
+                              partial(render_masked_body, self.nerf, cfg),
+                              idx=idx_p, **args)
+        return runner.run(("full", cfg.H, cfg.W),
+                          partial(render_full_body, self.nerf, cfg), **args)
+
+    def _render_frame_st_sharded(self, obj, coverage, chunk, pose, intr,
+                                 z_near, z_far, lt, ll, obj_mask):
+        """The whole-frame render under data parallelism, eager: the ranks
+        share the padded object-ray set (coverage in (0, 0.5)) or H·W."""
+        cfg = self.cfg
+        lt, ll = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                  for x in (lt, ll))
+        cdt = compute_dtype(cfg)
+        obj_f = (obj_mask.reshape(1, -1) > 0).float()
+        args = (self.nerf, cfg, pose, intr, z_near, z_far, lt, ll)
+        if 0 < coverage < 0.5:
+            idx_p, _ = masked_ray_indices_sharded(obj, chunk, self.mesh.size)
             idx = torch.as_tensor(idx_p, device=self.device)
-            zn, zf = (frame[k].reshape(1, -1)[:, idx]
-                      for k in ("z_near", "z_far"))
-            out = render_rays_masked_st_pre(
-                self.nerf, cfg, frame["pose"], frame["intr"], idx, zn, zf,
-                lt, ll, progress=1.0, compute_dtype=cdt, chunk=chunk)
+            out = render_masked_nerf_st_sharded(
+                self.mesh, *args, idx, progress=1.0, compute_dtype=cdt,
+                chunk=chunk)
             return scatter_masked_st(cfg, out, idx, obj_f)
-        return render_full_nerf_st(
-            self.nerf, cfg, frame["pose"], frame["intr"], frame["z_near"],
-            frame["z_far"], lt, ll, progress=1.0, compute_dtype=cdt,
+        return render_full_nerf_st_sharded(
+            self.mesh, *args, progress=1.0, compute_dtype=cdt, chunk=chunk,
             obj_mask=obj_f)
 
     # -------------------------------------------------------------- metrics
 
-    def _metrics(self, rgb, img, raw_hw):
-        """rgb/img [H,W,3] (img already masked) → (psnr, ssim, lpips,
-        rgb) as device tensors, upscaled to raw_hw first when it differs
-        (cv2.INTER_LINEAR float semantics)."""
-        cfg = self.cfg
-        lpips_params, _ = self._ensure_lpips()
-        if raw_hw is not None and tuple(raw_hw) != (cfg.H, cfg.W):
-            rgb = resize_bilinear(rgb, tuple(raw_hw))
-            img = resize_bilinear(img, tuple(raw_hw))
-        p = mse_to_psnr(((rgb - img) ** 2).mean())
-        rgb_t = rgb.permute(2, 0, 1)[None]
-        img_t = img.permute(2, 0, 1)[None]
-        s = ssim(rgb_t, img_t)
-        lp = lpips_distance(lpips_params, rgb_t * 2 - 1, img_t * 2 - 1).mean()
-        return p, s, lp, rgb
-
-    @staticmethod
-    def _png_bgr(rgb):
-        return (torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8).flip(-1)
-
     def _eval_metrics(self, rgb_flat, image, obj_mask, raw_hw):
-        """Standard-payload frame: (psnr, ssim, lpips, full BGR uint8)."""
-        cfg = self.cfg
-        rgb = rgb_flat.reshape(cfg.H, cfg.W, 3)
-        mask = obj_mask.reshape(cfg.H, cfg.W, 1).float()
-        img = image.reshape(3, cfg.H, cfg.W).permute(1, 2, 0) * mask
-        p, s, lp, rgb = self._metrics(rgb, img, raw_hw)
-        return p, s, lp, self._png_bgr(rgb)
+        """Standard-payload frame: (psnr, ssim, lpips, full BGR uint8),
+        the ``("evalmetrics", raw_hw)`` program (eager under data
+        parallelism)."""
+        body = partial(eval_metrics_body, self.cfg, self._ensure_lpips()[0],
+                       raw_hw)
+        args = dict(rgb_flat=rgb_flat, image=image, obj_mask=obj_mask)
+        if self.mesh is not None:
+            return body(**args)
+        return self.frame_runner().run(("evalmetrics", raw_hw), body, **args)
 
     # The compact payload: the object-ray subset only — [P,3] uint8 GT
     # pixels (the dataset images are uint8/255 PNGs and every metric
@@ -924,36 +985,20 @@ class TextureGANEngine(Engine):
         return transform
 
     def _eval_compact(self, frame, lt, ll, raw_hw):
-        """Compact-payload frame: masked render from the pre-gathered
-        bounds, scatter, metrics → (psnr, ssim, lpips, png) where png is the
-        sparse [P,3] RGB uint8 object colors, or the full resized BGR frame
-        when raw_hw differs."""
-        cfg = self.cfg
-        HW = cfg.H * cfg.W
-        idx = frame["idx"]
-        out = render_rays_masked_st_pre(
-            self.nerf, cfg, frame["pose"], frame["intr"], idx,
-            frame["z_near_pre"], frame["z_far_pre"],
-            torch.as_tensor(lt, dtype=torch.float32, device=self.device),
-            torch.as_tensor(ll, dtype=torch.float32, device=self.device),
-            progress=1.0, compute_dtype=compute_dtype(cfg),
-            chunk=int(cfg.nerf.rand_rays))
-        vals = out["rgb_static"][0]                                # [P,3]
-        rgb = torch.zeros((HW, 3), device=self.device)
-        rgb[idx] = vals
-        img = torch.zeros((HW, 3), device=self.device)
-        img[idx] = frame["image_sparse_u8"].float() / 255.0
-        p, s, lp, rgb = self._metrics(rgb.reshape(cfg.H, cfg.W, 3),
-                                      img.reshape(cfg.H, cfg.W, 3), raw_hw)
-        if raw_hw is not None and tuple(raw_hw) != (cfg.H, cfg.W):
-            return p, s, lp, self._png_bgr(rgb)
-        return p, s, lp, (torch.clamp(vals, 0.0, 1.0) * 255.0
-                          ).to(torch.uint8)
+        """Compact-payload frame → (psnr, ssim, lpips, png), the
+        ``("evalcompact", raw_hw, P)`` program (``eval_compact_body``)."""
+        body = partial(eval_compact_body, self.nerf, self.cfg,
+                       self._ensure_lpips()[0], raw_hw)
+        return self.frame_runner().run(
+            ("evalcompact", raw_hw, frame["idx"].shape[0]), body,
+            pose=frame["pose"], intr=frame["intr"], zn=frame["z_near_pre"],
+            zf=frame["z_far_pre"], lt=lt, ll=ll, idx=frame["idx"],
+            img_sparse_u8=frame["image_sparse_u8"])
 
     def warm_eval(self, i=0):
         """Run eval frame i's whole pipeline once (kernel builds, weight
-        packing, first-call allocations) so a timed sweep measures the
-        steady state."""
+        packing, first-call allocations, and on a card the capture of its
+        frame programs) so a timed sweep measures the steady state."""
         cfg = self.cfg
         sample = self.eval_data[i]
         raw_hw = getattr(self.eval_data, "raw_hw", None)

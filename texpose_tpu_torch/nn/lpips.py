@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.consts import device_const
+
 # (kernel, in, out, stride, pad); 3/2 max-pool before convs 1 and 2
 ALEX_CONVS = [(11, 3, 64, 4, 2), (5, 64, 192, 1, 2), (3, 192, 384, 1, 1),
               (3, 384, 256, 1, 1), (3, 256, 256, 1, 1)]
@@ -79,8 +81,8 @@ def _unit_normalize(x, eps=1e-10):
 
 def lpips_distance(params, x, y):
     """x, y [B,3,H,W] in [-1,1] → [B] perceptual distances."""
-    shift = torch.tensor(SHIFT, dtype=x.dtype, device=x.device)[:, None, None]
-    scale = torch.tensor(SCALE, dtype=x.dtype, device=x.device)[:, None, None]
+    shift = device_const(SHIFT, x.dtype, x.device)[:, None, None]
+    scale = device_const(SCALE, x.dtype, x.device)[:, None, None]
     fx = _alex_features(params["convs"], (x - shift) / scale)
     fy = _alex_features(params["convs"], (y - shift) / scale)
     total = 0.0

@@ -5,6 +5,8 @@ columns."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -20,17 +22,24 @@ def _axis_weights(src_size, dst_size):
     return i0, i1, w1
 
 
+@functools.lru_cache(maxsize=None)
+def _axis_tables(src_size, dst_size, device):
+    """``_axis_weights`` as device tensors, made once per (sizes, device)
+    and kept: a resize makes no host→device copy (a captured frame reads
+    them where they were at capture)."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in _axis_weights(src_size, dst_size))
+
+
 def resize_bilinear(img, out_hw):
     """img [H,W,C] (or [H,W]) float → [out_H,out_W,(C)]."""
     H, W = img.shape[0], img.shape[1]
     oH, oW = int(out_hw[0]), int(out_hw[1])
     if (oH, oW) == (H, W):
         return img
-    dev = img.device
-    r0, r1, rw = (torch.as_tensor(a, device=dev)
-                  for a in _axis_weights(H, oH))
-    c0, c1, cw = (torch.as_tensor(a, device=dev)
-                  for a in _axis_weights(W, oW))
+    r0, r1, rw = _axis_tables(H, oH, img.device)
+    c0, c1, cw = _axis_tables(W, oW, img.device)
     rw = rw.reshape(oH, *([1] * (img.ndim - 1)))
     cw = cw.reshape(1, oW, *([1] * (img.ndim - 2)))
     rows = img[r0] * (1 - rw) + img[r1] * rw

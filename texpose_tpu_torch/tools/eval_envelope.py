@@ -4,6 +4,10 @@ tools/bench_eval_envelope.py): a 1869-frame 480x640 syn2real test split
 ``evaluate_full`` end to end — per frame disk load → device → masked
 render → metrics → PNG — timing the whole sweep and asserting that device
 memory stays O(1 frame), the streaming contract of ``models/base.py``.
+On a card every frame is one replay of its captured frame program
+(models/frame_graph.py), captured by the warm frame; the sweep's kernel
+launches are counted from a device trace (chip_smoke.py's phase 14), not
+by the wrappers, which count only the warm call.
 
     python -m texpose_tpu_torch.tools.eval_envelope              (the card)
     EVAL_N=8 EVAL_HW=96,128 python -m texpose_tpu_torch.tools.eval_envelope \\

@@ -1,6 +1,7 @@
-"""Image metrics, the quant.txt dump, the metrics.jsonl writer (with
-TensorBoard scalars and images) and the step timer (port of
-texpose_tpu/utils/metrics.py, which imports jax)."""
+"""Image metrics (a frame's PSNR/SSIM/LPIPS and its PNG payload, as the
+captured frame programs compute them), the quant.txt dump, the
+metrics.jsonl writer (with TensorBoard scalars and images) and the step
+timer (port of texpose_tpu/utils/metrics.py, which imports jax)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,10 @@ import time
 
 import numpy as np
 import torch
+
+from ..nn.lpips import lpips_distance
+from ..ops.image import resize_bilinear
+from ..ops.ssim import ssim
 
 
 def psnr(pred, target, mask=None):
@@ -28,6 +33,26 @@ def psnr(pred, target, mask=None):
 
 def mse_to_psnr(mse):
     return -10.0 * torch.log10(torch.as_tensor(mse) + 1e-10)
+
+
+def frame_metrics(lpips_params, rgb, img, raw_hw):
+    """rgb/img [H,W,3] (img already masked) → (psnr, ssim, lpips, rgb) as
+    device tensors, upscaled to raw_hw first when it differs
+    (cv2.INTER_LINEAR float semantics)."""
+    if raw_hw is not None and tuple(raw_hw) != tuple(rgb.shape[:2]):
+        rgb = resize_bilinear(rgb, tuple(raw_hw))
+        img = resize_bilinear(img, tuple(raw_hw))
+    p = mse_to_psnr(((rgb - img) ** 2).mean())
+    rgb_t = rgb.permute(2, 0, 1)[None]
+    img_t = img.permute(2, 0, 1)[None]
+    s = ssim(rgb_t, img_t)
+    lp = lpips_distance(lpips_params, rgb_t * 2 - 1, img_t * 2 - 1).mean()
+    return p, s, lp, rgb
+
+
+def png_bgr(rgb):
+    """[...,3] RGB in [0,1] → BGR uint8."""
+    return (torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8).flip(-1)
 
 
 def write_quant(output_path, rows):

@@ -95,15 +95,29 @@ def _union_ms(intervals):
     return total / 1e3
 
 
+def trace_events(prof):
+    """A finished profile's events as (device type, correlation id, name,
+    start ns, end ns, user annotation) tuples, read from the profiler's
+    raw results: building its event tree (``prof.events()``) takes tens
+    of seconds over the 10^5 kernels of a traced sweep."""
+    res = getattr(prof.profiler, "kineto_results", None)
+    if res is None:
+        raise RuntimeError("the profiler keeps no kineto_results to read "
+                           "the trace from")
+    return [(e.device_type(), e.correlation_id(), e.name(), e.start_ns(),
+             e.end_ns(), getattr(e, "is_user_annotation", lambda: False)())
+            for e in res.events()]
+
+
 def _device_intervals(prof):
-    """[start, end) of every device event that is a kernel or a copy: the
-    GPU-side spans of user ranges (``record_function``) cover idle gaps
+    """[start, end) µs of every device event that is a kernel or a copy:
+    the GPU-side spans of user ranges (``record_function``) cover idle gaps
     and are left out."""
     from torch.autograd import DeviceType
-    return [(e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("step/")]
+    return [(start / 1e3, end / 1e3)
+            for dev, _, name, start, end, user in trace_events(prof)
+            if dev == DeviceType.CUDA and not user
+            and not name.startswith("step/")]
 
 
 def _median_ms(fn, reps=5):
@@ -160,6 +174,7 @@ def frame_times(engine):
     import torch
     from texpose_tpu_torch.models.base import compute_dtype
     from texpose_tpu_torch.models.render import render_rays_masked_st_pre
+    from texpose_tpu_torch.utils.metrics import frame_metrics
     from texpose_tpu_torch.utils.pipeline import to_device
 
     cfg = engine.cfg
@@ -192,8 +207,9 @@ def frame_times(engine):
         both = _median_ms(lambda: float(engine._eval_compact(
             frame, lt, ll, raw_hw)[0]))
         r_ms = _median_ms(render)
-        m_ms = _median_ms(lambda: float(engine._metrics(rgb, img,
-                                                        raw_hw)[0]))
+        lpips = engine._ensure_lpips()[0]
+        m_ms = _median_ms(lambda: float(frame_metrics(lpips, rgb, img,
+                                                      raw_hw)[0]))
     print(f"frame: compact frame 0 ({len(payload['idx'])} rays) render + "
           f"metrics {both:.1f} ms; render only {r_ms:.1f} ms; metrics only "
           f"{m_ms:.1f} ms", flush=True)

@@ -301,6 +301,28 @@ Phases; any failure exits non-zero and no result line is printed:
      frame, the idle share, kernel and graph launches a frame; (e) the
      allocator's growth over a captured sweep (< 512 MB) and the graph
      pool's bytes; all beside the card's name and power limit.
+  sections (between the frames phase and phase 14): the port's
+     decomposition tools at full width (``sections_phase``):
+     texpose_tpu_torch/tools/step_sections.py's chained sections S1, S2,
+     S8, S9, S0 and S3 (each body chained D_LO and D_HI times in one
+     captured CUDA graph, replays timed with CUDA events, the marginal ms
+     a body) and S5 (the captured GAN step through its runner, best of
+     its dispatches over K); its split of the captured GAN, pretrain and
+     hierarchical steps and of the rows 1 + 3 (480x640) and row 8
+     (480x480) frames into device ms by kernel group (one eager run in
+     named stages aligned with the replays' kernels under a device
+     trace); the trace's own cost (the GAN step and the 480x640 frames
+     untraced / traced / traced / untraced); eval_stages.py's stages of
+     STAGE_FRAMES captured 480x640 frames beside sync_loop and
+     pipe_loop.  It fails when a marginal is not a positive number, S1
+     parts from row 1's CUDA-event time (the field op it chains, one call
+     behind a device spin) by more than SEC_ROW1_REL or S5 (under the
+     scan phase's deterministic cuDNN) from the scan phase's captured
+     step by more than SEC_STEP_REL, a replayed
+     kernel lands in no group or in two, "other" exceeds SEC_OTHER of a
+     program's busy ms, or the frame's stages part from sync_loop by more
+     than SEC_STAGES_REL; every reading beside the card's name and power
+     limit.
   14. the evaluation envelope (texpose_tpu_torch/tools/eval_envelope.py):
      the tool's sweep of ENVELOPE_N frames of the cycled 1869-frame split
      at 480x640 on its 16/1-view fixture (disk → card → masked render →
@@ -317,7 +339,9 @@ Prints the card's name and power limit (nvidia-smi), one JSON line with
 each kernel's numbers (``launches``: from the main path's run of phases
 3-9 it was ported for, its eager and its replayed launches summed;
 apart, its replays in the captured frames of the frames phase and phase
-14, ``launches_eval_replayed``), and last {"ok": true, "device": {...}}.
+14, ``launches_eval_replayed``, and its device ms inside the sections
+phase's captured programs, ``captured_ms``), and last {"ok": true,
+"device": {...}}.
 """
 
 import contextlib
@@ -325,7 +349,6 @@ import datetime
 import json
 import math
 import os
-import re
 import shutil
 import statistics
 import subprocess
@@ -1843,16 +1866,17 @@ KERNEL_SYMBOLS = {
 }
 
 
-def kernel_symbol(name):
-    """(symbol, the field forward's epilogue or None) of a traced kernel's
-    demangled name, or None for a kernel of no csrc wrapper's."""
-    m = re.search(r"(\w+_kernel)\s*(?:<([^>]*)>)?\s*\(", name)
-    if m is None:
-        return None
-    if m.group(1) != "field_fwd_kernel":
-        return m.group(1), None
-    nums = re.findall(r"\d+", m.group(2) or "")
-    return m.group(1), int(nums[-1]) if nums else None
+# each wrapper's kernel by its PERF.md row, as the sections phase's split
+# groups the replayed kernels (texpose_tpu_torch/tools/step_sections.py)
+WRAPPER_ROWS = {"st_field_fwd": "row 1", "coarse_field_fwd": "row 7a",
+                "trunk_fwd": "row 10", "coarse_render_fwd": "row 8",
+                "st_render_fwd": "row 6f", "st_field_bwd": "row 2 (dX)",
+                "st_render_bwd": "row 6b (dX)",
+                "coarse_field_bwd": "row 7b (dX)",
+                "composite_st_fwd": "row 3", "composite_st_bwd": "row 4",
+                "composite_coarse_fwd": "row 9a",
+                "composite_coarse_bwd": "row 9b", "dw_gemm": "dw_gemm",
+                "dw_reduce": "dw_reduce"}
 
 
 _PROF_TOOL = []
@@ -1878,6 +1902,7 @@ def replay_trace(names):
     they launch themselves; ``["_symbols"]`` holds every kernel symbol
     the replays ran, with its count."""
     import torch
+    from texpose_tpu_torch.tools.step_sections import kernel_symbol
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     owner = {}
@@ -5060,6 +5085,117 @@ def frames_phase(here, tmp, dev, smi):
     return traced
 
 
+# The sections phase (between the frames phase and phase 14): the port's
+# decomposition tools (texpose_tpu_torch/tools/step_sections.py,
+# eval_stages.py) at full width.  SEC_TAGS: the chained sections run
+# (S5 apart, through the step runner); STAGE_FRAMES: the 480x640 frames of
+# the frame stages; the extra flags of the tools' engines (none on the
+# card).  The checks: a chained capture measures what the kernel alone
+# measures (S1 against row 1's CUDA-event time in this phase, within
+# SEC_ROW1_REL: the field op S1 chains, one call between events behind a
+# device spin, ``step_sections.op_ms`` — phase 2's one-call time also holds
+# the host's launch gaps, 0.82-1.22 ms between calls), the step runner what
+# the scan phase measures (S5 under the scan phase's deterministic cuDNN
+# against its captured ms a step, within SEC_STEP_REL), every replayed
+# kernel lands in one group and
+# "other" holds at most SEC_OTHER of a program's busy ms, and the frame's
+# stages add up to the stages in sequence (within SEC_STAGES_REL)
+SEC_TAGS = "12890" + "3"
+STAGE_FRAMES = 32
+SEC_EXTRA = ()
+SEC_ROW1_REL = 0.25
+SEC_STEP_REL = 0.15
+SEC_OTHER = 0.10
+SEC_STAGES_REL = 0.15
+
+
+def sections_phase(here, tmp, dev, smi, row1_ms, scan_step_ms):
+    """The sections phase: S1, S2, S8, S9, S0, S3 (chained captures,
+    marginal ms a body), row 1 alone (``op_ms``) and S5 (the captured step
+    through its runner, under the scan phase's deterministic cuDNN);
+    the device split by kernel group of the captured GAN, pretrain and
+    hierarchical steps and of the rows 1 + 3 (480x640) and row 8 (480x480)
+    frames; the trace's own cost in turns for the GAN step and the 480x640
+    frames; the frame stages over STAGE_FRAMES frames at 480x640.
+    ``row1_ms``: phase 2's CUDA-event time of row 1 (printed beside);
+    ``scan_step_ms``: the scan phase's captured GAN step → the readings."""
+    import tempfile as tf
+    from texpose_tpu_torch.tools import eval_stages as es
+    from texpose_tpu_torch.tools import step_sections as ss
+
+    was_tmp = tf.tempdir
+    tf.tempdir = tmp                        # fixtures and outputs under tmp
+    t0 = time.perf_counter()
+    bad = []
+    try:
+        gan = ss.gan_engine(dev, SEC_EXTRA)
+        sec = ss.Sections(gan)
+        out = {"sections": {}}
+        for tag in SEC_TAGS:
+            r = ss.run_section(sec, tag)
+            out["sections"][tag] = r
+            print(f"sections: {ss.SECTIONS[tag][0]}: {r['marginal_ms']:.4f} "
+                  f"ms a body (medians {r['marginal_median_ms']:.4f}); best "
+                  f"{r['best_ms']}, median {r['median_ms']} ms at depths "
+                  f"{r['depths']} [{smi}]", flush=True)
+            if not (math.isfinite(r["marginal_ms"]) and r["marginal_ms"] > 0):
+                bad.append(f"section {tag}: marginal {r['marginal_ms']}")
+        import torch
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True       # as the scan phase
+        try:
+            s5 = ss.engine_step_ms(gan)
+        finally:
+            torch.backends.cudnn.deterministic = was
+        out["sections"]["5"] = s5
+        print(f"sections: S5 official step {s5['ms_per_step']:.4f} ms a step "
+              f"(median {s5['median_ms']:.4f}, K {s5['scan_k']}, "
+              f"cudnn.deterministic); the scan phase's captured step "
+              f"{scan_step_ms:.4f} ms [{smi}]", flush=True)
+        s1 = out["sections"]["1"]["marginal_ms"]
+        alone = out["sections"]["1"]["op_alone_ms"] = ss.field_op_ms(sec)
+        print(f"sections: S1 {s1:.4f} ms against row 1 alone {alone:.4f} ms "
+              f"(the field op S1 chains, CUDA events behind a device spin; "
+              f"phase 2's one call {row1_ms:.4f} ms) [{smi}]", flush=True)
+        if abs(s1 - alone) > SEC_ROW1_REL * alone:
+            bad.append(f"S1 {s1} ms differs from row 1's {alone} ms by "
+                       f"more than {SEC_ROW1_REL:.0%}")
+        if not (math.isfinite(s5["ms_per_step"]) and s5["ms_per_step"] > 0) \
+                or abs(s5["ms_per_step"] - scan_step_ms) \
+                > SEC_STEP_REL * scan_step_ms:
+            bad.append(f"S5 {s5['ms_per_step']} ms differs from the scan "
+                       f"phase's {scan_step_ms} ms a step by more than "
+                       f"{SEC_STEP_REL:.0%}")
+        ev = ss.gan_eval_engine(dev, STAGE_FRAMES, SEC_EXTRA)
+        out["split"] = ss.split_all(
+            dev, SEC_EXTRA, log=lambda t: print(f"sections: {t}", flush=True),
+            gan=gan, ev=ev)
+        for name, r in out["split"].items():
+            if "turns" in r:
+                continue
+            if r["n_misgrouped"] or r["other_share"] > SEC_OTHER \
+                    or r["replays"] <= 0:
+                bad.append(f"split {name}: {r['n_misgrouped']} kernels in "
+                           f"no or two groups ({r['misgrouped']}), other "
+                           f"{r['other_share']:.3f} of busy (top "
+                           f"{r['other_top']}), {r['replays']} replays")
+        st = es.run_stages(ev, STAGE_FRAMES)
+        out["stages"] = st
+        print("sections: frame stages\n" + es.stages_text(st) + f" [{smi}]",
+              flush=True)
+        if abs(st["stage_sum_ms"] - st["sync_loop_ms"]) \
+                > SEC_STAGES_REL * st["sync_loop_ms"]:
+            bad.append(f"frame stages sum {st['stage_sum_ms']} ms against "
+                       f"sync_loop {st['sync_loop_ms']} ms")
+    finally:
+        tf.tempdir = was_tmp
+    print(f"sections: phase {time.perf_counter() - t0:.1f} s; "
+          + json.dumps(out, default=str), flush=True)
+    if bad:
+        fail("sections: " + "; ".join(bad))
+    return out
+
+
 # Phase 14's cut of the 1869-frame split: over ENVELOPE_N frames a leak of
 # 512 MB / ENVELOPE_N = 2 MB a frame (a quarter of one 480x640 frame's
 # ~7.4 MB of f32 RGB) crosses the tool's gate; ~15-20 s of sweep
@@ -5268,10 +5404,13 @@ def main():
         preprocess_video_phase(here, tmp, dev, smi)
         vis_phase(here, tmp, dev, smi)
         dp_phase(here, tmp, dev, smi)
-        scan_phase(here, tmp, dev, smi)
+        scan = scan_phase(here, tmp, dev, smi)
         quality_phase(here, tmp, dev, smi)
         f7_phase(here, tmp, dev, smi)
         eval_replays = list(frames_phase(here, tmp, dev, smi).values())
+        sections = sections_phase(
+            here, tmp, dev, smi, measured["st_field_fwd"]["ms"],
+            1e3 / scan["gan"]["captured_steps_s"])
         eval_replays.append(envelope_phase(here, tmp, dev, smi))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5305,6 +5444,12 @@ def main():
         measured[k]["launches_replayed"] = split["replayed"]
         measured[k]["launches_eval_replayed"] = sum(
             r.get(k, 0) for r in eval_replays)
+        # its device ms a step or a frame inside each captured program of
+        # the sections phase's split (traced)
+        measured[k]["captured_ms"] = {
+            name: r["groups_ms"][WRAPPER_ROWS[k]]
+            for name, r in sections["split"].items()
+            if WRAPPER_ROWS[k] in r.get("groups_ms", {})}
 
     src = {"st_field_fwd": ("texpose_tpu_torch/csrc/st_field.cu",
                             "texpose_tpu/kernels/fused_st_field.py:922"),

@@ -36,19 +36,22 @@ in the trunk kernel (row 10) and its heads plain.
 --train builds chip_smoke.py's train fixture (``train_argv``: 16 train
 images at 128x128, the seeded JAX-format pretrain checkpoint, the full
 width of configs/nerf_lm_adapt_gan.yaml), runs the train CLI for 5 steps
-cold, then prints:
+cold, then runs the steps as the train CLI runs them: K = ``scan_k()``
+steps a dispatch through ``engine.step_runner().dispatch(K)``, one
+captured CUDA graph a step after its warm-up (models/step_graph.py).  It
+prints:
 
   train_sweep:   warm steps/s and rays/s (2048 rays per step), twice, no
                  profiler;
-  train_profile: --steps warm steps under ``torch.profiler``: wall, device
-                 busy (union of device events), idle share, and kernel
-                 launches per step (the cudaLaunchKernel* calls);
+  train_profile: --steps warm captured steps under ``torch.profiler``:
+                 wall, device busy (union of device events), idle share,
+                 and kernel and graph launches per step;
   train_host:    CPU op self time per step;
-  train_stages:  per step-stage profiler range (``step/...`` in
-                 models/texture_gan.py): host ms/step and device ms/step;
-  train_device_ops / train_cpu_ops: the op tables, as above;
-  train_pack:    ms to repack the field's weights after an update (the
-                 head packs rebuild on every step), host clock.
+  train_device_ops / train_cpu_ops: the op tables, as above.
+A replay runs no profiler range and no wrapper, so the step's device time
+by stage and kernel group (the weight repacks included, which run inside
+the graph) comes from ``python -m texpose_tpu_torch.tools.step_sections
+--split``.
 With --st-mega the frames and steps render through the render kernels
 (--kernels.st_mega=true: the render forward; in a step the hybrid backward
 or, with TEXPOSE_MEGA_FULLBWD=1 in the environment, the fused one); the
@@ -57,12 +60,9 @@ train lines then take the prefix ``train_st_mega``.
 --pretrain builds chip_smoke.py's pretrain fixture (``pretrain_argv``: 16
 train images at 128x128, the full width of configs/nerf_lm_pretrain.yaml,
 2048 rays x 64 samples per step) and prints the same lines with the prefix
-``pretrain_`` (its stages are ``step/forward``, ``step/backward`` and
-``step/update`` of models/pretrain.py; every pack — trunk, head and the
-backward's transposed one — rebuilds after each update).  With --fine, the
-hierarchical pretrain (chip_smoke.py's hierarchical phase: a coarse and a
-fine field, 64 + 128 samples per ray), prefix ``hierarchical_``, both
-fields' packs in the repack line.
+``pretrain_``.  With --fine, the hierarchical pretrain (chip_smoke.py's
+hierarchical phase: a coarse and a fine field, 64 + 128 samples per ray),
+prefix ``hierarchical_``.
 
 The profiler's own cost lengthens the profiled wall, so the idle share
 there is an upper bound on the unprofiled one.  --trace writes the
@@ -78,35 +78,10 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
 
-
-def _union_ms(intervals):
-    """Total length of the union of [start, end) intervals in µs → ms."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3
-
-
-def trace_events(prof):
-    """A finished profile's events as (device type, correlation id, name,
-    start ns, end ns, user annotation) tuples, read from the profiler's
-    raw results: building its event tree (``prof.events()``) takes tens
-    of seconds over the 10^5 kernels of a traced sweep."""
-    res = getattr(prof.profiler, "kineto_results", None)
-    if res is None:
-        raise RuntimeError("the profiler keeps no kineto_results to read "
-                           "the trace from")
-    return [(e.device_type(), e.correlation_id(), e.name(), e.start_ns(),
-             e.end_ns(), getattr(e, "is_user_annotation", lambda: False)())
-            for e in res.events()]
+from texpose_tpu_torch.tools.step_sections import (  # noqa: E402
+    trace_events, union_ms as _union_ms)
 
 
 def _device_intervals(prof):
@@ -116,8 +91,7 @@ def _device_intervals(prof):
     from torch.autograd import DeviceType
     return [(start / 1e3, end / 1e3)
             for dev, _, name, start, end, user in trace_events(prof)
-            if dev == DeviceType.CUDA and not user
-            and not name.startswith("step/")]
+            if dev == DeviceType.CUDA and not user]
 
 
 def _median_ms(fn, reps=5):
@@ -237,20 +211,23 @@ def _device_key(avgs):
 def profile_train(eng, steps, trace, key="train"):
     import torch
     from torch.profiler import ProfilerActivity
+    runner = eng.step_runner()
+    K = eng.scan_k()
 
     def run(n):
-        for _ in range(n):
-            eng.train_step(eng.make_draws(eng.it))
+        # n steps as the train CLI runs them: dispatches of at most K
+        for done in range(0, n, K):
+            runner.dispatch(min(K, n - done))
         torch.cuda.synchronize()
 
-    run(3)
+    run(K)                      # the warm-up steps and the capture
     for k in range(2):
         t0 = time.perf_counter()
         run(steps)
         rate = steps / (time.perf_counter() - t0)
         print(f"{key}_sweep: warm unprofiled run {k}: {rate:.3f} steps/s = "
-              f"{rate * eng.rays_per_step():.1f} rays/s ({steps} steps)",
-              flush=True)
+              f"{rate * eng.rays_per_step():.1f} rays/s ({steps} steps, K "
+              f"{K}; {runner.route})", flush=True)
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -259,27 +236,21 @@ def profile_train(eng, steps, trace, key="train"):
     dev = _device_intervals(prof)
     busy = _union_ms(dev)
     avgs = prof.key_averages()
-    launches = sum(a.count for a in avgs
-                   if a.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+
+    def calls(*names):
+        return sum(a.count for a in avgs if a.key.startswith(names))
+
+    launches = calls("cudaLaunchKernel", "cuLaunchKernel")
+    graphs = calls("cudaGraphLaunch", "cuGraphLaunch")
     print(f"{key}_profile: wall {wall:.1f} ms ({wall / steps:.2f} ms/step); "
           f"device busy {busy:.1f} ms ({busy / steps:.2f} ms/step) over "
           f"{len(dev)} device events; device idle "
-          f"{100 * (1 - busy / wall):.1f} %; {launches / steps:.0f} kernel "
-          f"launches/step", flush=True)
+          f"{100 * (1 - busy / wall):.1f} %; {launches / steps:.1f} kernel + "
+          f"{graphs / steps:.1f} graph launches/step", flush=True)
     cpu_ms = sum(a.self_cpu_time_total for a in avgs) / 1e3
     print(f"{key}_host: {cpu_ms / steps:.2f} ms/step of CPU op self time",
           flush=True)
     dkey = _device_key(avgs)
-    dtot = dkey.replace("self_", "")
-    for a in avgs:
-        # the host-side range; its device time is that of the kernels it
-        # launched from this thread (autograd's backward kernels are
-        # launched from autograd's own thread and land in no range)
-        if a.key.startswith("step/") and a.cpu_time_total > 0:
-            host = a.cpu_time_total / 1e3 / steps
-            device = getattr(a, dtot, 0) / 1e3 / steps
-            print(f"{key}_stages: {a.key} host {host:.3f} ms/step, device "
-                  f"{device:.3f} ms/step", flush=True)
     print(f"{key}_device_ops:\n" + avgs.table(sort_by=dkey, row_limit=20),
           flush=True)
     print(f"{key}_cpu_ops:\n" + avgs.table(sort_by="self_cpu_time_total",
@@ -287,34 +258,6 @@ def profile_train(eng, steps, trace, key="train"):
     if trace:
         prof.export_chrome_trace(trace)
         print(f"{key}_profile: trace written to {trace}", flush=True)
-
-    w = eng.nerf.kernel_weights()
-    xw = w.trunk[0].w.shape[0]
-    if key in ("pretrain", "hierarchical"):
-        e3 = w.rgb[0].w.shape[0] - w.feat_dim
-        ws = [f.kernel_weights() for _, f in eng._fields()]
-
-        def repack():
-            for w in ws:
-                with torch.no_grad():
-                    for layer in w.trunk + w.rgb:   # bump every version
-                        layer.b.add_(0.0)
-                w.fwd_walk(xw, e3)
-                w.kernel_buffer_bwd(xw, e3)
-        what = f"trunk + head + transposed repack ({len(ws)} fields)"
-    else:
-        e3 = w.rgb[0].w.shape[0] - w.feat_dim \
-            - int(eng.cfg.nerf.N_latent_light)
-
-        def repack():
-            with torch.no_grad():
-                w.rgb[0].b.add_(0.0)          # bump a head tensor's version
-            w.fwd_walk(xw, e3)
-            w.kernel_buffers_bwd(e3)
-        what = "head repack"
-
-    print(f"{key}_pack: {what} after an update {_median_ms(repack):.3f}"
-          f" ms (host clock, synchronized)", flush=True)
 
 
 def main_train(args):
@@ -370,7 +313,6 @@ def main():
         sys.exit("profile_eval_torch: needs a CUDA device")
     sys.modules["jax"] = None
     sys.modules["texpose_tpu"] = None
-    sys.path.insert(0, HERE)
     if args.train or args.pretrain:
         return main_train(args)
     from chip_smoke import fixture_argv

@@ -43,6 +43,7 @@ import torch
 from ..parallel.mesh import (all_reduce_grads, all_reduce_scalars,
                              replicate, shard_axis)
 from ..utils import checkpoint as ckpt
+from ..utils import spans
 from ..utils.log import log
 from ..utils.metrics import MetricsWriter, NullWriter, StepTimer
 from ..utils.pipeline import EvalPrefetcher, to_device
@@ -384,17 +385,21 @@ class Engine:
     def _start_profiler(self):
         """--profile: a torch.profiler trace of the training loop (host,
         and the card's kernels where the run is on one), as the JAX loop's
-        jax.profiler trace; written by ``_stop_profiler``."""
+        jax.profiler trace; written by ``_stop_profiler``.  The program's
+        spans (utils/spans.py) record while it runs."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
+        spans.take()
         prof = torch.profiler.profile(activities=acts)
         prof.start()
         return prof
 
     def _stop_profiler(self, prof):
         """Ends the trace and writes it as a chrome-trace JSON to
-        <output_path>/profile/trace.json (the JAX loop's trace directory)."""
+        <output_path>/profile/trace.json (the JAX loop's trace directory),
+        with the spans of the threads the profiler does not record (the
+        evaluation's prefetch worker and PNG writer), a track each."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
@@ -402,6 +407,11 @@ class Engine:
         os.makedirs(prof_dir, exist_ok=True)
         fname = os.path.join(prof_dir, "trace.json")
         prof.export_chrome_trace(fname)
+        kept, dropped = spans.take()
+        spans.add_to_chrome_trace(fname, kept)
+        if dropped:
+            log.warn(f"{dropped} worker spans past the buffer's "
+                        f"{spans.CAPACITY} are not in the trace")
         log.info(f"torch.profiler trace → {fname}")
         return fname
 

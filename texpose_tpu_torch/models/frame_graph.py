@@ -48,7 +48,8 @@ route.  A frame that cannot be captured raises, naming the engine, the key
 and the route; it is never evaluated eagerly instead.  The wrappers' launch
 counts are those of the eager calls (``stats()``: each unit's warm call
 and its replays); the kernels of a replay are counted from a device trace
-(chip_smoke.py ``replay_trace``).
+(chip_smoke.py ``replay_trace``).  A call is the span ``frame/run``, its
+graph's launch ``frame/replay`` (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import numpy as np
 import torch
 
 from ..kernels import launch_counters
+from ..utils.spans import span
 from .step_graph import (bump_versions, follow_route, pack_holdings,
                          route_key, route_name)
 
@@ -153,21 +155,23 @@ class FrameRunner:
         device copies no later call touches.  ``inputs``: tensors, numpy
         arrays or numbers (0-d float32 slots); the key fixes their shapes.
         The unit's body is the one of the key's first call."""
-        follow_route(self)
-        unit = self.units.get(key)
-        with torch.inference_mode():
-            if unit is None:
-                unit = self.units[key] = _Unit(key, body, inputs,
-                                               self.device)
-            unit.load(inputs)
-            if not self.capturable:
-                return unit.body(**unit.slots)
-            if unit.graph is None:
-                self._warm(unit)
-                self._capture(unit)
-            unit.graph.replay()
-            unit.replays += 1
-            return _map(torch.clone, unit.out)
+        with span("frame/run"):
+            follow_route(self)
+            unit = self.units.get(key)
+            with torch.inference_mode():
+                if unit is None:
+                    unit = self.units[key] = _Unit(key, body, inputs,
+                                                   self.device)
+                unit.load(inputs)
+                if not self.capturable:
+                    return unit.body(**unit.slots)
+                if unit.graph is None:
+                    self._warm(unit)
+                    self._capture(unit)
+                with span("frame/replay"):
+                    unit.graph.replay()
+                unit.replays += 1
+                return _map(torch.clone, unit.out)
 
     def _warm(self, unit):
         """One eager call on the slots; the wrappers' launches of it are

@@ -52,7 +52,6 @@ from functools import partial
 import cv2
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..geometry.pose import get_novel_view_poses
 from ..nn.fields import init_nerf
@@ -64,6 +63,7 @@ from ..utils.log import log
 from ..utils.metrics import (frame_metrics, mse_to_psnr, png_bgr,
                              write_quant)
 from ..utils.pipeline import AsyncWriter
+from ..utils.spans import span
 from .base import Engine, compute_dtype
 from .losses import (masked_mse_loss, mse_loss, scale_invariant_depth_loss,
                      summarize_loss)
@@ -251,11 +251,12 @@ class PretrainEngine(Engine):
 
     def train_step(self, draws):
         """One step on the whole train split → the step's losses (device
-        scalars, with 'all').  Its stages are named profiler ranges
-        (``step/...``).  Under data parallelism ``draws`` are the global
-        draws; this rank renders its slice of the ray axis.  It reads the
-        step count, its progress and the rate on the device and moves the
-        count on there (``it_dev``), so a CUDA graph of it replays
+        scalars, with 'all').  Its stages are spans (``step/...``,
+        utils/spans.py), profiler ranges while a profiler runs.  Under
+        data parallelism ``draws`` are the global draws; this rank
+        renders its slice of the ray axis.  It reads the step count, its
+        progress and the rate on the device and moves the count on there
+        (``it_dev``), so a CUDA graph of it replays
         (models/step_graph.py)."""
         cfg = self.cfg
         draws = self.shard_draws(draws, {k: 1 for k in draws
@@ -263,7 +264,7 @@ class PretrainEngine(Engine):
         progress = self.progress() if cfg.get("c2f") is not None else None
         batch = self.train_batch
         B = batch["image"].shape[0]
-        with record_function("step/forward"):
+        with span("step/forward"):
             ray_idx = draws["ray_idx"][None].expand(B, -1)
             rays = (self.get_pose(batch, "train"), batch["intr"], ray_idx,
                     batch["z_near"], batch["z_far"], progress,
@@ -280,11 +281,11 @@ class PretrainEngine(Engine):
             total, loss = summarize_loss(
                 self.compute_loss(cfg, out, batch, ray_idx, self.mesh),
                 cfg.loss_weight)
-        with record_function("step/backward"):
+        with span("step/backward"):
             self.opt.zero_grad(set_to_none=True)
             total.backward()
             self.reduce_grads(self.opt)
-        with record_function("step/update"):
+        with span("step/update"):
             self.opt.step(self.it_dev)
         self.advance()
         return self.reduce_losses({k: v.detach() for k, v in loss.items()})
@@ -514,7 +515,13 @@ class PretrainEngine(Engine):
         PNG per frame and quant.txt; returns the mean PSNR and SSIM.  Frame
         i+1 loads and uploads while frame i renders; results are pulled one
         frame behind the dispatch; PNG encodes run on a writer thread.
-        Under data parallelism every rank renders and rank 0 writes."""
+        Under data parallelism every rank renders and rank 0 writes.  The
+        sweep is the span ``eval/sweep`` (``eval/pull`` a frame's result,
+        ``eval/quant``; the pipeline's spans in utils/pipeline.py)."""
+        with span("eval/sweep"):
+            return self._evaluate_full()
+
+    def _evaluate_full(self):
         cfg = self.cfg
         rgb_dir = os.path.join(cfg.output_path, "rgb")
         op_dir = os.path.join(cfg.output_path, "opacity")
@@ -527,14 +534,17 @@ class PretrainEngine(Engine):
 
         def flush_one(writer):
             i, fi, (p, s, lp, png, png_op) = pending.popleft()
-            rows[i] = {"psnr": float(p), "ssim": float(s),
-                       lpips_key: float(lp)}
-            if not self.is_writer:
-                return
+            with span("eval/pull"):
+                rows[i] = {"psnr": float(p), "ssim": float(s),
+                           lpips_key: float(lp)}
+                if not self.is_writer:
+                    return
+                png = np.ascontiguousarray(png.cpu().numpy())
+                png_op = np.ascontiguousarray(png_op.cpu().numpy())
             writer.submit(cv2.imwrite, os.path.join(rgb_dir, f"{fi:06d}.png"),
-                          np.ascontiguousarray(png.cpu().numpy()))
+                          png)
             writer.submit(cv2.imwrite, os.path.join(op_dir, f"{fi:06d}.png"),
-                          np.ascontiguousarray(png_op.cpu().numpy()))
+                          png_op)
 
         with torch.inference_mode(), AsyncWriter() as writer:
             for i, frame, sample in self.eval_frames(
@@ -550,7 +560,8 @@ class PretrainEngine(Engine):
         log.info(f"PSNR: {mean_psnr:8.2f}")
         log.info(f"SSIM: {mean_ssim:8.2f}")
         if self.is_writer:
-            write_quant(cfg.output_path, rows)
+            with span("eval/quant"):
+                write_quant(cfg.output_path, rows)
         return dict(psnr=mean_psnr, ssim=mean_ssim)
 
     def generate_videos_synthesis(self, N=60, fps=30):

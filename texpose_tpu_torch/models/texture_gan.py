@@ -48,7 +48,6 @@ from functools import partial
 import cv2
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..nn.discriminator import (apply_discriminator, init_discriminator,
                                  sn_normalize_disc)
@@ -70,6 +69,7 @@ from ..utils.log import log
 from ..utils.metrics import (frame_metrics, mse_to_psnr, png_bgr,
                              write_quant)
 from ..utils.pipeline import AsyncWriter, to_device
+from ..utils.spans import span
 from .base import Engine, compute_dtype
 from .losses import (gan_loss, lab_loss, mean_term, mse_loss, r1_penalty,
                      summarize_loss, uncertainty_reg_loss,
@@ -451,8 +451,8 @@ class TextureGANEngine(Engine):
     def train_step(self, draws):
         """One generator + discriminator step → the step's losses (device
         scalars: G losses with 'all', then the D losses).  Its stages are
-        named profiler ranges (``step/...``), which cost nothing without a
-        profiler and split a trace's host and device time by stage.  Under
+        spans (``step/...``, utils/spans.py): nothing without a profiler,
+        and ranges that split a trace's host and device time by stage.  Under
         data parallelism ``draws`` are the global draws; this rank steps its
         slice of the batch.  It reads the step count, its progress, the
         patch-scale anneal and the rates on the device and moves the count
@@ -464,7 +464,7 @@ class TextureGANEngine(Engine):
         draws = self.shard_draws(draws, {"patch": 1})
         progress = self.progress()
         patch_cfg = cfg.get("patch") or {}
-        with record_function("step/batch"):
+        with span("step/batch"):
             idx = draws["idx"]
             batch = {k: v[idx] for k, v in self.train_batch.items()}
             coords, scales = flex_patch_coords(
@@ -474,14 +474,14 @@ class TextureGANEngine(Engine):
                 scale_anneal=patch_cfg.get("scale_anneal", 0.0002))
 
         # ---- generator (heads + latents); trunk frozen ----
-        with record_function("step/gen_forward"):
+        with span("step/gen_forward"):
             total, loss, rgb, sup = self._gen_losses(batch, idx, coords,
                                                      scales, draws, progress)
-        with record_function("step/gen_backward"):
+        with span("step/gen_backward"):
             self.opt_nerf.zero_grad(set_to_none=True)
             total.backward()
             self.reduce_grads(self.opt_nerf)
-        with record_function("step/gen_update"):
+        with span("step/gen_update"):
             self.opt_nerf.step(it)
             ema_d = cfg.render.get("latent_ema")
             if ema_d:
@@ -493,14 +493,14 @@ class TextureGANEngine(Engine):
 
         # ---- discriminator (reuses the pre-update render) ----
         if self.disc is not None:
-            with record_function("step/disc_forward"):
+            with span("step/disc_forward"):
                 dtotal, dloss, sn2 = self._disc_losses(
                     rgb.detach(), sup, scales, draws, progress)
-            with record_function("step/disc_backward"):
+            with span("step/disc_backward"):
                 self.opt_disc.zero_grad(set_to_none=True)
                 dtotal.backward()
                 self.reduce_grads(self.opt_disc)
-            with record_function("step/disc_update"):
+            with span("step/disc_update"):
                 self.opt_disc.step(it)
                 with torch.no_grad():
                     for grp, vs in self.sn_state.items():
@@ -1081,7 +1081,13 @@ class TextureGANEngine(Engine):
         data.scene=scene_vis each frame is the paper-visual export
         (``_eval_frame_vis``): three 256-px crops, quant rows on the
         crop.  Under data parallelism every rank renders and rank 0
-        writes."""
+        writes.  The sweep is the span ``eval/sweep`` (``eval/pull`` a
+        frame's result, ``eval/quant``; the pipeline's spans in
+        utils/pipeline.py)."""
+        with span("eval/sweep"):
+            return self._evaluate_full()
+
+    def _evaluate_full(self):
         cfg = self.cfg
         vis_mode = cfg.data.scene == "scene_vis"
         test_path = cfg.render.get("save_path") or os.path.join(
@@ -1107,11 +1113,12 @@ class TextureGANEngine(Engine):
 
         def flush_one(writer):
             i, fi, idx_p, (p, s, lp, png) = pending.popleft()
-            rows[i] = {"psnr": float(p), "ssim": float(s),
-                       lpips_key: float(lp)}
-            if not self.is_writer:
-                return
-            png = png.cpu().numpy()
+            with span("eval/pull"):
+                rows[i] = {"psnr": float(p), "ssim": float(s),
+                           lpips_key: float(lp)}
+                if not self.is_writer:
+                    return
+                png = png.cpu().numpy()
             path = os.path.join(test_path, f"{fi:06d}.png")
             if idx_p is not None:
                 writer.submit(write_sparse_png, path, idx_p, png)
@@ -1149,5 +1156,6 @@ class TextureGANEngine(Engine):
         log.info(f"PSNR:  {mean_psnr:8.2f}")
         log.info(f"SSIM:  {mean_ssim:8.2f}")
         if self.is_writer:
-            write_quant(cfg.output_path, rows)
+            with span("eval/quant"):
+                write_quant(cfg.output_path, rows)
         return dict(psnr=mean_psnr, ssim=mean_ssim)

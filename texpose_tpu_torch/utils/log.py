@@ -1,13 +1,13 @@
-"""Colored console logging + EMA iteration timer.
+"""Colored console logging.
 
-Capability parity with the reference's util.Log / update_timer
-(the reference TexPose code, util.py:93-140), re-built without global state.
+Capability parity with the reference's util.Log (the reference TexPose
+code, util.py:93-140), re-built without global state; the iteration rate
+is utils/metrics.py ``StepTimer``.
 """
 
 from __future__ import annotations
 
 import sys
-import time
 
 
 class _Color:
@@ -59,30 +59,3 @@ class Log:
 
 
 log = Log()
-
-
-class Timer:
-    """Wall-clock timer with EMA per-iteration time and ETA estimation."""
-
-    def __init__(self, ema=0.99):
-        self.start = time.time()
-        self.it_start = None
-        self.it_mean = None
-        self._ema = ema
-
-    def tic(self):
-        self.it_start = time.time()
-
-    def toc(self):
-        it_time = time.time() - self.it_start
-        self.it_mean = (it_time if self.it_mean is None
-                        else self._ema * self.it_mean + (1 - self._ema) * it_time)
-        return it_time
-
-    def eta(self, it, max_it):
-        if self.it_mean is None:
-            return float("inf")
-        return self.it_mean * max(max_it - it, 0)
-
-    def elapsed(self):
-        return time.time() - self.start

@@ -6,7 +6,9 @@ frame i+1..i+depth while frame i renders: the host sample becomes pinned
 tensors copied with ``.to(device, non_blocking=True)`` (the JAX version's
 ``jax.device_put``).  ``AsyncWriter`` runs the per-frame PNG encodes on a
 writer thread, off the critical path; both re-raise a worker's exception
-at the consuming call.
+at the consuming call.  The worker's ``eval/load`` (``dataset[i]`` and
+the transform) and ``eval/upload``, the consumer's ``eval/wait`` and the
+writer's ``eval/png`` and ``eval/drain`` are spans (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import threading
 
 import numpy as np
 import torch
+
+from .spans import span
 
 
 class _Stop:
@@ -55,7 +59,8 @@ class EvalPrefetcher:
         self._q = queue.Queue(maxsize=max(int(depth), 1))
         self._stop = threading.Event()
         self._done = False
-        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread = threading.Thread(target=self._work, daemon=True,
+                                        name="eval-prefetch")
         self._thread.start()
 
     def _work(self):
@@ -63,12 +68,13 @@ class EvalPrefetcher:
             for i in range(len(self.dataset)):
                 if self._stop.is_set():
                     return
-                sample = self.dataset[i]
-                if self.transform is not None:
-                    frame = to_device(self.transform(sample), self.device,
-                                      batch=False)
-                else:
-                    frame = to_device(sample, self.device)
+                with span("eval/load"):
+                    sample = self.dataset[i]
+                    host = sample if self.transform is None \
+                        else self.transform(sample)
+                with span("eval/upload"):
+                    frame = to_device(host, self.device,
+                                      batch=self.transform is None)
                 self._put((i, frame, sample))
             self._put(_Stop())
         except BaseException as e:  # noqa: BLE001 — re-raised at consumer
@@ -90,7 +96,8 @@ class EvalPrefetcher:
         # first exception); the latch keeps a later next() from blocking
         if self._done:
             raise StopIteration
-        item = self._q.get()
+        with span("eval/wait"):
+            item = self._q.get()
         if isinstance(item, _Stop):
             self._done = True
             raise StopIteration
@@ -118,7 +125,8 @@ class AsyncWriter:
     def __init__(self, depth=8):
         self._q = queue.Queue(maxsize=max(int(depth), 1))
         self._err = None
-        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread = threading.Thread(target=self._work, daemon=True,
+                                        name="eval-writer")
         self._thread.start()
 
     def _work(self):
@@ -128,7 +136,8 @@ class AsyncWriter:
                 return
             fn, args = item
             try:
-                fn(*args)
+                with span("eval/png"):
+                    fn(*args)
             except BaseException as e:  # noqa: BLE001
                 if self._err is None:
                     self._err = e
@@ -140,8 +149,9 @@ class AsyncWriter:
         self._q.put((fn, args))
 
     def close(self):
-        self._q.put(_Stop())
-        self._thread.join(timeout=60.0)
+        with span("eval/drain"):
+            self._q.put(_Stop())
+            self._thread.join(timeout=60.0)
         if self._thread.is_alive():
             # a silent return here would report success while queued
             # writes are killed with the daemon thread at process exit
